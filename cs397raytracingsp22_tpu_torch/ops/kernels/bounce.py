@@ -1,0 +1,138 @@
+"""K1, the mega-bounce kernel: the whole depth-N path trace in one launch.
+
+`path_trace_cuda` launches csrc/bounce.cu (hand-written CUDA C++ for
+sm_90a, built by _build.py) for CUDA tensors; for CPU tensors it runs the
+plain version, render/integrator.py::path_trace, which is also what the
+kernel is held against on the card. It replaces the JAX package's
+ops/pallas/bounce.py::path_trace_pallas.
+
+`LAUNCHES` counts the kernel's launches (and nothing else), so a run can
+show that its main path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cs397raytracingsp22_tpu_torch.models.scene import SceneData
+from cs397raytracingsp22_tpu_torch.ops.kernels import _build
+from cs397raytracingsp22_tpu_torch.render import integrator
+from cs397raytracingsp22_tpu_torch.utils import threefry
+
+LANES = 128  # the kernel's gates: analytic primitives and materials
+LAUNCHES = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = [
+    _P, _P, _P, _I, _P, _P,  # o, d, uid, n, rad, segs
+    ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_float, ctypes.c_float,  # k0 k1 depth t_min t_max
+    _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
+    _P, _P, _P, _P,  # mesh_tri, mesh_nrm, sl, stream
+]
+
+
+def library() -> ctypes.CDLL:
+    """The built kernel library (builds it on first use)."""
+    lib = _build.load_library("bounce")
+    lib.rt_bounce_launch.argtypes = _ARGTYPES
+    lib.rt_bounce_launch.restype = _I
+    lib.rt_bounce_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_bounce_attrs.restype = _I
+    return lib
+
+
+def kernel_attrs() -> tuple[int, int]:
+    """(registers per thread, local spill bytes) of the compiled kernel."""
+    regs, local = _I(), _I()
+    rc = library().rt_bounce_attrs(ctypes.byref(regs), ctypes.byref(local))
+    if rc != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
+    return regs.value, local.value
+
+
+def scene_is_simple(scene: SceneData) -> bool:
+    """True when K1 can run the scene (bounce.py:285 in the JAX package):
+    every mesh dense with an explicit material, at most 128 materials and
+    at most 128 analytic primitives."""
+    if len(scene.dense_mesh_ids) != len(scene.meshes):
+        return False
+    if int(scene.mat_type.shape[0]) > LANES:
+        return False
+    if scene.n_spheres + scene.n_planes + scene.n_tris + scene.n_volumes > LANES:
+        return False
+    return all(m.mat_id >= 0 for m in scene.meshes)
+
+
+def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def path_trace_cuda(
+    scene: SceneData,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    uids: torch.Tensor,
+    rng_key,
+    path_depth: int,
+    max_trace_dist: float,
+    t_min: float = integrator.PATH_T_MIN,
+):
+    """Trace N ray chains with K1.
+
+    o, d: (N, 3) float32; uids: (N,) int32; rng_key: int seed or (2,) key
+    words. The kernel reads the scene's packed tables (kscene, kmesh_tri,
+    kmesh_nrm, ksl_bounds; models/scene.py::pack_kernel_tables).
+    Returns (radiance (N, 3) float32, segments int64 scalar tensor).
+
+    CPU tensors run the plain version (integrator.path_trace). CUDA
+    tensors launch the kernel on the current stream; anything the kernel
+    does not take, a failed build or a failed launch raises.
+    """
+    global LAUNCHES
+    if o.device.type == "cpu":
+        return integrator.path_trace(scene, o, d, uids, rng_key, path_depth, max_trace_dist)
+    if o.device.type != "cuda":
+        raise ValueError(f"path_trace_cuda takes CPU or CUDA tensors, got {o.device}")
+    if not scene_is_simple(scene):
+        raise ValueError("scene exceeds the mega-bounce kernel's gates (scene_is_simple)")
+    dev = o.device
+    n = o.shape[0]
+    _check("o", o, torch.float32, (n, 3), dev)
+    _check("d", d, torch.float32, (n, 3), dev)
+    _check("uids", uids, torch.int32, (n,), dev)
+    for key in ("kscene", "kmesh_tri", "kmesh_nrm", "ksl_bounds"):
+        t = getattr(scene, key)
+        _check(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
+    if n >= 2**31 // 3:
+        raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
+    if path_depth < 0:
+        raise ValueError("path_depth must be >= 0")
+    k0, k1 = threefry.key_pair(rng_key)
+    lib = library()
+    rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    segs = torch.empty((n,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.rt_bounce_launch(
+            o.data_ptr(), d.data_ptr(), uids.data_ptr(), n, rad.data_ptr(), segs.data_ptr(),
+            k0, k1, int(path_depth), float(t_min), float(max_trace_dist),
+            scene.kscene.data_ptr(), int(scene.kscene.numel()),
+            scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
+            int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
+            scene.kmesh_tri.data_ptr(), scene.kmesh_nrm.data_ptr(),
+            scene.ksl_bounds.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"mega-bounce kernel launch failed with CUDA error {rc}")
+    LAUNCHES += 1
+    return rad, segs.sum(dtype=torch.int64)

@@ -1,0 +1,214 @@
+"""Render driver: chunked batch rendering, on-device accumulation, image I/O.
+
+Mirrors `cs397raytracingsp22_tpu/render/driver.py` for one device. Pixels
+go in chunks (each chunk generates pixel×spp rays, traces them and sums
+per pixel); the per-chunk sums accumulate on the device in float32 and
+only the tonemapped u8 image comes back to the host. The RNG follows ray
+content, so chunk sizes never change the image.
+
+`render_chunk` sends CUDA tensors of a scene that passes
+`scene_is_simple` to the mega-bounce kernel (ops/kernels/bounce.py) and
+CPU tensors to the plain integrator. Nothing on the GPU path falls back
+to the CPU or to the plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from cs397raytracingsp22_tpu_torch.models.camera import Camera, ShadingMode
+from cs397raytracingsp22_tpu_torch.models.scene import Scene, SceneData
+from cs397raytracingsp22_tpu_torch.ops import tonemap as tonemap_ops
+from cs397raytracingsp22_tpu_torch.ops.kernels import bounce as bounce_kernel
+from cs397raytracingsp22_tpu_torch.utils import threefry
+
+# work budget of one chunk in ray·primitive·bounce units (driver.py:471)
+CHUNK_WORK_BUDGET = 1 << 36
+
+
+@dataclasses.dataclass
+class RenderStats:
+    """Per-render metrics."""
+
+    width: int = 0
+    height: int = 0
+    spp: int = 0
+    path_depth: int = 0
+    wall_seconds: float = 0.0
+    primary_rays: int = 0
+    path_segments: int = 0
+    chunks: int = 0
+    device: str = ""
+
+    @property
+    def primary_mrays_per_sec(self) -> float:
+        return self.primary_rays / (self.wall_seconds or 1e-9) / 1e6
+
+    @property
+    def segment_mrays_per_sec(self) -> float:
+        return self.path_segments / (self.wall_seconds or 1e-9) / 1e6
+
+    def summary(self) -> str:
+        return (
+            f"{self.width}x{self.height} @ {self.spp}spp depth {self.path_depth} | "
+            f"{self.wall_seconds:.3f}s wall, {self.chunks} chunk(s) | "
+            f"{self.primary_mrays_per_sec:.1f} Mrays/s primary, "
+            f"{self.segment_mrays_per_sec:.1f} Mrays/s segments | {self.device}"
+        )
+
+
+def _gen_chunk_rays(camera: Camera, pixel_ids, rng_key, sample_offset, spp: int, n_chains: int):
+    """Camera rays and chain uids for one chunk: (N, 3), (N, 3), (N,) int32."""
+    o, d = camera.generate_rays(rng_key, pixel_ids, spp=spp, sample_offset=sample_offset)
+    o = o.reshape(-1, 3)
+    d = d.reshape(-1, 3)
+    sample_ids = sample_offset + torch.arange(spp, dtype=torch.int32, device=pixel_ids.device)
+    uids = (pixel_ids.to(torch.int32)[:, None] * camera.aa_sample_count + sample_ids[None, :]).reshape(-1)
+    if n_chains > 1:
+        o = o.repeat_interleave(n_chains, dim=0)
+        d = d.repeat_interleave(n_chains, dim=0)
+        uids = (
+            uids[:, None] * n_chains
+            + torch.arange(n_chains, dtype=torch.int32, device=uids.device)
+        ).reshape(-1)
+    return o.contiguous(), d.contiguous(), uids.contiguous()
+
+
+def render_chunk(
+    scene: SceneData,
+    camera: Camera,
+    pixel_ids: torch.Tensor,
+    rng_key,
+    sample_offset: int,
+    spp: int,
+    n_chains: int = 1,
+):
+    """Render one pixel chunk at `spp` samples on pixel_ids' device.
+
+    Returns (radiance_sum (n_px, 3) — per-pixel SUM over this chunk's
+    samples — and the int64 count of traced segments)."""
+    if camera.shading_mode is ShadingMode.PHONG:
+        raise NotImplementedError("Phong shading is not ported yet")
+    if camera.nee:
+        raise NotImplementedError("next-event estimation (--nee) is not ported yet")
+    n_px = pixel_ids.shape[0]
+    o, d, uids = _gen_chunk_rays(camera, pixel_ids, rng_key, sample_offset, spp, n_chains)
+    if o.device.type == "cuda" and not bounce_kernel.scene_is_simple(scene):
+        raise NotImplementedError(
+            "scenes beyond the mega-bounce kernel's gates need the staged path, "
+            "which is not ported yet"
+        )
+    # K1 for CUDA tensors, its plain version for CPU tensors
+    radiance, segments = bounce_kernel.path_trace_cuda(
+        scene, o, d, uids, rng_key, camera.path_depth, camera.max_trace_dist
+    )
+    radiance = radiance.reshape(n_px, spp * n_chains, 3)
+    return radiance.sum(dim=1) / n_chains, segments
+
+
+def _finalize_image(pieces, n_px: int, spp: int, gamma: float) -> torch.Tensor:
+    """Mean, channel bleed, gamma, u8. pieces[ci][j] holds pixel ci + nc·j
+    (interleaved chunks): de-interleaving is a transpose, and the padding
+    of a ragged tail lands past n_px, where the slice drops it."""
+    full = torch.stack(pieces).transpose(0, 1).reshape(-1, 3)
+    mean = full[:n_px] / float(max(spp, 1))
+    return tonemap_ops.tonemap(mean, gamma)
+
+
+def chunk_pixels(scene_data: SceneData, camera: Camera, spp_chunk: int) -> int:
+    """Pixels per chunk from a work budget (ray segments × primitive
+    tests), rounded down to a power of two (driver.py:451-492)."""
+    n_px_total = camera.screen_width * camera.screen_height
+    per_px_rays = max(1, spp_chunk * max(1, camera.path_samples))
+    prim_tests = (
+        scene_data.n_spheres + scene_data.n_planes + scene_data.n_tris
+        + scene_data.n_volumes + sum(int(m.tri_verts.shape[0]) for m in scene_data.meshes)
+    )
+    work_per_px = per_px_rays * max(1, camera.path_depth) * max(16, prim_tests)
+    pixel_chunk = max(1, min(n_px_total, CHUNK_WORK_BUDGET // work_per_px))
+    if pixel_chunk < n_px_total:
+        pixel_chunk = 1 << (pixel_chunk.bit_length() - 1)
+    return pixel_chunk
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def render_to_image(
+    scene: Scene,
+    *,
+    device,
+    seed: int = 0,
+    pixel_chunk: Optional[int] = None,
+    spp_chunk: Optional[int] = None,
+    verbose: bool = True,
+    scene_data: Optional[SceneData] = None,
+) -> tuple[np.ndarray, RenderStats]:
+    """Full render on `device`: ((H, W, 3) uint8 image, RenderStats).
+
+    The Scene::render_to_image of tracing.rs:221-263: AA rays per pixel,
+    path trace, average, channel bleed + gamma + quantize. Pixel chunks
+    are interleaved (chunk ci holds pixels ci, ci+nc, …), so every chunk
+    is a statistical clone of the image.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render_to_image(device='cuda') needs a CUDA device")
+    cam = scene.camera
+    w, h = cam.screen_width, cam.screen_height
+    n_px_total = w * h
+    spp = cam.aa_sample_count
+    n_chains = max(1, cam.path_samples)
+    if n_px_total * spp * n_chains > 2**32:
+        raise ValueError(
+            f"{w}x{h} at {spp} spp x {n_chains} chains exceeds the 2^32 distinct "
+            "32-bit RNG uids — rays would repeat each other's draws"
+        )
+    if scene_data is None:
+        scene_data = scene.compile(device=device)
+    elif scene_data.device != device:
+        scene_data = scene_data.to(device)
+    spp_chunk = min(spp_chunk or spp, spp)
+    if pixel_chunk is None:
+        pixel_chunk = chunk_pixels(scene_data, cam, spp_chunk)
+    n_chunks = (n_px_total + pixel_chunk - 1) // pixel_chunk
+    rng_key = threefry.key_words(seed)
+
+    stats = RenderStats(width=w, height=h, spp=spp, path_depth=cam.path_depth,
+                        device=str(device))
+    _sync(device)
+    t_start = time.perf_counter()
+    pieces: list = [None] * n_chunks
+    seg_total = torch.zeros((), dtype=torch.int64, device=device)
+    lane = torch.arange(pixel_chunk, dtype=torch.int32, device=device) * n_chunks
+    for s0 in range(0, spp, spp_chunk):
+        s_count = min(spp_chunk, spp - s0)
+        for ci in range(n_chunks):
+            ids = lane + ci
+            rad, segs = render_chunk(
+                scene_data, cam, ids, rng_key, s0, s_count, n_chains
+            )
+            pieces[ci] = rad if pieces[ci] is None else pieces[ci] + rad
+            seg_total = seg_total + segs
+            stats.chunks += 1
+    img = _finalize_image(pieces, n_px_total, spp, cam.gamma).cpu().numpy().reshape(h, w, 3)
+    stats.path_segments = int(seg_total)
+    stats.wall_seconds = time.perf_counter() - t_start
+    stats.primary_rays = n_px_total * spp * n_chains
+    if verbose:
+        print("[render] " + stats.summary())
+    return img, stats
+
+
+def save_png(img: np.ndarray, path: str) -> None:
+    """Write an (H, W, 3) uint8 image as PNG (reference tracing.rs:546)."""
+    from PIL import Image
+
+    Image.fromarray(img, mode="RGB").save(path, format="PNG")
