@@ -5,7 +5,9 @@
 Phases, each printing one line and raising on failure (any failure exits
 nonzero):
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: nvcc builds the mega-bounce kernel (K1) from csrc/;
+  2. build: nvcc builds the mega-bounce kernel (K1), the scene-intersection
+     kernel (K2) and the big-mesh BVH traversal kernel (K3) from csrc/, one
+     nvcc each, all started together; prints registers and spills;
   3. K1 against its plain torch version on the card, bench scene
      (teapot_6k) at 64² × 4 spp, depth 8;
   4. the goldens (tests/goldens, seed 42) rendered through K1;
@@ -16,20 +18,45 @@ nonzero):
      render_to_image (best of 2 after a warm run);
   8. a torch.profiler trace of one bench frame and one time-to-64spp
      render: device busy time, first-to-last kernel span, the device's
-     idle share inside it and K1's share of the busy time (traces are
-     written to build/chip_smoke/).
-Phases 6 and 7 first hold a full-size K1 launch (all of the chunk's
+     idle share inside it, and the shares of K1 and of raygen (the
+     package's "raygen" span) in the busy time (traces are written to
+     build/chip_smoke/).
+  9. K2 and K3 against their plain versions on the card, on bounce-0
+     and bounce-2 rays of one full-size chunk (4,194,304 rays) of the
+     bench scene with teapot_6k (a dense mesh: K2's mesh scan) and with
+     the 32,832-triangle teapot (scenes/bench_teapot_32k.py: K2, then K3
+     on the teapot's object-space rays, as the staged path calls them);
+     then K3 on 4,194,304 rays aimed at the 32k teapot's box (t_max cut
+     to K2's t, as the staged path does), of which at least a tenth of
+     the sample must hit the teapot (the camera rays rarely reach it);
+ 10. the staged main path at full size: scenes/bench_teapot_32k.py at
+     512² × 64 spp, depth 8, through render_to_image (4 chunks of
+     4,194,304 rays), after one chunk's staged run is held to the plain
+     path on a strided sample; one warm render, then timed renders; peak
+     device memory;
+ 11. K2 and K3 timed against their plain versions on that chunk's
+     bounce-0 inputs, and K3 on the aimed rays;
+ 12. bounds: the work of each kernel on these inputs (the tests that the
+     plain versions count with their `stats` on a strided sample, scaled
+     to the launch) and the least time the card could take for it;
+ 13. a torch.profiler trace of one 32k render: device busy time, idle
+     share, and the shares of K2, K3, the compaction's sorts and the
+     package's "bounce_rng" and "raygen" spans.
+Phases 6, 7, 9 and 10 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
-rays: a ray's path depends only on its own o, d and uid, so the sample
+rays: a ray's result depends only on its own inputs, so the sample
 traced alone must give the same rows, bit for bit, and those rows must
-match the plain version within phase 3's tolerance.
+match the plain version within the kernel's tolerance (K1 and the staged
+path: phase 3's; K2 and K3: the same winner on >= 99.9% of rays, t, u, v
+within rtol 1e-4 / atol 1e-5 where it agrees).
 Then one JSON line describing the kernels, the card's nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
 
-The launch count in the kernels line is that of the main path only
-(the timed frames of phase 6 and the renders of phase 7): the counter
-is reset just before each and read just after; the launches that
-compare K1 with its plain version fall outside.
+The launch counts in the kernels line are those of the main paths only:
+K1's of the timed frames of phase 6 and the renders of phase 7, K2's and
+K3's of the timed renders of phase 10. Each counter is reset just before
+its path runs and read just after; the launches that compare a kernel
+with its plain version fall outside.
 """
 
 from __future__ import annotations
@@ -50,6 +77,22 @@ GOLDENS = {
 }
 RTOL, ATOL, MIN_FRAC = 1e-3, 1e-4, 0.995
 SAMPLE_STRIDE = 1021  # prime, so the sample covers every sub-pixel index
+# K2 and K3 against their plain versions: the same winner on >= 99.9% of
+# rays (a ray grazing an edge may flip when one rounding differs), and t,
+# u, v and the normals within rtol 1e-4 / atol 1e-5 where the winners
+# agree. Both kernels are built without FMA contraction and follow the
+# plain version's operation order, so most rows come out bit-identical;
+# the count of those is printed too.
+HIT_MIN_SAME, HIT_RTOL, HIT_ATOL = 0.999, 1e-4, 1e-5
+# the H100's published peaks (NVIDIA data sheet, SXM, 700 W): FP32 outside
+# the tensor cores and HBM3 bandwidth
+PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
+# FP32 operations per test, counted from the formulas of csrc/intersect.cuh
+# and csrc/bvh_traverse.cu (an add, multiply, divide, square root, min, max
+# or compare is one). The bounds count only the intersection tests, not
+# the shading, the RNG or integer work, so they are lower bounds.
+OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
+           mt_verts=59)
 
 
 def log(phase: str, msg: str) -> None:
@@ -97,21 +140,25 @@ def check_full_launch(bounce, integrator, data, o, d, uids, key, depth, max_dist
     """Hold a full-size K1 launch (rad_full, from o, d, uids) to the plain
     version on every SAMPLE_STRIDE-th ray. Returns (sample size, compare())."""
     idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=o.device)
-    so, sd, su = o[idx].contiguous(), d[idx].contiguous(), uids[idx].contiguous()
-    rows = rad_full[idx]
-    rad_s, segs_s = bounce.path_trace_cuda(data, so, sd, su, key, depth, max_dist)
-    if not torch.equal(rad_s, rows):
-        n = int((rad_s != rows).any(dim=1).sum())
-        raise AssertionError(f"{n} sampled rays traced alone differ from the full-size launch")
-    ref_rad, ref_segs = integrator.path_trace(data, so, sd, su, key, depth, max_dist)
-    return int(idx.numel()), compare(rows, segs_s, ref_rad, ref_segs, depth)
+    k1 = lambda o_, d_, u_: bounce.path_trace_cuda(data, o_, d_, u_, key, depth, max_dist)  # noqa: E731
+    sub, (rad_s, segs_s) = sample_alone("K1", k1, (rad_full,), (o, d, uids), idx)
+    ref_rad, ref_segs = integrator.path_trace(data, *sub, key, depth, max_dist)
+    return int(idx.numel()), compare(rad_s, segs_s, ref_rad, ref_segs, depth)
 
 
-def device_trace(name: str, fn) -> dict:
+def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
     """Run fn() once under torch.profiler and read the device's kernels
     from the trace: busy time (union of kernel intervals), the span from
     the first kernel's start to the last one's end, the idle share inside
-    that span, and K1's share of the busy time."""
+    that span, and for each label of `kernels` (label → a substring of the
+    kernel's name in any case, e.g. "bounce_kernel") the time of the
+    kernels so named and their share of the busy time; each must appear.
+
+    spans: labels of the record_function spans that the package opens
+    (driver._gen_chunk_rays: "raygen"; integrator._bounce_draws:
+    "bounce_rng"); the kernels launched inside them (matched to their
+    launch calls by the trace's correlation ids) are reported under the
+    label the same way."""
     from torch.profiler import ProfilerActivity, profile
 
     path = os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")
@@ -125,24 +172,408 @@ def device_trace(name: str, fn) -> dict:
     prof.export_chrome_trace(path)
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+    kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"],
+                   e.get("args", {}).get("correlation"))
                   for e in events if e.get("cat") == "kernel" and e.get("ph") == "X")
     if not kern:
         raise AssertionError(f"trace {name}: the profiler saw no kernel on the device")
     busy, cur_s, cur_e = 0.0, kern[0][0], kern[0][1]
-    for s, e, _ in kern[1:]:
+    for s, e, _, _ in kern[1:]:
         if s > cur_e:
             busy += cur_e - cur_s
             cur_s, cur_e = s, e
         else:
             cur_e = max(cur_e, e)
     busy += cur_e - cur_s
-    span = max(e for _, e, _ in kern) - kern[0][0]
-    k1 = sum(e - s for s, e, n in kern if "bounce_kernel" in n)
-    if k1 == 0.0:
-        raise AssertionError(f"trace {name}: K1 does not appear in the trace")
-    return dict(kernels=len(kern), wall_ms=wall * 1e3, busy_ms=busy / 1e3, span_ms=span / 1e3,
-                idle=1.0 - busy / span, k1_ms=k1 / 1e3, k1_share=k1 / busy)
+    span = max(k[1] for k in kern) - kern[0][0]
+    out = dict(kernels=len(kern), wall_ms=wall * 1e3, busy_ms=busy / 1e3, span_ms=span / 1e3,
+               idle=1.0 - busy / span, parts={})
+    for label, sub in kernels.items():
+        ms = sum(e - s for s, e, n, _ in kern if sub.lower() in n.lower()) / 1e3
+        if ms == 0.0:
+            raise AssertionError(f"trace {name}: no kernel named *{sub}* in the trace")
+        out["parts"][label] = ms
+    launches = [(float(e["ts"]), e.get("args", {}).get("correlation")) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and e.get("ph") == "X"]
+    for label in spans:
+        marks = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") == "user_annotation" and e.get("name") == label]
+        corr = {c for ts, c in launches if any(a <= ts <= b for a, b in marks)}
+        ms = sum(e - s for s, e, _, c in kern if c in corr) / 1e3
+        if ms == 0.0:
+            raise AssertionError(f"trace {name}: no kernel launched inside {label}")
+        out["parts"][label] = ms
+    out["shares"] = {k: v / (busy / 1e3) for k, v in out["parts"].items()}
+    return out
+
+
+def compare_hits(what: str, win, ref_win, vals, ref_vals) -> tuple[int, int, int, float]:
+    """A kernel's winners (tuple of int or bool tensors) and float outputs
+    (dict name → tensor) against its plain version's on the same rays: the
+    same winner on at least HIT_MIN_SAME of the rays, and every float
+    within HIT_RTOL / HIT_ATOL where the winners agree. Returns (rays,
+    rays with the same winner, rays whose every output is bit-identical,
+    max |diff| where the winners agree)."""
+    same = torch.ones_like(win[0], dtype=torch.bool)
+    for a, b in zip(win, ref_win):
+        same &= a == b
+    exact = same.clone()
+    n, n_same = same.numel(), int(same.sum())
+    if n_same < HIT_MIN_SAME * n:
+        raise AssertionError(f"{what}: {n - n_same} of {n} winners differ from the plain version")
+    err = 0.0
+    for name, a in vals.items():
+        b = ref_vals[name]
+        exact &= (a == b) if a.ndim == 1 else (a == b).all(dim=1)
+        a, b = a[same].double(), b[same].double()
+        if a.numel() == 0:
+            continue
+        diff = (a - b).abs()
+        bad = int((diff > HIT_ATOL + HIT_RTOL * b.abs()).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} values of {name} outside rtol {HIT_RTOL} atol "
+                                 f"{HIT_ATOL}, max |diff| {float(diff.max()):.3g}")
+        err = max(err, float(diff.max()))
+    return n, n_same, int(exact.sum()), err
+
+
+def sample_alone(what: str, fn, full, inputs, idx):
+    """fn on the rows idx of its inputs alone must give the rows idx of its
+    full-size outputs, bit for bit. Returns the sample's inputs and
+    outputs."""
+    sub = [x[idx].contiguous() for x in inputs]
+    alone = fn(*sub)
+    for a, b in zip(alone, full):
+        if not torch.equal(a, b[idx]):
+            raise AssertionError(f"{what}: the {idx.numel()} sampled rays traced alone differ "
+                                 "from the full-size launch's rows")
+    return sub, alone
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """(least milliseconds on the card, "bytes" or "operations")."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def analytic_ops(data) -> int:
+    """FP32 operations of one ray's analytic tests (every primitive)."""
+    return (data.n_spheres * OPS["sphere"] + data.n_planes * OPS["plane"]
+            + data.n_tris * OPS["triangle"] + data.n_volumes * OPS["volume"]
+            + len(data.dense_mesh_ids) * OPS["mesh_setup"])
+
+
+def k1_bound(data, o, d, uids, key, depth, max_dist, stride):
+    """(bound ms, bound_by, work) of one K1 launch on (o, d, uids): bytes =
+    o, d, uids in, radiance and segment counts out, the scene tables read
+    once; operations = the tests that a strided sample's segments need
+    (every analytic primitive, and the dense scan's boxes and triangles
+    from the plain path's stats), scaled to the launch."""
+    from cs397raytracingsp22_tpu_torch.render import integrator
+
+    idx = torch.arange(0, o.shape[0], stride, device=o.device)
+    st = {}
+    _, segs = integrator.path_trace(data, o[idx], d[idx], uids[idx], key, depth, max_dist,
+                                    stats=st)
+    w = dict(segments=int(segs), boxes=int(st["boxes"].sum()), tris=int(st["tris"].sum()))
+    scale = o.shape[0] / idx.numel()
+    ops = scale * (w["segments"] * analytic_ops(data) + w["boxes"] * OPS["box"]
+                   + w["tris"] * OPS["mt"])
+    n_bytes = (o.shape[0] * (12 + 12 + 4 + 12 + 4)
+               + nbytes(data.kscene, data.kmesh_tri, data.kmesh_nrm, data.ksl_bounds))
+    ms, by = bound(n_bytes, ops)
+    w.update(rays=idx.numel(), scale=scale, ops=ops, bytes=n_bytes)
+    return ms, by, w
+
+
+def k3_bound(mesh, ins, idx) -> tuple[float, str, dict]:
+    """(bound ms, bound_by, work) of one K3 launch on ins = (o, d, t_min,
+    t_max): bytes = the rays in, hit, t, tri, u, v out, the mesh's node
+    arrays and triangles once; operations = the interior boxes and
+    triangles that the plain traversal tests on the rays idx, scaled to
+    the launch, and the three reciprocals of each ray."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan_big
+
+    n = ins[0].shape[0]
+    st = {}
+    tri_scan_big.tri_scan_big_plain(mesh, *[x[idx] for x in ins], stats=st)
+    w = dict(boxes=int(st["boxes"].sum()), tris=int(st["tris"].sum()),
+             max_boxes=int(st["boxes"].max()), max_tris=int(st["tris"].max()))
+    ops = n / idx.numel() * (w["boxes"] * OPS["box"] + w["tris"] * OPS["mt_verts"]) + n * 3
+    n_bytes = (nbytes(*ins) + n * (1 + 4 + 4 + 4 + 4)
+               + nbytes(mesh.bounds_min, mesh.bounds_max, mesh.skip, mesh.leaf_start,
+                        mesh.leaf_count, mesh.tri_verts))
+    ms, by = bound(n_bytes, ops)
+    w.update(ops=ops, bytes=n_bytes)
+    return ms, by, w
+
+
+def aimed_rays(mesh, n: int, dev, seed: int = 0):
+    """n world rays of the bench scene that aim at a big mesh: from uniform
+    points of the room (the box of tests/test_torch_staged_kernels.py::
+    scene_rays) toward uniform points of the mesh's world-space root box."""
+    from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sel = torch.tensor([[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
+                       dtype=torch.float32, device=dev)
+    corners = vm.apply_mat4_point(mesh.transform,
+                                  mesh.bounds_min[0] * (1.0 - sel) + mesh.bounds_max[0] * sel)
+    lo, hi = corners.amin(dim=0), corners.amax(dim=0)
+    room_lo = torch.tensor([-2.4, 0.05, -2.4], device=dev)
+    room_hi = torch.tensor([2.4, 4.95, 3.0], device=dev)
+    o = room_lo + (room_hi - room_lo) * torch.rand((n, 3), generator=g, device=dev)
+    d = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=dev) - o
+    return o.contiguous(), d.contiguous()
+
+
+def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) -> list:
+    """Phases 9-11 and 13 and the bounds of K2 and K3 (see the module
+    docstring): data6k is the bench scene with teapot_6k compiled at
+    width x height; the 32k bench scene is built at the same size. Returns
+    the kernels line's entries of K2 and K3."""
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import bench_teapot_32k
+    from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    n_px = width * height
+    # ---- 9. K2 and K3 against their plain versions on the card ----
+    max_dist = 100.0
+    key = threefry.key_words(0)
+    sc32 = bench_teapot_32k.build(width, height, spp=spp, path_depth=depth)
+    sd32 = sc32.compile(device=dev)
+    cam32 = sc32.camera
+    mesh32 = sd32.meshes[0]
+    if sd32.dense_mesh_ids or mesh32.tri_verts.shape[0] != 32832:
+        raise AssertionError("the 32k bench scene must hold one big mesh of 32,832 triangles")
+    px32 = driver.chunk_pixels(sd32, cam32, spp)
+    nch32 = (n_px + px32 - 1) // px32
+    ids32 = torch.arange(px32, dtype=torch.int32, device=dev) * nch32  # chunk 0 of the render
+    o32, dir32, uid32 = driver._gen_chunk_rays(cam32, ids32, key, 0, spp, 1)
+    n32 = o32.shape[0]
+    idx = torch.arange(0, n32, SAMPLE_STRIDE, device=dev)
+    k2_err = k3_err = 0.0
+    k2_in = k3_in = None
+
+    def k2(sd):
+        return lambda *a: scene_intersect.scene_intersect_cuda(sd, *a)
+
+    for label, sd in (("teapot_6k", data6k), ("teapot_32k", sd32)):
+        o, d, thr = o32, dir32, torch.ones_like(o32)
+        rad = torch.zeros_like(o32)
+        alive = torch.ones((n32,), dtype=torch.bool, device=dev)
+        for b in range(3):
+            site = rnglib.SITE_BOUNCE0 + b
+            if b in (0, 2):
+                u_vol = integrator._bounce_draws(sd, key, uid32, site)[2].contiguous()
+                t_min = torch.full((n32,), integrator.PATH_T_MIN, device=dev)
+                t_max = torch.where(alive, torch.full_like(t_min, max_dist), torch.zeros_like(t_min))
+                inputs = (o.contiguous(), d.contiguous(), t_min, t_max, u_vol)
+                full_out = k2(sd)(*inputs)
+                sub, alone = sample_alone(f"K2 {label} bounce {b}", k2(sd), full_out, inputs, idx)
+                ref = scene_intersect.scene_intersect_plain(sd, *sub)
+                n, n_same, n_exact, err = compare_hits(
+                    f"K2 {label} bounce {b}", alone[1:4], ref[1:4],
+                    *(dict(t=x[0], u=x[4], v=x[5], normal=x[6]) for x in (alone, ref)))
+                k2_err = max(k2_err, err)
+                codes = alone[1]
+                log("parity-k2", f"{label} bounce {b}: one K2 launch of {n32} rays "
+                    f"({int(alive.sum())} live); every {SAMPLE_STRIDE}th ray ({n}) alone is "
+                    f"bit-identical to the launch's rows; {n_same}/{n} same (code, idx, mat) as "
+                    f"the plain version, {n_exact}/{n} bit-identical, t/u/v/normal max |diff| "
+                    f"{err:.3g}; sampled winners: "
+                    f"{int((codes < 0).sum())} miss, {int((codes == 4).sum())} dense mesh")
+                if label == "teapot_32k":
+                    o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh32, *inputs[:2]))
+                    t3 = torch.minimum(t_max, full_out[0])
+                    ins3 = (o_obj, d_obj, t_min, t3)
+                    k3f = lambda *a: tri_scan_big.tri_scan_big_cuda(mesh32, *a)  # noqa: E731
+                    full3 = k3f(*ins3)
+                    sub3, alone3 = sample_alone(f"K3 bounce {b}", k3f, full3, ins3, idx)
+                    ref3 = tri_scan_big.tri_scan_big_plain(mesh32, *sub3)
+                    n, n_same, n_exact, err = compare_hits(
+                        f"K3 bounce {b}", (alone3[0], alone3[2]), (ref3[0], ref3[2]),
+                        *(dict(t=x[1], u=x[3], v=x[4]) for x in (alone3, ref3)))
+                    k3_err = max(k3_err, err)
+                    log("parity-k3", f"teapot_32k bounce {b}: one K3 launch of {n32} object-space "
+                        f"rays (t_max = min(t_max, K2's t)); every {SAMPLE_STRIDE}th ray ({n}) "
+                        f"alone is bit-identical to the launch's rows; {n_same}/{n} same (hit, "
+                        f"tri) as traverse, {n_exact}/{n} bit-identical, t/u/v max |diff| "
+                        f"{err:.3g}; {int(alone3[0].sum())} "
+                        f"sampled hits")
+                    if b == 0:
+                        k2_in, k3_in = inputs, ins3
+            if b < 2:  # on to the next bounce through the staged path (K2 + K3)
+                o, d, thr, rad, alive, _ = integrator._bounce_update(
+                    sd, o, d, thr, rad, alive, uid32, key, site, max_dist,
+                    intersect=isect.intersect_scene)
+        del o, d, thr, rad, alive
+
+    # K2 then K3 on full-width rays aimed at the teapot, as the staged path
+    # calls them: the camera rays above rarely reach it
+    o_a, d_a = aimed_rays(mesh32, n32, dev)
+    t_min = torch.full((n32,), integrator.PATH_T_MIN, device=dev)
+    t_max = torch.full_like(t_min, max_dist)
+    u_vol = torch.full((n32, sd32.vol_center.shape[0]), 0.5, device=dev)  # the scene has no volume
+    t2 = scene_intersect.scene_intersect_cuda(sd32, o_a, d_a, t_min, t_max, u_vol)[0]
+    o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh32, o_a, d_a))
+    aim_in = (o_obj, d_obj, t_min, torch.minimum(t_max, t2))
+    k3f = lambda *a: tri_scan_big.tri_scan_big_cuda(mesh32, *a)  # noqa: E731
+    full3 = k3f(*aim_in)
+    sub3, alone3 = sample_alone("K3 aimed", k3f, full3, aim_in, idx)
+    ref3 = tri_scan_big.tri_scan_big_plain(mesh32, *sub3)
+    n, n_same, n_exact, err = compare_hits(
+        "K3 aimed", (alone3[0], alone3[2]), (ref3[0], ref3[2]),
+        *(dict(t=x[1], u=x[3], v=x[4]) for x in (alone3, ref3)))
+    k3_err = max(k3_err, err)
+    n_hit = int(alone3[0].sum())
+    if n_hit < n // 10:
+        raise AssertionError(f"K3 aimed: only {n_hit} of {n} sampled rays hit the teapot")
+    log("parity-k3", f"teapot_32k, rays aimed at the teapot's box: one K3 launch of {n32} "
+        f"object-space rays (t_max = min(t_max, K2's t)); every {SAMPLE_STRIDE}th ray ({n}) alone "
+        f"is bit-identical to the launch's rows; {n_same}/{n} same (hit, tri) as traverse, "
+        f"{n_exact}/{n} bit-identical, t/u/v max |diff| {err:.3g}; {n_hit} sampled hits "
+        f"({int(full3[0].sum())} in the launch)")
+    del o_a, d_a, t2, full3
+
+    # ---- 10. the staged main path at full size ----
+    rad_full, _ = integrator.path_trace_shrink(sd32, o32, dir32, uid32, key, depth, max_dist)
+    stage = lambda o, d, u: integrator.path_trace_shrink(  # noqa: E731
+        sd32, o, d, u, key, depth, max_dist)
+    sub, (rad_s, segs_s) = sample_alone("staged chunk", stage, (rad_full,), (o32, dir32, uid32), idx)
+    ref_rad, ref_segs = integrator.path_trace(sd32, *sub, key, depth, max_dist)
+    n_bad, err, seg_diff = compare(rad_s, segs_s, ref_rad, ref_segs, depth)
+    log("parity-staged", f"teapot_32k {width}²x{spp}spp depth {depth}, chunk 0 of {nch32}: one "
+        f"staged run of {n32} rays (uids {int(uid32.min())}..{int(uid32.max())}); every "
+        f"{SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone is bit-identical to the run's rows; "
+        f"{idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol {ATOL} of the plain path "
+        f"(integrator.path_trace on the card), max |diff| {err:.3g}, segments {int(segs_s)} vs "
+        f"{int(ref_segs)}")
+    del rad_full, ref_rad
+
+    def render32():
+        return driver.render_to_image(sc32, device=dev, seed=0, verbose=False, scene_data=sd32)
+
+    render32()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the staged main path's counts
+    runs32 = [render32() for _ in range(3)]
+    k2_launches, k3_launches = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    if k2_launches < 1 or k3_launches < 1:
+        raise AssertionError("the staged main path launched K2 or K3 no time")
+    img32, st32 = runs32[0]
+    if img32.max() == 0 or any(not np.array_equal(im, img32) for im, _ in runs32):
+        raise AssertionError("the 32k renders are all zero or differ from each other")
+    walls = [st.wall_seconds for _, st in runs32]
+    mean32 = sum(walls) / len(walls)
+    log("full-32k", f"bench teapot_32k {width}²x{spp}spp depth {depth} via render_to_image: "
+        f"{st32.chunks} chunks of {px32 * spp} rays, {st32.path_segments} segments; "
+        f"{mean32:.4f} s per image (mean of {len(walls)}: {', '.join(f'{w:.4f}' for w in walls)}) "
+        f"= {st32.path_segments / mean32 / 1e6:.2f} Mrays/s of segments; per image K2 launches "
+        f"{k2_launches // len(runs32)}, K3 launches {k3_launches // len(runs32)}; peak device "
+        f"memory {peak / 2**30:.2f} GiB; image u8 max {img32.max()}, mean {img32.mean():.2f}")
+
+    # ---- 11. K2 and K3 timing at the main path's shapes ----
+    k2_ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd32, *k2_in), 10)
+    k2_plain_ms = cuda_ms(lambda: scene_intersect.scene_intersect_plain(sd32, *k2_in), 2)
+    k3_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *k3_in), 10)
+    k3_plain_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_plain(mesh32, *k3_in), 1)
+    k3_aim_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *aim_in), 10)
+    log("timing-staged", f"teapot_32k chunk 0 bounce 0 ({n32} rays): K2 {k2_ms:.3f} ms, plain "
+        f"{k2_plain_ms:.3f} ms ({k2_plain_ms / k2_ms:.1f}x); K3 {k3_ms:.3f} ms, plain "
+        f"{k3_plain_ms:.3f} ms ({k3_plain_ms / k3_ms:.1f}x); K3 on {n32} rays aimed at the "
+        f"teapot {k3_aim_ms:.3f} ms")
+
+    # ---- 12. bounds of K2 and K3 at phase 11's inputs ----
+    st2 = {}
+    scene_intersect.scene_intersect_plain(sd32, *[x[idx] for x in k2_in], stats=st2)
+    scale = n32 / idx.numel()
+    k2_ops = n32 * analytic_ops(sd32) + scale * (int(st2["boxes"].sum()) * OPS["box"]
+                                                 + int(st2["tris"].sum()) * OPS["mt"])
+    # what the kernel moves: o, d, t_min, t_max and one u_vol column per
+    # volume in (it reads no padding column), 37 B of outputs out, the
+    # scene table and any dense-mesh rows once
+    k2_bytes = (n32 * (12 + 12 + 4 + 4 + 4 * sd32.n_volumes + 37) + nbytes(sd32.kscene)
+                + (nbytes(sd32.kmesh_tri, sd32.ksl_bounds) if sd32.dense_mesh_ids else 0))
+    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    log("bound-k2", f"teapot_32k chunk 0 bounce 0 ({n32} rays): {analytic_ops(sd32)} FP32 ops of "
+        f"analytic tests per ray, {int(st2['tris'].sum()) / idx.numel():.2f} dense-mesh triangles "
+        f"per sampled ray; {k2_ops:.4g} ops, {k2_bytes:.4g} B -> bound {k2_bound:.4f} ms "
+        f"({k2_by})")
+    k3b = {}
+    for what, ins3, ms in (("chunk 0 bounce 0", k3_in, k3_ms), ("aimed at the teapot", aim_in,
+                                                                  k3_aim_ms)):
+        b_ms, b_by, w = k3b[what] = k3_bound(mesh32, ins3, idx)
+        log("bound-k3", f"teapot_32k {what} ({n32} object-space rays); every {SAMPLE_STRIDE}th "
+            f"ray ({idx.numel()}) traversed by the plain version: {w['boxes'] / idx.numel():.2f} "
+            f"interior boxes and {w['tris'] / idx.numel():.2f} triangles tested per ray (max "
+            f"{w['max_boxes']} and {w['max_tris']}); {w['ops']:.4g} ops, {w['bytes']:.4g} B -> "
+            f"bound {b_ms:.4f} ms ({b_by}); K3 {ms:.3f} ms")
+
+    # ---- 13. device trace of one 32k render ----
+    tr = device_trace("teapot_32k", render32,
+                      {"K2": "scene_intersect_kernel", "K3": "bvh_traverse_kernel", "sort": "sort"},
+                      spans=("bounce_rng", "raygen"))
+    log("trace", "teapot_32k: " + f"{tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} ms in "
+        f"a {tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
+        f"{tr['wall_ms']:.3f} ms wall under the profiler; " + ", ".join(
+            f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items()))
+    return [{
+        "name": "scene_intersect",
+        "route": "cuda",
+        "source": "cs397raytracingsp22_tpu_torch/csrc/scene_intersect.cu",
+        "replaces": "cs397raytracingsp22_tpu/ops/pallas/scene_intersect.py:464",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": k2_plain_ms,
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": None,
+    }, {
+        "name": "bvh_traverse",
+        "route": "cuda",
+        "source": "cs397raytracingsp22_tpu_torch/csrc/bvh_traverse.cu",
+        "replaces": "cs397raytracingsp22_tpu/ops/pallas/tri_scan_big.py:251",
+        "launches": k3_launches,
+        "max_abs_err": k3_err,
+        "ms": k3_ms,
+        "plain_ms": k3_plain_ms,
+        "bound_ms": k3b["chunk 0 bounce 0"][0],
+        "bound_by": k3b["chunk 0 bounce 0"][1],
+        "library_ms": None,
+    }]
+
+
+def k1_bounds(dev, depth: int, launches) -> dict:
+    """Phase 12 for K1: its bound at each (width, height, spp, sample
+    stride) of `launches` on the bench scene with teapot_6k (seed 0).
+    Returns {(width, spp): (ms, bound_by, work)}."""
+    from cs397raytracingsp22_tpu_torch.render import driver
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+
+    out = {}
+    for w_, h_, spp_, stride in launches:
+        sc = bench_scene.build(w_, h_, spp=spp_, path_depth=depth)
+        sd = sc.compile(device=dev)
+        ids = torch.arange(w_ * h_, dtype=torch.int32, device=dev)
+        o, d, uids = driver._gen_chunk_rays(sc.camera, ids, 0, 0, spp_, 1)
+        ms, by, w = out[(w_, spp_)] = k1_bound(sd, o, d, uids, 0, depth, 100.0, stride)
+        log("bound-k1", f"bench teapot_6k {w_}²x{spp_}spp depth {depth}, {o.shape[0]} rays; every "
+            f"{stride}th ray ({w['rays']}): {w['segments']} segments, per segment "
+            f"{w['boxes'] / w['segments']:.2f} superleaf boxes and {w['tris'] / w['segments']:.2f} "
+            f"triangles tested; launch {w['ops']:.4g} FP32 ops, {w['bytes']:.4g} B -> bound "
+            f"{ms:.4f} ms ({by})")
+    return out
 
 
 def main() -> int:
@@ -157,20 +588,24 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from PIL import Image
 
-    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan_big
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import bench_scene, cornell
     from cs397raytracingsp22_tpu_torch.utils import threefry
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    bounce.library()
+    _build.build_all(["bounce", "scene_intersect", "bvh_traverse"])
     build_s = time.perf_counter() - t0
-    regs, spill = bounce.kernel_attrs()
-    ptxas = [ln.strip() for ln in _build.BUILD_INFO["bounce"]["log"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", f"K1 built in {build_s:.2f}s ({_build.BUILD_INFO['bounce']['seconds']:.2f}s nvcc); "
-        f"{regs} registers/thread, {spill} B local; ptxas: {' | '.join(ptxas)}")
+    for kid, name, mod in (("K1", "bounce", bounce), ("K2", "scene_intersect", scene_intersect),
+                           ("K3", "bvh_traverse", tri_scan_big)):
+        regs, spill = mod.kernel_attrs()
+        ptxas = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", f"{kid} csrc/{name}.cu ({_build.BUILD_INFO[name]['seconds']:.2f}s nvcc, all "
+            f"three in {build_s:.2f}s): {regs} registers/thread, {spill} B local; ptxas: "
+            f"{' | '.join(ptxas)}")
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -312,11 +747,17 @@ def main() -> int:
     for name, fn in (("bench_frame", frame),
                      ("t64", lambda: driver.render_to_image(sc64, device=dev, seed=0,
                                                             verbose=False, scene_data=d64))):
-        tr = device_trace(name, fn)
+        tr = device_trace(name, fn, {"K1": "bounce_kernel"}, spans=("raygen",))
         log("trace", f"{name}: {tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} ms in a "
             f"{tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
-            f"{tr['wall_ms']:.3f} ms wall under the profiler; K1 {tr['k1_ms']:.3f} ms "
-            f"({tr['k1_share']:.1%} of busy)")
+            f"{tr['wall_ms']:.3f} ms wall under the profiler; " + ", ".join(
+                f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items()))
+    del sums, full, frame
+
+    # ---- 9-11 and 13: the staged path (K2 and K3); 12: bounds ----
+    staged = staged_phases(dev, data, width, height, spp, depth)
+    k1b = k1_bounds(dev, depth, ((128, 128, 16, 16), (width, height, spp, SAMPLE_STRIDE)))
+    k1_bound_ms, k1_by, _ = k1b[(128, 16)]
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",
@@ -326,7 +767,10 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,
-    }]}))
+        "bound_ms": k1_bound_ms,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }] + staged}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 """Command-line renderer for the port:
 
-    python -m cs397raytracingsp22_tpu_torch.cli cs397raytracingsp22_tpu_torch/scenes/cornell.py -o out.png
+    python -m cs397raytracingsp22_tpu_torch.cli [scene.py] -o out.png
 
 A scene is any Python file exposing `build(**overrides) -> Scene` that
-builds with this package. Renders on the GPU by default; `--device cpu`
-runs the plain torch version. Options of the JAX CLI that this slice does
-not port yet raise a clear error instead of being ignored.
+builds with this package; without one, the bench scene with its
+32,832-triangle teapot (scenes/bench_teapot_32k.py) renders. Renders on
+the GPU by default; `--device cpu` runs the plain torch version. Options
+of the JAX CLI that the port does not have yet raise a clear error
+instead of being ignored.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ import argparse
 import ast
 import importlib.util
 import json
+import os
 import sys
+
+DEFAULT_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes",
+                             "bench_teapot_32k.py")
 
 _NOT_PORTED = {
     "checkpoint": "--checkpoint (checkpoint/resume)",
@@ -35,7 +41,8 @@ def load_scene_module(path: str):
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="PyTorch + CUDA path tracer")
-    p.add_argument("scene", help="scene script exposing build(**overrides)")
+    p.add_argument("scene", nargs="?", default=DEFAULT_SCENE,
+                   help="scene script exposing build(**overrides) (default: %(default)s)")
     p.add_argument("-o", "--output", default="render.png")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--width", type=int)

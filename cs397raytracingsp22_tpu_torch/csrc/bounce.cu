@@ -25,7 +25,9 @@
 // with world t; the plane normal flips with Rust signum; the sphere root is
 // t1 when t1 >= t_min, else t2 (geometry.rs:406-410); volume free flight
 // draws uniform 4+v of the bounce; a thread past the ray count does
-// nothing, so padding never counts as a segment.
+// nothing, so padding never counts as a segment. The class tests, the
+// dense-mesh scan and the analytic resolve are the device functions of
+// intersect.cuh, which the scene-intersection kernel (K2) shares.
 //
 // Arithmetic: Threefry in native uint32 gives the bits of
 // utils/threefry.py::bounce_uniforms. sincos_2pi and cbrt_fast are the
@@ -55,24 +57,15 @@
 //   shared memory, staged once per block, and the mesh rows (221 KB at
 //   6,144 triangles) are read through __ldg from L2.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "intersect.cuh"
 
 namespace {
+
+using namespace rt;
 
 constexpr int kThreads = 128;
 constexpr float kPi = 3.14159265358979f;
 constexpr float kTwoPi = 6.283185307179586f;
-constexpr float kMtEps = 1e-4f;
-
-// Row widths of the packed scene table (models/scene.py::pack_kernel_tables).
-constexpr int kSph = 5;    // cx cy cz r mat
-constexpr int kPln = 7;    // px py pz nx ny nz mat
-constexpr int kTri = 10;   // a(3) e1(3) e2(3) mat
-constexpr int kVol = 6;    // cx cy cz r density mat
-constexpr int kMat = 10;   // type albedo(3) emission(3) roughness metallic ior
-constexpr int kMesh = 38;  // inv R(9) inv t(3) normal matrix(9) R(9) t(3) mat start count sl_first sl_count
 
 // material type enum (models/materials.py); 0 = Lambertian is the switch's default
 constexpr int METAL = 1, DIELECTRIC = 2, PARAMETERIZED = 3, ISOTROPIC = 4;
@@ -156,18 +149,12 @@ __device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
 
 __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
   extern __shared__ float sm[];
-  for (int k = threadIdx.x; k < p.scene_len; k += blockDim.x) sm[k] = p.scene[k];
-  __syncthreads();
+  stage_table(sm, p.scene, p.scene_len);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
 
-  const float* sph = sm;
-  const float* pln = sph + kSph * p.n_sph;
-  const float* tri = pln + kPln * p.n_pln;
-  const float* vol = tri + kTri * p.n_tri;
-  const float* mat = vol + kVol * p.n_vol;
-  const float* msh = mat + kMat * p.n_mat;
+  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat);
 
   float ox = p.o[3 * i], oy = p.o[3 * i + 1], oz = p.o[3 * i + 2];
   float dx = p.d[3 * i], dy = p.d[3 * i + 1], dz = p.d[3 * i + 2];
@@ -181,130 +168,36 @@ __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
     ++segs;
     const uint32_t site = (uint32_t)(1 + depth) << 16;  // SITE_BOUNCE0 + depth
 
-    // ---------------- nearest hit ----------------
-    float best = CUDART_INF_F;
-    int cls = -1, widx = 0, wmesh = 0;
-    float bu = 0.0f, bv = 0.0f;
-
+    // ---------------- nearest hit (intersect.cuh) ----------------
+    Nearest h = nearest_none();
     const float a2 = dx * dx + dy * dy + dz * dz;
-    for (int s = 0; s < p.n_sph; ++s) {
-      const float* S = sph + kSph * s;
-      const float fx = ox - S[0], fy = oy - S[1], fz = oz - S[2];
-      const float b = 2.0f * (fx * dx + fy * dy + fz * dz);
-      const float c = (fx * fx + fy * fy + fz * fz) - S[3] * S[3];
-      const float disc = b * b - 4.0f * a2 * c;
-      if (disc >= 0.0f) {
-        const float sq = sqrtf(disc);
-        const float t1 = (-b - sq) / (2.0f * a2);
-        const float t2 = (-b + sq) / (2.0f * a2);
-        const float t = t1 >= tmin ? t1 : t2;
-        if (t >= tmin && t <= tmax && t < best) { best = t; cls = 0; widx = s; }
-      }
-    }
-    for (int q = 0; q < p.n_pln; ++q) {
-      const float* P = pln + kPln * q;
-      const float od = (ox - P[0]) * P[3] + (oy - P[1]) * P[4] + (oz - P[2]) * P[5];
-      const float sg = od >= 0.0f ? 1.0f : -1.0f;
-      const float dd = dx * (sg * P[3]) + dy * (sg * P[4]) + dz * (sg * P[5]);
-      const float t = fabsf(od) / fabsf(dd);
-      if (dd < 0.0f && t >= tmin && t <= tmax && t < best) { best = t; cls = 1; widx = q; }
-    }
-    for (int q = 0; q < p.n_tri; ++q) {
-      const float* T = tri + kTri * q;
-      const float qx = dy * T[8] - dz * T[7], qy = dz * T[6] - dx * T[8], qz = dx * T[7] - dy * T[6];
-      const float det = T[3] * qx + T[4] * qy + T[5] * qz;
-      if (fabsf(det) >= kMtEps) {
-        const float f = 1.0f / det;
-        const float sx = ox - T[0], sy = oy - T[1], sz = oz - T[2];
-        const float u = f * (sx * qx + sy * qy + sz * qz);
-        const float rx = sy * T[5] - sz * T[4], ry = sz * T[3] - sx * T[5], rz = sx * T[4] - sy * T[3];
-        const float v = f * (dx * rx + dy * ry + dz * rz);
-        const float t = f * (T[6] * rx + T[7] * ry + T[8] * rz);
-        if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= tmin && t <= tmax && t < best) {
-          best = t; cls = 2; widx = q;
-        }
-      }
-    }
+    scan_spheres(R.sph, p.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
+    scan_planes(R.pln, p.n_pln, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
+    scan_triangles(R.tri, p.n_tri, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
     uint32_t w0 = 0, w1 = 0;
     for (int q = 0; q < p.n_vol; ++q) {
-      const float* V = vol + kVol * q;
       // free-flight uniform = draw 4+q: block 1 + q/2, 24-bit
       if ((q & 1) == 0) threefry2x32(p.k0, p.k1, uid, site + 1u + (uint32_t)(q >> 1), w0, w1);
       const float uq = (float)(((q & 1) ? w1 : w0) >> 8) * 5.9604644775390625e-08f;
-      const float fx = ox - V[0], fy = oy - V[1], fz = oz - V[2];
-      const float b = 2.0f * (fx * dx + fy * dy + fz * dz);
-      const float c = (fx * fx + fy * fy + fz * fz) - V[3] * V[3];
-      const float disc = b * b - 4.0f * a2 * c;
-      if (disc >= 0.0f) {
-        const float sq = sqrtf(disc);
-        const float t1 = (-b - sq) / (2.0f * a2);
-        const float t2 = (-b + sq) / (2.0f * a2);
-        const bool exit_ok = t2 >= t1 + 1e-4f;
-        const bool in_range = t2 >= tmin && t1 <= tmax;
-        const float t_start = fmaxf(t1, tmin);
-        const float t_end = fminf(t2, tmax);
-        const float dist = (-1.0f / V[4]) * logf(fmaxf(uq, 1e-38f));
-        const float t = t_start + dist;
-        if (exit_ok && in_range && dist < t_end - t_start && t < best) { best = t; cls = 3; widx = q; }
-      }
+      test_volume(R.vol + kVol * q, q, uq, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
     }
     for (int m = 0; m < p.n_mesh; ++m) {
-      const float* X = msh + kMesh * m;
-      const float mox = X[0] * ox + X[1] * oy + X[2] * oz + X[9];
-      const float moy = X[3] * ox + X[4] * oy + X[5] * oz + X[10];
-      const float moz = X[6] * ox + X[7] * oy + X[8] * oz + X[11];
-      const float mdx = X[0] * dx + X[1] * dy + X[2] * dz;
-      const float mdy = X[3] * dx + X[4] * dy + X[5] * dz;
-      const float mdz = X[6] * dx + X[7] * dy + X[8] * dz;
-      const float ix = 1.0f / mdx, iy = 1.0f / mdy, iz = 1.0f / mdz;
-      const int start = (int)X[34], sl_first = (int)X[36], sl_count = (int)X[37];
-      for (int g = 0; g < sl_count; ++g) {
-        const float* B = p.sl + 6 * (sl_first + g);
-        const float t0x = (__ldg(B + 0) - mox) * ix, t1x = (__ldg(B + 3) - mox) * ix;
-        const float t0y = (__ldg(B + 1) - moy) * iy, t1y = (__ldg(B + 4) - moy) * iy;
-        const float t0z = (__ldg(B + 2) - moz) * iz, t1z = (__ldg(B + 5) - moz) * iz;
-        const float lo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmin));
-        const float hi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                               fminf(fmaxf(t0z, t1z), fminf(best, tmax)));
-        if (!(hi >= lo)) continue;  // the ray cannot reach this group before its best hit
-        const int r0 = start + 16 * g;
-        for (int k = 0; k < 16; ++k) {
-          const float* T = p.mesh_tri + 9 * (r0 + k);
-          const float ax = __ldg(T + 0), ay = __ldg(T + 1), az = __ldg(T + 2);
-          const float e1x = __ldg(T + 3), e1y = __ldg(T + 4), e1z = __ldg(T + 5);
-          const float e2x = __ldg(T + 6), e2y = __ldg(T + 7), e2z = __ldg(T + 8);
-          const float qx = mdy * e2z - mdz * e2y, qy = mdz * e2x - mdx * e2z, qz = mdx * e2y - mdy * e2x;
-          const float det = e1x * qx + e1y * qy + e1z * qz;
-          if (!(fabsf(det) >= kMtEps)) continue;
-          const float f = 1.0f / det;
-          const float sx = mox - ax, sy = moy - ay, sz = moz - az;
-          const float u = f * (sx * qx + sy * qy + sz * qz);
-          if (!(u >= 0.0f)) continue;
-          const float rx = sy * e1z - sz * e1y, ry = sz * e1x - sx * e1z, rz = sx * e1y - sy * e1x;
-          const float v = f * (mdx * rx + mdy * ry + mdz * rz);
-          const float t = f * (e2x * rx + e2y * ry + e2z * rz);
-          // t < tmax strictly: the spec's scan starts its running best at t_max
-          if (v >= 0.0f && u + v <= 1.0f && t >= tmin && t < fminf(best, tmax)) {
-            best = t; cls = 4; widx = r0 + k; wmesh = m; bu = u; bv = v;
-          }
-        }
-      }
+      scan_dense_mesh(R.msh + kMesh * m, m, p.mesh_tri, p.sl, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
     }
+    const float best = h.t;
+    const int cls = h.cls, widx = h.idx;
 
     if (cls < 0) break;  // miss: black background, the ray dies
 
     // ---------------- winner resolve ----------------
-    float px, py, pz, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-    bool ff = false;
+    float px, py, pz, nx, ny, nz;
+    bool ff;
     int mid;
-    if (cls == 4) {
-      const float* X = msh + kMesh * wmesh;
-      const float mox = X[0] * ox + X[1] * oy + X[2] * oz + X[9];
-      const float moy = X[3] * ox + X[4] * oy + X[5] * oz + X[10];
-      const float moz = X[6] * ox + X[7] * oy + X[8] * oz + X[11];
-      const float mdx = X[0] * dx + X[1] * dy + X[2] * dz;
-      const float mdy = X[3] * dx + X[4] * dy + X[5] * dz;
-      const float mdz = X[6] * dx + X[7] * dy + X[8] * dz;
+    if (cls == kClsMesh) {
+      const float* X = R.msh + kMesh * h.mesh;
+      float mox, moy, moz, mdx, mdy, mdz;
+      to_object(X, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);
+      const float bu = h.u, bv = h.v;
       const float* N = p.mesh_nrm + 9 * widx;
       const float w = 1.0f - bu - bv;
       float sx = bu * __ldg(N + 3) + bv * __ldg(N + 6) + w * __ldg(N + 0);
@@ -325,36 +218,9 @@ __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
       pz = X[27] * qx + X[28] * qy + X[29] * qz + X[32];
       mid = (int)X[33];
     } else {
-      px = ox + best * dx; py = oy + best * dy; pz = oz + best * dz;
-      if (cls == 0) {
-        const float* S = sph + kSph * widx;
-        const float vx = px - S[0], vy = py - S[1], vz = pz - S[2];
-        const float len = sqrtf(vx * vx + vy * vy + vz * vz + 1e-30f);
-        nx = vx / len; ny = vy / len; nz = vz / len;
-        ff = nx * dx + ny * dy + nz * dz < 0.0f;
-        mid = (int)S[4];
-      } else if (cls == 1) {
-        const float* P = pln + kPln * widx;
-        const float od = (ox - P[0]) * P[3] + (oy - P[1]) * P[4] + (oz - P[2]) * P[5];
-        const float sg = od >= 0.0f ? 1.0f : -1.0f;
-        nx = sg * P[3]; ny = sg * P[4]; nz = sg * P[5];
-        ff = nx * dx + ny * dy + nz * dz < 0.0f;
-        mid = (int)P[6];
-      } else if (cls == 2) {
-        const float* T = tri + kTri * widx;
-        const float cx = T[4] * T[8] - T[5] * T[7];
-        const float cy = T[5] * T[6] - T[3] * T[8];
-        const float cz = T[3] * T[7] - T[4] * T[6];
-        const float len = sqrtf(cx * cx + cy * cy + cz * cz + 1e-30f);
-        nx = cx / len; ny = cy / len; nz = cz / len;
-        ff = nx * dx + ny * dy + nz * dz < 0.0f;
-        mid = (int)T[9];
-      } else {
-        mid = (int)(vol + kVol * widx)[5];  // zero normal, back face
-      }
-      if (cls != 3 && !ff) { nx = -nx; ny = -ny; nz = -nz; }
+      resolve_analytic(R, cls, widx, best, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff, mid);
     }
-    const float* M = mat + kMat * mid;
+    const float* M = R.mat + kMat * mid;
     rr += tr * M[4];
     rg += tg * M[5];
     rb += tb * M[6];

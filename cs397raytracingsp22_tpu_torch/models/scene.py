@@ -1,12 +1,14 @@
 """Scene description → flat tables on a torch device.
 
-Mirrors `cs397raytracingsp22_tpu/models/scene.py` for the scenes the
-mega-bounce kernel runs: spheres, planes, standalone triangles,
-sphere-bounded volumes and dense meshes with an explicit material. The
-tables are built with the same numpy arithmetic, so they equal the JAX
-package's bit for bit. Textured meshes, general-boundary volumes and
-meshes beyond the dense budget raise NotImplementedError: they render
-through the staged path, a later slice of the port.
+Mirrors `cs397raytracingsp22_tpu/models/scene.py` for spheres, planes,
+standalone triangles, sphere-bounded volumes and meshes with an explicit
+material. Meshes within the dense budget feed the dense scans of the
+mega-bounce and scene-intersection kernels; every mesh also carries its
+threaded BVH (the node arrays of ops/bvh.py::FlatBVH) for the traversal
+of meshes beyond that budget. The tables are built with the same numpy
+arithmetic, so they equal the JAX package's bit for bit. Textured meshes
+and general-boundary volumes raise NotImplementedError: they are a later
+slice of the staged path.
 """
 
 from __future__ import annotations
@@ -30,16 +32,30 @@ from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 
 SceneObject = Union[Sphere, Triangle, Plane, ConvexVolume, StaticMesh]
 
-_STAGED = "the staged path (textures, general volumes, big meshes) is not ported yet"
+_STAGED = ("not ported yet (a later slice of the staged path: textures and "
+           "general-boundary volumes)")
 
 
 def _to(x, device):
     return x.to(device) if torch.is_tensor(x) else x
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device), refusing a CUDA device on a machine without
+    one (nothing falls back to the CPU: pass device="cpu" for that)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass device='cpu' "
+            "to run its plain torch version on the CPU"
+        )
+    return device
+
+
 @dataclasses.dataclass
 class MeshBlock:
-    """One compiled dense StaticMesh, triangles in BVH order."""
+    """One compiled StaticMesh, triangles in BVH order, with its threaded
+    BVH (ops/bvh.py::FlatBVH node arrays; leaves index tri_verts rows)."""
 
     tri_verts: torch.Tensor  # (NT, 3, 3) object-space corners
     tri_table: torch.Tensor  # (NT, 9) [a, b-a, c-a]
@@ -47,7 +63,13 @@ class MeshBlock:
     transform: torch.Tensor  # (4, 4)
     inv_transform: torch.Tensor  # (4, 4)
     normal_mat: torch.Tensor  # (3, 3) = inv_transform[:3,:3].T
+    bounds_min: torch.Tensor  # (NN, 3) node AABB
+    bounds_max: torch.Tensor  # (NN, 3)
+    skip: torch.Tensor  # (NN,) int32 next node on an AABB miss (NN = done)
+    leaf_start: torch.Tensor  # (NN,) int32 first row of a leaf; -1 interior
+    leaf_count: torch.Tensor  # (NN,) int32
     mat_id: int
+    leaf_size: int
 
     def to(self, device) -> "MeshBlock":
         return dataclasses.replace(
@@ -131,7 +153,7 @@ class Scene:
     point_light_pos: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     ambient: Tuple[float, float, float] = (0.0, 0.0, 0.0)
 
-    def compile(self, leaf_size: int = 4, device="cpu") -> SceneData:
+    def compile(self, leaf_size: int = 4, device="cuda") -> SceneData:
         return compile_scene(self, leaf_size=leaf_size, device=device)
 
 
@@ -179,7 +201,8 @@ def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, leaf_size: int) ->
     idx = mesh.indices
     verts = mesh.positions[idx]
     normals = mesh.normals[idx]
-    order = bvhlib.build_bvh(verts, leaf_size=leaf_size).tri_order
+    flat = bvhlib.build_bvh(verts, leaf_size=leaf_size)
+    order = flat.tri_order
     rv = verts[order]
     tri_table = np.concatenate(
         [rv[:, 0], rv[:, 1] - rv[:, 0], rv[:, 2] - rv[:, 0]], axis=1
@@ -192,12 +215,19 @@ def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, leaf_size: int) ->
         transform=np.asarray(sm.transform, np.float32),
         inv_transform=np.asarray(sm.inv_transform, np.float32),
         normal_mat=np.asarray(sm.inv_transform[:3, :3].T, np.float32).copy(),
+        bounds_min=flat.bounds_min,
+        bounds_max=flat.bounds_max,
+        skip=flat.skip,
+        leaf_start=flat.leaf_start,
+        leaf_count=flat.leaf_count,
+        leaf_size=leaf_size,
         mat_id=mats.add(sm.material),
     )
 
 
-def compile_scene(scene: Scene, leaf_size: int = 4, device="cpu") -> SceneData:
-    """Lower a Scene into tables (numpy on the host), then onto `device`."""
+def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
+    """Lower a Scene into tables (numpy on the host), then onto `device`
+    (the card by default)."""
     mats = MaterialTableBuilder()
     sph_center, sph_radius, sph_mat = [], [], []
     pln_point, pln_normal, pln_mat = [], [], []
@@ -278,8 +308,8 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cpu") -> SceneData:
     vol_np[len(vol_center):, :3] = 1e30
 
     # DENSE_MESH_MAX_TRIS bounds each dense mesh and their total; the
-    # smallest meshes are admitted first, as in the JAX package, and any
-    # mesh left over would need the (unported) big-mesh path
+    # smallest meshes are admitted first, as in the JAX package, and every
+    # mesh left over is a big mesh, traversed through its BVH
     cand = sorted(
         (i for i, m in enumerate(mesh_blocks)
          if m["tri_verts"].shape[0] <= bvhlib.DENSE_MESH_MAX_TRIS),
@@ -293,10 +323,6 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cpu") -> SceneData:
         chosen.append(i)
         total += nt_pad
     dense_ids = tuple(sorted(chosen))
-    if len(dense_ids) != len(mesh_blocks):
-        raise NotImplementedError(
-            f"meshes beyond {bvhlib.DENSE_MESH_MAX_TRIS} dense triangles: {_STAGED}"
-        )
 
     ranges, real_counts, tables = [], [], []
     cursor = 0
@@ -378,7 +404,7 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cpu") -> SceneData:
 
 
 _MESH_ARRAYS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_transform",
-                "normal_mat")
+                "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
 _STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
            "ksl_ranges", "dense_mesh_ids", "mat_types_present")
 PACKED = ("kscene", "kmesh_nrm")  # built by pack_kernel_tables, never passed in
@@ -432,29 +458,31 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, np.ndarray
     return kscene, kmesh_nrm
 
 
-def scene_data_from_numpy(arrays: dict, meta: dict, device="cpu") -> SceneData:
+def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
     """Build a SceneData from host arrays — `compile_scene`'s own, or the
     leaves of the JAX package's compiled SceneData as numpy, so that both
     packages run the same tables — and move it onto `device`.
 
     arrays: every tensor field of SceneData except `meshes` and the
       kernel's packed tables (PACKED, built here), plus "meshes": a list of
-      dicts holding the MeshBlock array fields.
+      dicts holding the MeshBlock array fields and "leaf_size".
     meta: the static counts (n_spheres, n_planes, n_tris, n_volumes,
       kmesh_ranges, ksl_ranges, dense_mesh_ids, mat_types_present) and
       "mesh_mat_ids", one material id per mesh.
+    `device` is the card unless the caller asks for the CPU.
     Raises NotImplementedError for what `compile_scene` also refuses.
     """
-    def t(x):
-        return torch.from_numpy(np.array(x)).to(device)  # a writable copy
-
     mesh_mat_ids = list(meta["mesh_mat_ids"])
     if any(m < 0 for m in mesh_mat_ids):
         raise NotImplementedError(f"texture-synthesized mesh material: {_STAGED}")
-    if len(meta["dense_mesh_ids"]) != len(arrays["meshes"]):
-        raise NotImplementedError(f"big meshes: {_STAGED}")
+    device = resolve_device(device)
+
+    def t(x):
+        return torch.from_numpy(np.array(x)).to(device)  # a writable copy
+
     meshes = tuple(
-        MeshBlock(**{k: t(m[k]) for k in _MESH_ARRAYS}, mat_id=int(mid))
+        MeshBlock(**{k: t(m[k]) for k in _MESH_ARRAYS}, mat_id=int(mid),
+                  leaf_size=int(m["leaf_size"]))
         for m, mid in zip(arrays["meshes"], mesh_mat_ids)
     )
     kscene, kmesh_nrm = pack_kernel_tables(arrays, meta)

@@ -1,12 +1,15 @@
-"""Mesh acceleration: host-side BVH build and the dense triangle scan.
+"""Mesh acceleration: host-side BVH build, the dense triangle scan and the
+threaded-BVH traversal.
 
-Mirrors `cs397raytracingsp22_tpu/ops/bvh.py` for what this slice runs.
-The BVH build (C++ through utils/native.py, or the Python median split
-below) orders a mesh's triangles so that consecutive rows are spatial
-neighbours; the compiled scene keeps that order, and the superleaf boxes
-over 16 consecutive rows (models/scene.py) cull whole groups in the CUDA
-kernel. Intersection itself is the dense Möller–Trumbore scan
-(`intersect_tris_scan`), the spec the mega-bounce kernel is held to.
+Mirrors `cs397raytracingsp22_tpu/ops/bvh.py`. The BVH build (C++ through
+utils/native.py, or the Python median split below) orders a mesh's
+triangles so that consecutive rows are spatial neighbours; the compiled
+scene keeps that order, and the superleaf boxes over 16 consecutive rows
+(models/scene.py) cull whole groups in the CUDA kernels. Dense meshes are
+intersected by the Möller–Trumbore scan (`intersect_tris_scan`), the spec
+of the mega-bounce and scene-intersection kernels; meshes beyond the dense
+budget by the stackless traversal of the threaded BVH (`traverse`), the
+plain version of the big-mesh traversal kernel (ops/kernels/tri_scan_big.py).
 """
 
 from __future__ import annotations
@@ -16,11 +19,13 @@ import dataclasses
 import numpy as np
 import torch
 
+from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
+
 MT_EPSILON = 1e-4  # Möller–Trumbore parallel-ray epsilon (geometry.rs:335)
 
 # Meshes at or below this many triangles (and at most this many in total
-# over a scene's meshes) take the dense path. Larger meshes need the
-# staged big-mesh path, which this slice does not port.
+# over a scene's meshes) take the dense path. Larger meshes are traversed
+# through their BVH on the staged path.
 DENSE_MESH_MAX_TRIS = 8192
 
 
@@ -104,6 +109,88 @@ def build_bvh(tri_verts: np.ndarray, leaf_size: int = 4, use_native: bool = True
         leaf_count=np.asarray(leaf_count, np.int32),
         tri_order=np.concatenate(order).astype(np.int32),
     )
+
+
+def slab_test(o, d, bmin, bmax, t_min, t_max):
+    """Vectorized AABB slab test (geometry.rs:52-68): o, d, bmin, bmax
+    (..., 3), t_min, t_max broadcastable to (...). Returns a bool mask.
+
+    A NaN lane (0·inf where a direction component is zero on a face) must
+    not constrain the interval, as Rust's f32::max/min ignore NaN: lo is
+    washed to -inf and hi to +inf with fmax/fmin."""
+    inv_d = 1.0 / d
+    t0 = (bmin - o) * inv_d
+    t1 = (bmax - o) * inv_d
+    neg = inv_d < 0.0
+    lo = torch.where(neg, t1, t0)
+    hi = torch.where(neg, t0, t1)
+    inf = torch.tensor(float("inf"), dtype=lo.dtype, device=lo.device)
+    tmin = torch.maximum(torch.amax(torch.fmax(lo, -inf), dim=-1), vm.as_f32(t_min, lo))
+    tmax = torch.minimum(torch.amin(torch.fmin(hi, inf), dim=-1), vm.as_f32(t_max, lo))
+    return tmax > tmin
+
+
+def traverse(o, d, t_min, t_max, bounds_min, bounds_max, skip, leaf_start, leaf_count,
+             tri_verts, leaf_size: int, stats: dict | None = None):
+    """Stackless threaded-BVH traversal for a ray batch (the spec of the
+    big-mesh traversal kernel).
+
+    o, d: (N, 3) rays in the mesh's object space; t_min, t_max: scalars or
+    (N,); node arrays as in FlatBVH; tri_verts (NT, 3, 3) in BVH order.
+    Returns (hit, t, tri_idx, u, v), tri_idx a row of tri_verts.
+
+    Each ray starts at the root. An interior node whose box the ray meets
+    within [t_min, best t] is entered (node + 1), otherwise skipped
+    (skip[node]). A leaf skips the box test, like the reference
+    (geometry.rs:95-97: flat axis-aligned triangles would fail the strict
+    slab test), tests its ≤ leaf_size triangles in order, each accepted at
+    t <= the running best (a later triangle at equal t wins), and moves
+    to skip[node]. All rays step in lockstep until every one is past the
+    last node.
+
+    stats: when a dict, receives per-ray int64 counts "boxes" (interior
+    nodes whose box was tested) and "tris" (triangles tested).
+    """
+    n = o.shape[0]
+    nn = bounds_min.shape[0]
+    nt = tri_verts.shape[0]
+    dev = o.device
+    t_min = vm.as_f32(t_min, o)
+    node = torch.zeros((n,), dtype=torch.int64, device=dev)
+    best_t = torch.broadcast_to(vm.as_f32(t_max, o), (n,)).clone()
+    best_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    if stats is not None:
+        stats["boxes"] = torch.zeros((n,), dtype=torch.int64, device=dev)
+        stats["tris"] = torch.zeros((n,), dtype=torch.int64, device=dev)
+    skip = skip.long()
+    while True:
+        active = node < nn
+        if not bool(active.any()):
+            break
+        node_c = torch.clamp(node, max=nn - 1)
+        ls = leaf_start[node_c].long()
+        lc = leaf_count[node_c].long()
+        is_leaf = ls >= 0
+        box_hit = slab_test(o, d, bounds_min[node_c], bounds_max[node_c], t_min, best_t)
+        for k in range(leaf_size):
+            tid = torch.clamp(ls + k, 0, nt - 1)
+            verts = tri_verts[tid]
+            valid, t, u, v = moller_trumbore(
+                o, d, verts[:, 0], verts[:, 1], verts[:, 2], t_min, best_t
+            )
+            valid = valid & active & is_leaf & (k < lc)
+            best_tri = torch.where(valid, (ls + k).to(torch.int32), best_tri)
+            best_u = torch.where(valid, u, best_u)
+            best_v = torch.where(valid, v, best_v)
+            best_t = torch.where(valid, t, best_t)
+        if stats is not None:
+            stats["boxes"] += (active & ~is_leaf).long()
+            stats["tris"] += torch.where(active & is_leaf, lc, 0)
+        nxt = torch.where(is_leaf | ~box_hit, skip[node_c], node_c + 1)
+        node = torch.where(active, nxt, node)
+    return best_tri >= 0, best_t, best_tri, best_u, best_v
 
 
 def moller_trumbore(o, d, va, vb, vc, t_min, t_max, eps=MT_EPSILON):

@@ -1,10 +1,19 @@
-"""Scene-level intersection in plain torch: per-class batched tests and the
-nearest-hit resolve.
+"""Scene-level intersection: per-class batched tests and the nearest-hit
+resolve.
 
-Mirrors `cs397raytracingsp22_tpu/ops/intersect.py::intersect_scene_jnp`
-for the scenes this slice runs (no textures, no general volumes, dense
-meshes only). It is the intersection half of the plain version of the
-mega-bounce kernel (ops/kernels/bounce.py).
+Mirrors `cs397raytracingsp22_tpu/ops/intersect.py` for scenes without
+textures or general-boundary volumes:
+- `intersect_scene_plain` is `intersect_scene_jnp`, in plain torch: the
+  spec, the intersection half of the mega-bounce kernel's plain version
+  (render/integrator.py::path_trace), and what CPU tensors run;
+- `intersect_scene_fused` is the staged path's intersection on the card:
+  the scene-intersection kernel K2 (ops/kernels/scene_intersect.py: every
+  analytic class and the dense meshes), then the big-mesh traversal
+  kernel K3 per mesh beyond the dense budget (ops/kernels/tri_scan_big.py)
+  with the running best t as its far bound, the merge, and one shading
+  resolve of the mesh winners;
+- `intersect_scene` picks the fused path for CUDA tensors and the plain
+  one for CPU tensors.
 
 Replicated reference quirks:
 - mesh hits keep object-space t and are compared with the world-space t
@@ -28,6 +37,7 @@ from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 _BIG = float("inf")
+CODE_MESH0 = 4  # winner code of mesh k in the fused path: 0-3 analytic classes, 4 + k
 
 
 @dataclasses.dataclass
@@ -62,7 +72,7 @@ def _gather_material(scene: SceneData, mid: torch.Tensor) -> dict:
 
 def _col(x, like: torch.Tensor) -> torch.Tensor:
     """A scalar-or-(N,) t bound as a column against (N, K) candidates."""
-    x = torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    x = vm.as_f32(x, like)
     return x[:, None] if x.ndim == 1 else x
 
 
@@ -160,55 +170,55 @@ def resolve_mesh_hit(mesh: MeshBlock, o_obj, d_obj, t, tri, u, v):
     return dict(point=p_world, normal=n_world, frontface=frontface)
 
 
+def object_rays(mesh: MeshBlock, o, d):
+    """World rays in the mesh's object space, the direction not
+    renormalized (geometry.rs:304), so t compares across objects."""
+    return vm.apply_mat4_point(mesh.inv_transform, o), vm.apply_mat4_vector(mesh.inv_transform, d)
+
+
 def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dict:
-    """One dense mesh: object-space scan plus the shading resolve. t stays
-    in object space (comparable with world t because the direction is
-    transformed without renormalization, geometry.rs:304)."""
-    o_obj = vm.apply_mat4_point(mesh.inv_transform, o)
-    d_obj = vm.apply_mat4_vector(mesh.inv_transform, d)
-    hit, t, tri, u, v = bvhlib.intersect_tris_scan(o_obj, d_obj, mesh.tri_verts, t_min, t_max)
+    """One mesh: the dense scan (at most DENSE_MESH_MAX_TRIS triangles) or
+    the BVH traversal, then the shading resolve. t stays in object space."""
+    o_obj, d_obj = object_rays(mesh, o, d)
+    if mesh.tri_verts.shape[0] <= bvhlib.DENSE_MESH_MAX_TRIS:
+        hit, t, tri, u, v = bvhlib.intersect_tris_scan(o_obj, d_obj, mesh.tri_verts, t_min, t_max)
+    else:
+        hit, t, tri, u, v = bvhlib.traverse(
+            o_obj, d_obj, t_min, t_max, mesh.bounds_min, mesh.bounds_max, mesh.skip,
+            mesh.leaf_start, mesh.leaf_count, mesh.tri_verts, mesh.leaf_size,
+        )
     fields = resolve_mesh_hit(mesh, o_obj, d_obj, t, tri, u, v)
-    fields.update(
-        _gather_material(scene, torch.full(t.shape, mesh.mat_id, dtype=torch.int32, device=t.device))
-    )
+    fields["mat"] = torch.full(t.shape, mesh.mat_id, dtype=torch.int32, device=t.device)
     fields["valid"] = hit
     fields["t"] = torch.where(hit, t, torch.full_like(t, _BIG))
     return fields
 
 
-def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:
-    """Nearest hit across every primitive class (tracing.rs:326-350).
-
-    o, d: (N, 3) world rays (directions may be unnormalized); t_min,
-    t_max: scalars or (N,); u_vol: (N, V) free-flight uniforms, V the
-    padded volume-table length.
-    """
+def analytic_candidates(scene: SceneData, o, d, t_min, t_max, u_vol) -> list[dict]:
+    """The nearest hit of each analytic class (spheres, planes, triangles,
+    volumes), each a dict of valid, t (inf when invalid), idx, point,
+    normal (front-facing; zero for volumes), frontface and mat (id)."""
     n = o.shape[0]
     dev = o.device
-    zeros3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    candidates: list[dict] = []
+    out = []
 
     t_s, i_s, v_s = intersect_spheres(scene, o, d, t_min, t_max)
     center = scene.sph_center[i_s.long()]
     p = o + t_s[:, None] * d
     n_out = vm.normalize(p - center, eps=1e-30)
     ff = vm.dot(n_out, d) < 0.0
-    candidates.append(dict(
-        valid=v_s, t=t_s, point=p,
-        normal=torch.where(ff[:, None], n_out, -n_out), frontface=ff,
-        **_gather_material(scene, scene.sph_mat[i_s.long()]),
-    ))
+    out.append(dict(valid=v_s, t=t_s, idx=i_s, point=p,
+                    normal=torch.where(ff[:, None], n_out, -n_out), frontface=ff,
+                    mat=scene.sph_mat[i_s.long()]))
 
     t_p, i_p, v_p = intersect_planes(scene, o, d, t_min, t_max)
     pln_n = scene.pln_normal[i_p.long()]
     pln_pt = scene.pln_point[i_p.long()]
     n_pre = vm.signum(vm.dot(o - pln_pt, pln_n))[:, None] * pln_n
     ff = vm.dot(n_pre, d) < 0.0
-    candidates.append(dict(
-        valid=v_p, t=t_p, point=o + t_p[:, None] * d,
-        normal=torch.where(ff[:, None], n_pre, -n_pre), frontface=ff,
-        **_gather_material(scene, scene.pln_mat[i_p.long()]),
-    ))
+    out.append(dict(valid=v_p, t=t_p, idx=i_p, point=o + t_p[:, None] * d,
+                    normal=torch.where(ff[:, None], n_pre, -n_pre), frontface=ff,
+                    mat=scene.pln_mat[i_p.long()]))
 
     t_t, i_t, v_t = intersect_triangles(scene, o, d, t_min, t_max)
     it = i_t.long()
@@ -216,25 +226,55 @@ def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
     e2 = scene.tri_c[it] - scene.tri_a[it]
     n_geo = vm.normalize(vm.cross(e1, e2), eps=1e-30)
     ff = vm.dot(n_geo, d) < 0.0
-    candidates.append(dict(
-        valid=v_t, t=t_t, point=o + t_t[:, None] * d,
-        normal=torch.where(ff[:, None], n_geo, -n_geo), frontface=ff,
-        **_gather_material(scene, scene.tri_mat[it]),
-    ))
+    out.append(dict(valid=v_t, t=t_t, idx=i_t, point=o + t_t[:, None] * d,
+                    normal=torch.where(ff[:, None], n_geo, -n_geo), frontface=ff,
+                    mat=scene.tri_mat[it]))
 
     n_vcols = scene.vol_center.shape[0]
     t_v, i_v, v_v = intersect_volumes(scene, o, d, t_min, t_max, u_vol[:, :n_vcols])
-    candidates.append(dict(
-        valid=v_v, t=t_v, point=o + t_v[:, None] * d,
-        normal=zeros3, frontface=torch.zeros((n,), dtype=torch.bool, device=dev),
-        **_gather_material(scene, scene.vol_mat[i_v.long()]),
-    ))
+    out.append(dict(valid=v_v, t=t_v, idx=i_v, point=o + t_v[:, None] * d,
+                    normal=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+                    frontface=torch.zeros((n,), dtype=torch.bool, device=dev),
+                    mat=scene.vol_mat[i_v.long()]))
+    return out
 
-    for mesh in scene.meshes:
-        candidates.append(intersect_mesh(mesh, scene, o, d, t_min, t_max))
 
-    # winner: argmin of raw t across classes, the earlier class on ties
-    # (object-space mesh t against world t — the reference's quirk)
+def dense_scan_counts(scene: SceneData, o, d, t_min, t_max, t_hit, stats: dict) -> None:
+    """Add to stats["boxes"] and stats["tris"] (per-ray int64) the tests
+    that the CUDA kernels' culled dense-mesh scan
+    (csrc/intersect.cuh::scan_dense_mesh) needs for rays whose nearest hit
+    is at t_hit (inf on a miss): every 16-triangle superleaf box of every
+    dense mesh, and the 16 rows of each box that the ray reaches within
+    [t_min, min(t_hit, t_max)]. The kernels cull against a running best
+    that only falls to t_hit, so they test at least as many. A ray with an
+    empty window (t_max < t_min: a dead ray) needs none."""
+    n = o.shape[0]
+    t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,))
+    t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,))
+    far = torch.fmin(t_hit, t_max)[:, None]
+    live = t_max >= t_min
+    boxes = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    tris = torch.zeros_like(boxes)
+    for k, mi in enumerate(scene.dense_mesh_ids):
+        o_obj, d_obj = object_rays(scene.meshes[mi], o, d)
+        first, count = scene.ksl_ranges[k]
+        b = scene.ksl_bounds[first:first + count]
+        inv = (1.0 / d_obj)[:, None, :]
+        t0 = (b[:, :3] - o_obj[:, None, :]) * inv
+        t1 = (b[:, 3:] - o_obj[:, None, :]) * inv
+        near, fa = torch.fmin(t0, t1), torch.fmax(t0, t1)  # the kernel's fminf / fmaxf
+        lo = torch.fmax(torch.fmax(near[..., 0], near[..., 1]),
+                        torch.fmax(near[..., 2], t_min[:, None]))
+        hi = torch.fmin(torch.fmin(fa[..., 0], fa[..., 1]), torch.fmin(fa[..., 2], far))
+        boxes += count * live
+        tris += 16 * ((hi >= lo) & live[:, None]).sum(dim=1)
+    stats["boxes"] = stats.get("boxes", 0) + boxes
+    stats["tris"] = stats.get("tris", 0) + tris
+
+
+def select_winner(candidates: list[dict], fields):
+    """(winner (N,) int64, {field: the winner's value}): the argmin of t
+    across candidates, the earlier candidate on ties."""
     winner = torch.argmin(torch.stack([c["t"] for c in candidates], dim=1), dim=1)
 
     def select(field):
@@ -246,11 +286,98 @@ def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
             out = torch.where(sel, candidates[g][field], out)
         return out
 
-    valid = torch.zeros((n,), dtype=torch.bool, device=dev)
+    return winner, {f: select(f) for f in fields}
+
+
+def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
+                          stats: dict | None = None) -> HitRecord:
+    """Nearest hit across every primitive class (tracing.rs:326-350).
+
+    o, d: (N, 3) world rays (directions may be unnormalized); t_min,
+    t_max: scalars or (N,); u_vol: (N, V) free-flight uniforms, V the
+    padded volume-table length. stats: when a dict, receives the dense
+    meshes' per-ray test counts (dense_scan_counts).
+    """
+    n = o.shape[0]
+    candidates = analytic_candidates(scene, o, d, t_min, t_max, u_vol)
+    for mesh in scene.meshes:
+        candidates.append(intersect_mesh(mesh, scene, o, d, t_min, t_max))
+
+    # winner: argmin of raw t across classes, the earlier class on ties
+    # (object-space mesh t against world t — the reference's quirk)
+    winner, sel = select_winner(candidates, ("t", "point", "normal", "frontface", "mat"))
+    if stats is not None:
+        dense_scan_counts(scene, o, d, t_min, t_max, sel["t"], stats)
+    valid = torch.zeros((n,), dtype=torch.bool, device=o.device)
     for g, c in enumerate(candidates):
         valid = valid | ((winner == g) & c["valid"])
     return HitRecord(
-        valid=valid,
-        **{f: select(f) for f in ("t", "point", "normal", "frontface", "mtype",
-                                  "albedo", "emission", "roughness", "metallic", "ior")},
+        valid=valid, t=sel["t"], point=sel["point"], normal=sel["normal"],
+        frontface=sel["frontface"], **_gather_material(scene, sel["mat"]),
     )
+
+
+def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:
+    """The staged path's intersection: K2 over the analytic classes and the
+    dense meshes, K3 per big mesh, merge, and one resolve of mesh winners
+    (intersect.py:559 in the JAX package, without textures and general
+    volumes). Same semantics as intersect_scene_plain.
+
+    Each big mesh is traversed with t_max = min(t_max, t so far) per ray —
+    hits already found cull its BVH (t is a valid bound because the ray
+    parameter is transform-invariant) — and replaces the running winner
+    only at a strictly smaller t. The wrappers launch their kernels for
+    CUDA tensors and run their plain versions for CPU tensors.
+    """
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+
+    n = o.shape[0]
+    o, d = o.contiguous(), d.contiguous()
+    t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,)).contiguous()
+    t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,)).contiguous()
+    u_vol = u_vol[:, :scene.vol_center.shape[0]].contiguous()
+    t, code, idx, mat, u, v, normal, ff = scene_intersect.scene_intersect_cuda(
+        scene, o, d, t_min, t_max, u_vol)
+    valid = code >= 0
+
+    n_dense = len(scene.dense_mesh_ids)
+    big_ids = [i for i in range(len(scene.meshes)) if i not in scene.dense_mesh_ids]
+    mesh_order = list(scene.dense_mesh_ids) + big_ids
+    obj_rays = {mi: object_rays(scene.meshes[mi], o, d) for mi in mesh_order}
+    for j, mi in enumerate(big_ids):
+        o_obj, d_obj = obj_rays[mi]
+        hit_m, t_m, tri_m, u_m, v_m = tri_scan_big.tri_scan_big_cuda(
+            scene.meshes[mi], o_obj.contiguous(), d_obj.contiguous(), t_min,
+            torch.minimum(t_max, t))
+        better = hit_m & (t_m < t)
+        t = torch.where(better, t_m, t)
+        code = torch.where(better, torch.full_like(code, CODE_MESH0 + n_dense + j), code)
+        idx = torch.where(better, tri_m, idx)
+        u = torch.where(better, u_m, u)
+        v = torch.where(better, v_m, v)
+        valid = valid | better
+
+    point = o + t[:, None] * d
+    # mesh winners: shading resolve per mesh under its winner mask
+    for k, mi in enumerate(mesh_order):
+        mesh = scene.meshes[mi]
+        mask = code == CODE_MESH0 + k
+        o_obj, d_obj = obj_rays[mi]
+        tri = torch.clamp(idx, 0, mesh.tri_verts.shape[0] - 1)
+        res = resolve_mesh_hit(mesh, o_obj, d_obj, t, tri, u, v)
+        point = torch.where(mask[:, None], res["point"], point)
+        normal = torch.where(mask[:, None], res["normal"], normal)
+        ff = torch.where(mask, res["frontface"], ff)
+        mat = torch.where(mask, torch.full_like(mat, mesh.mat_id), mat)
+    return HitRecord(
+        valid=valid, t=torch.where(valid, t, torch.full_like(t, _BIG)), point=point,
+        normal=normal, frontface=ff, **_gather_material(scene, mat),
+    )
+
+
+def intersect_scene(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:
+    """The fused path (K2 + K3) for CUDA tensors, the plain spec for CPU
+    tensors."""
+    if o.device.type == "cuda":
+        return intersect_scene_fused(scene, o, d, t_min, t_max, u_vol)
+    return intersect_scene_plain(scene, o, d, t_min, t_max, u_vol)

@@ -66,7 +66,7 @@ def scene_is_simple(scene: SceneData) -> bool:
     return all(m.mat_id >= 0 for m in scene.meshes)
 
 
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
+def check_tensor(name: str, x: torch.Tensor, dtype, shape, device) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
     if x.dtype != dtype:
@@ -107,12 +107,12 @@ def path_trace_cuda(
         raise ValueError("scene exceeds the mega-bounce kernel's gates (scene_is_simple)")
     dev = o.device
     n = o.shape[0]
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
-    _check("uids", uids, torch.int32, (n,), dev)
+    check_tensor("o", o, torch.float32, (n, 3), dev)
+    check_tensor("d", d, torch.float32, (n, 3), dev)
+    check_tensor("uids", uids, torch.int32, (n,), dev)
     for key in ("kscene", "kmesh_tri", "kmesh_nrm", "ksl_bounds"):
         t = getattr(scene, key)
-        _check(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
+        check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
     if n >= 2**31 // 3:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
     if path_depth < 0:

@@ -6,10 +6,14 @@ per pixel); the per-chunk sums accumulate on the device in float32 and
 only the tonemapped u8 image comes back to the host. The RNG follows ray
 content, so chunk sizes never change the image.
 
-`render_chunk` sends CUDA tensors of a scene that passes
-`scene_is_simple` to the mega-bounce kernel (ops/kernels/bounce.py) and
-CPU tensors to the plain integrator. Nothing on the GPU path falls back
-to the CPU or to the plain version.
+`render_chunk` sends a scene that passes `scene_is_simple` to the
+mega-bounce kernel (ops/kernels/bounce.py; its plain version for CPU
+tensors) and any other scene — today, one with a mesh beyond the dense
+budget — to `render_chunk_staged`: the staged executor
+(integrator.path_trace_shrink), whose intersection runs the
+scene-intersection and big-mesh kernels for CUDA tensors and their plain
+versions for CPU tensors. Nothing on the GPU path falls back to the CPU
+or to a plain version.
 """
 
 from __future__ import annotations
@@ -20,15 +24,20 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models.camera import Camera, ShadingMode
-from cs397raytracingsp22_tpu_torch.models.scene import Scene, SceneData
+from cs397raytracingsp22_tpu_torch.models.scene import Scene, SceneData, resolve_device
 from cs397raytracingsp22_tpu_torch.ops import tonemap as tonemap_ops
 from cs397raytracingsp22_tpu_torch.ops.kernels import bounce as bounce_kernel
+from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
-# work budget of one chunk in ray·primitive·bounce units (driver.py:471)
+# work budget of one chunk in ray·primitive·bounce units (driver.py:471);
+# 32× that for big-mesh scenes, whose staged executor pays per-bounce host
+# work (driver.py:474-484), so their chunks are larger
 CHUNK_WORK_BUDGET = 1 << 36
+BIG_MESH_BUDGET_SHIFT = 5
 
 
 @dataclasses.dataclass
@@ -63,8 +72,10 @@ class RenderStats:
 
 
 def _gen_chunk_rays(camera: Camera, pixel_ids, rng_key, sample_offset, spp: int, n_chains: int):
-    """Camera rays and chain uids for one chunk: (N, 3), (N, 3), (N,) int32."""
-    o, d = camera.generate_rays(rng_key, pixel_ids, spp=spp, sample_offset=sample_offset)
+    """Camera rays and chain uids for one chunk: (N, 3), (N, 3), (N,) int32.
+    Profiler traces show the work as the span "raygen"."""
+    with record_function("raygen"):
+        o, d = camera.generate_rays(rng_key, pixel_ids, spp=spp, sample_offset=sample_offset)
     o = o.reshape(-1, 3)
     d = d.reshape(-1, 3)
     sample_ids = sample_offset + torch.arange(spp, dtype=torch.int32, device=pixel_ids.device)
@@ -96,16 +107,35 @@ def render_chunk(
         raise NotImplementedError("Phong shading is not ported yet")
     if camera.nee:
         raise NotImplementedError("next-event estimation (--nee) is not ported yet")
+    if not bounce_kernel.scene_is_simple(scene):
+        return render_chunk_staged(scene, camera, pixel_ids, rng_key, sample_offset, spp,
+                                   n_chains)
     n_px = pixel_ids.shape[0]
     o, d, uids = _gen_chunk_rays(camera, pixel_ids, rng_key, sample_offset, spp, n_chains)
-    if o.device.type == "cuda" and not bounce_kernel.scene_is_simple(scene):
-        raise NotImplementedError(
-            "scenes beyond the mega-bounce kernel's gates need the staged path, "
-            "which is not ported yet"
-        )
     # K1 for CUDA tensors, its plain version for CPU tensors
     radiance, segments = bounce_kernel.path_trace_cuda(
         scene, o, d, uids, rng_key, camera.path_depth, camera.max_trace_dist
+    )
+    radiance = radiance.reshape(n_px, spp * n_chains, 3)
+    return radiance.sum(dim=1) / n_chains, segments
+
+
+def render_chunk_staged(
+    scene: SceneData,
+    camera: Camera,
+    pixel_ids: torch.Tensor,
+    rng_key,
+    sample_offset: int,
+    spp: int,
+    n_chains: int = 1,
+):
+    """render_chunk through the staged executor (integrator.path_trace_shrink).
+    The same image as render_chunk's kernel path would give: the estimator
+    and RNG counters are shared."""
+    n_px = pixel_ids.shape[0]
+    o, d, uids = _gen_chunk_rays(camera, pixel_ids, rng_key, sample_offset, spp, n_chains)
+    radiance, segments = integrator.path_trace_shrink(
+        scene, o, d, uids, rng_key, camera.path_depth, camera.max_trace_dist,
     )
     radiance = radiance.reshape(n_px, spp * n_chains, 3)
     return radiance.sum(dim=1) / n_chains, segments
@@ -122,7 +152,8 @@ def _finalize_image(pieces, n_px: int, spp: int, gamma: float) -> torch.Tensor:
 
 def chunk_pixels(scene_data: SceneData, camera: Camera, spp_chunk: int) -> int:
     """Pixels per chunk from a work budget (ray segments × primitive
-    tests), rounded down to a power of two (driver.py:451-492)."""
+    tests; 32× larger for big-mesh scenes), rounded down to a power of two
+    (driver.py:451-492)."""
     n_px_total = camera.screen_width * camera.screen_height
     per_px_rays = max(1, spp_chunk * max(1, camera.path_samples))
     prim_tests = (
@@ -130,7 +161,10 @@ def chunk_pixels(scene_data: SceneData, camera: Camera, spp_chunk: int) -> int:
         + scene_data.n_volumes + sum(int(m.tri_verts.shape[0]) for m in scene_data.meshes)
     )
     work_per_px = per_px_rays * max(1, camera.path_depth) * max(16, prim_tests)
-    pixel_chunk = max(1, min(n_px_total, CHUNK_WORK_BUDGET // work_per_px))
+    budget = CHUNK_WORK_BUDGET
+    if integrator.has_big_mesh(scene_data):
+        budget <<= BIG_MESH_BUDGET_SHIFT
+    pixel_chunk = max(1, min(n_px_total, budget // work_per_px))
     if pixel_chunk < n_px_total:
         pixel_chunk = 1 << (pixel_chunk.bit_length() - 1)
     return pixel_chunk
@@ -144,23 +178,22 @@ def _sync(device: torch.device) -> None:
 def render_to_image(
     scene: Scene,
     *,
-    device,
+    device="cuda",
     seed: int = 0,
     pixel_chunk: Optional[int] = None,
     spp_chunk: Optional[int] = None,
     verbose: bool = True,
     scene_data: Optional[SceneData] = None,
 ) -> tuple[np.ndarray, RenderStats]:
-    """Full render on `device`: ((H, W, 3) uint8 image, RenderStats).
+    """Full render on `device` (the card unless the caller asks for the
+    CPU): ((H, W, 3) uint8 image, RenderStats).
 
     The Scene::render_to_image of tracing.rs:221-263: AA rays per pixel,
     path trace, average, channel bleed + gamma + quantize. Pixel chunks
     are interleaved (chunk ci holds pixels ci, ci+nc, …), so every chunk
     is a statistical clone of the image.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render_to_image(device='cuda') needs a CUDA device")
+    device = resolve_device(device)
     cam = scene.camera
     w, h = cam.screen_width, cam.screen_height
     n_px_total = w * h

@@ -8,18 +8,26 @@ for the whole batch,
     radiance = Σ_k  (Π_{j<k} dot_j·brdf_j/pdf_j) · emission_k,
 
 with misses adding the (black) background and rays still alive after
-`path_depth` bounces contributing nothing more. This is the plain version
-of the mega-bounce kernel: `ops/kernels/bounce.py::path_trace_cuda` runs
-it for CPU tensors, and the kernel is held against it on the card.
+`path_depth` bounces contributing nothing more. `path_trace` is the plain
+version of the mega-bounce kernel: `ops/kernels/bounce.py::path_trace_cuda`
+runs it for CPU tensors, and the kernel is held against it on the card.
+
+`path_trace_shrink` is the staged executor (scenes beyond the mega-bounce
+kernel's gates): the same estimator one bounce at a time through
+`intersect_scene` (the scene-intersection and big-mesh kernels for CUDA
+tensors), compacting the wavefront to its live rays after every bounce.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bsdf
-from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene_plain
+from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene, intersect_scene_plain
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import sampling
 from cs397raytracingsp22_tpu_torch.utils import threefry
@@ -37,16 +45,19 @@ def background_color(d: torch.Tensor) -> torch.Tensor:
 def _bounce_draws(scene: SceneData, rng_key, uids: torch.Tensor, site):
     """One bounce's draws from the counter RNG: ball vector, branch
     uniform and one free-flight uniform per volume-table row (draw slots
-    4..4+V)."""
-    n_vol = scene.vol_center.shape[0]
-    u = threefry.bounce_uniforms(rng_key, uids, site, 4 + n_vol)
-    ball = sampling.ball_vec_from_uniform(u[:, 0:3])
-    return ball, u[:, 3], u[:, 4:]
+    4..4+V). Profiler traces show them as the span "bounce_rng"."""
+    with record_function("bounce_rng"):
+        n_vol = scene.vol_center.shape[0]
+        u = threefry.bounce_uniforms(rng_key, uids, site, 4 + n_vol)
+        ball = sampling.ball_vec_from_uniform(u[:, 0:3])
+        return ball, u[:, 3], u[:, 4:]
 
 
-def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_dist):
-    """The estimator body for ONE bounce (tracing.rs:300-324). Returns
-    (o, d, thr, rad, live_hit, segments this bounce)."""
+def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_dist,
+                   intersect=intersect_scene_plain):
+    """The estimator body for ONE bounce (tracing.rs:300-324), shared by
+    path_trace (plain intersection) and path_trace_shrink (intersect_scene).
+    Returns (o, d, thr, rad, live_hit, segments this bounce)."""
     ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, site)
     # dead rays get an empty [t_min, 0] window: every test rejects
     t_max = torch.where(
@@ -54,7 +65,7 @@ def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_
         torch.full_like(alive, max_trace_dist, dtype=torch.float32),
         torch.zeros_like(alive, dtype=torch.float32),
     )
-    hit = intersect_scene_plain(scene, o, d, PATH_T_MIN, t_max, u_vol)
+    hit = intersect(scene, o, d, PATH_T_MIN, t_max, u_vol)
 
     live_hit = alive & hit.valid
     live_miss = alive & ~hit.valid
@@ -90,6 +101,7 @@ def path_trace(
     rng_key,
     path_depth: int,
     max_trace_dist: float,
+    stats: dict | None = None,
 ):
     """Trace N ray chains to completion.
 
@@ -99,6 +111,9 @@ def path_trace(
     Returns (radiance (N, 3) float32, segments): segments is the exact
     count of path segments traced, an int64 scalar tensor (a float32 sum
     loses count past 2^24 segments).
+
+    stats: when a dict, receives per-chain int64 counts of the dense-mesh
+    tests summed over the bounces (intersect_scene_plain's stats).
     """
     n = o.shape[0]
     dev = o.device
@@ -106,10 +121,66 @@ def path_trace(
     rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
+    intersect = functools.partial(intersect_scene_plain, stats=stats)
     for depth in range(path_depth):
         o, d, thr, rad, alive, segs = _bounce_update(
             scene, o, d, thr, rad, alive, uids, rng_key,
-            rnglib.SITE_BOUNCE0 + depth, max_trace_dist,
+            rnglib.SITE_BOUNCE0 + depth, max_trace_dist, intersect=intersect,
         )
         segments = segments + segs
     return rad, segments
+
+
+def has_big_mesh(scene: SceneData) -> bool:
+    return len(scene.dense_mesh_ids) < len(scene.meshes)
+
+
+def path_trace_shrink(
+    scene: SceneData,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    uids: torch.Tensor,
+    rng_key,
+    path_depth: int,
+    max_trace_dist: float,
+):
+    """path_trace one bounce at a time through intersect_scene, the
+    wavefront compacted to its live rays after every bounce.
+
+    After a bounce a stable partition puts the dead rays last, the live
+    count is read on the host (one sync per bounce), the dead rows retire
+    their radiance into the output at their caller position, and the next
+    bounce runs on exactly the live rows. The RNG follows each ray's uid,
+    so the radiance is the same, bit for bit, as path_trace's with the same
+    intersection, in whatever order the rays come.
+
+    Returns (radiance (N, 3) float32 in the caller's order, segments int64
+    scalar tensor).
+    """
+    n = o.shape[0]
+    dev = o.device
+    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    pos = torch.arange(n, device=dev)
+    out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    for depth in range(path_depth):
+        o, d, thr, rad, alive, segs = _bounce_update(
+            scene, o, d, thr, rad, alive, uids, rng_key, rnglib.SITE_BOUNCE0 + depth,
+            max_trace_dist, intersect=intersect_scene,
+        )
+        segments = segments + segs
+        if depth == path_depth - 1:
+            break
+        perm = torch.argsort((~alive).to(torch.int32), stable=True)
+        n_alive = int(alive.sum())  # the one host sync of the bounce
+        gone = perm[n_alive:]
+        out[pos[gone]] = rad[gone]
+        keep = perm[:n_alive]
+        o, d, thr, rad, uids, pos = o[keep], d[keep], thr[keep], rad[keep], uids[keep], pos[keep]
+        alive = alive[keep]
+        if n_alive == 0:
+            break
+    out[pos] = rad
+    return out, segments

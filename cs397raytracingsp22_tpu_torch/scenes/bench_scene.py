@@ -3,7 +3,9 @@ glass spheres and an emissive triangle light (mirrors
 bench.py::build_bench_scene).
 
 The mesh is pinned to the in-repo assets/teapot_6k.obj (6,144 triangles,
-inside the dense budget, so the scene takes the mega-bounce kernel). A
+inside the dense budget, so the scene takes the mega-bounce kernel), or to
+a subdivision of it made by `teapot_obj` (scenes/bench_teapot_32k.py: the
+same scene with a 32,832-triangle teapot, which takes the staged path). A
 missing mesh raises instead of rendering a scene without it.
 """
 
@@ -11,15 +13,25 @@ from __future__ import annotations
 
 import os
 
+from cs397raytracingsp22_tpu_torch.utils import subdivide
 from cs397raytracingsp22_tpu_torch import (
     Camera, Dielectric, Lambertian, Metal, Plane, Scene, Sphere, StaticMesh, Triangle,
 )
 from cs397raytracingsp22_tpu_torch.models import transform as tf
 
-TEAPOT_6K = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "assets", "teapot_6k.obj",
-)
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+TEAPOT_6K = os.path.join(_ROOT, "assets", "teapot_6k.obj")
+
+
+def teapot_obj(target: int) -> str:
+    """build/assets/teapot_<target>.obj: teapot_6k midpoint-subdivided to
+    about `target` triangles (utils/subdivide.py), written at first use.
+    Target 32768 gives 32,832 triangles; 9000 gives 9,000, just beyond the
+    dense budget."""
+    path = os.path.join(_ROOT, "build", "assets", f"teapot_{target}.obj")
+    if not os.path.exists(path):
+        subdivide.write_obj(path, TEAPOT_6K, *subdivide.subdivide_to(TEAPOT_6K, target))
+    return path
 
 
 def build(width: int = 512, height: int = 512, spp: int = 64, path_depth: int = 8,

@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 
-def _as_f32(x, like: torch.Tensor) -> torch.Tensor:
+def as_f32(x, like: torch.Tensor) -> torch.Tensor:
+    """x (a scalar or tensor) as float32 on like's device."""
     return torch.as_tensor(x, dtype=torch.float32, device=like.device)
 
 
@@ -60,7 +61,7 @@ def pow5(x: torch.Tensor) -> torch.Tensor:
 def fresnel(v: torch.Tensor, n: torch.Tensor, ir) -> torch.Tensor:
     """Schlick fresnel (tracing.rs:58-62) of the FULL index of
     refraction, the reference's quirk (materials.rs:82)."""
-    ir = _as_f32(ir, v)
+    ir = as_f32(ir, v)
     r0 = (ir - 1.0) / (ir + 1.0)
     r0 = r0 * r0
     return r0 + (1.0 - r0) * pow5(1.0 - torch.abs(dot(v, n)))
@@ -70,7 +71,7 @@ def refract(v: torch.Tensor, n: torch.Tensor, eta) -> torch.Tensor:
     """Refraction per Ray Tracing in One Weekend (tracing.rs:64-69); the
     abs() under the sqrt matches the reference, total internal reflection
     is the caller's job."""
-    eta = _as_f32(eta, v)
+    eta = as_f32(eta, v)
     if eta.ndim == v.ndim - 1:
         eta = eta[..., None]
     cos_theta = torch.clamp(dot(-v, n), max=1.0)[..., None]
@@ -85,7 +86,7 @@ def clampvec(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 
 def lerpvec(a: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
     """(1-k)·a + k·b (tracing.rs:95-97); k broadcasts."""
-    k = _as_f32(k, a)
+    k = as_f32(k, a)
     if k.ndim == a.ndim - 1:
         k = k[..., None]
     return (1.0 - k) * a + k * b

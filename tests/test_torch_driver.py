@@ -94,3 +94,18 @@ def test_cli_renders_and_refuses_unported_flags(tmp_path):
     for flag in (["--nee"], ["--checkpoint", "c.npz"], ["--mesh", "2x1"], ["--distributed"]):
         with pytest.raises(SystemExit, match="not ported"):
             cli.main([scene, "--device", "cpu", *flag])
+
+
+def test_cli_renders_the_32k_bench_scene_by_default(tmp_path):
+    """Without a scene script the CLI renders scenes/bench_teapot_32k.py
+    (through the staged path: its teapot is a big mesh)."""
+    import json
+
+    from cs397raytracingsp22_tpu_torch import cli
+
+    out, stats = tmp_path / "o.png", tmp_path / "s.json"
+    assert cli.DEFAULT_SCENE.endswith("bench_teapot_32k.py")
+    assert cli.main(["-o", str(out), "--width", "8", "--height", "8", "--spp", "1", "--depth", "2",
+                     "--device", "cpu", "--stats-json", str(stats), "-q"]) == 0
+    assert np.asarray(Image.open(out)).shape == (8, 8, 3)
+    assert json.loads(stats.read_text())["path_segments"] > 8 * 8

@@ -11,9 +11,11 @@ _PROBE = """
 import json, sys
 import cs397raytracingsp22_tpu_torch as pkg
 from cs397raytracingsp22_tpu_torch import cli
-from cs397raytracingsp22_tpu_torch.ops.kernels import bounce
+from cs397raytracingsp22_tpu_torch.ops import intersect
+from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect, tri_scan_big
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
-from cs397raytracingsp22_tpu_torch.scenes import bench_scene, cornell
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell
+from cs397raytracingsp22_tpu_torch.utils import subdivide
 import torch
 print(json.dumps({
     "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules),
@@ -21,7 +23,7 @@ print(json.dumps({
                        for m in sys.modules),
     "triton": "triton" in sys.modules,
     "cuda_initialized": torch.cuda.is_initialized(),
-    "launches": bounce.LAUNCHES,
+    "launches": [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES],
     "api": sorted(pkg.__all__),
 }))
 """
@@ -39,7 +41,7 @@ def test_import_needs_no_jax_triton_or_cuda():
     assert info["jax_package"] is False
     assert info["triton"] is False
     assert info["cuda_initialized"] is False
-    assert info["launches"] == 0
+    assert info["launches"] == [0, 0, 0]
     assert info["api"] == sorted([
         "Camera", "CameraProjectionMode", "ShadingMode", "Scene", "Sphere", "Triangle",
         "Plane", "ConvexVolume", "StaticMesh", "Lambertian", "Metal", "Dielectric",

@@ -73,7 +73,8 @@ def _winners(ts, valid, idx):
 
 @pytest.fixture(scope="module")
 def scenes():
-    return jax_bench_scene().compile(), tbench.build(16, 16, spp=4, path_depth=4).compile()
+    return (jax_bench_scene().compile(),
+            tbench.build(16, 16, spp=4, path_depth=4).compile(device="cpu"))
 
 
 def test_winners_match_jnp(scenes):

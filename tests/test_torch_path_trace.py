@@ -44,7 +44,7 @@ SCENES = {
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_plain_path_trace_matches_jax(name):
     jscene, tscene = SCENES[name]()
-    jsd, tsd = jscene.compile(), tscene.compile()
+    jsd, tsd = jscene.compile(), tscene.compile(device="cpu")
     key = 123
     o, d = jscene.camera.generate_rays(key, jnp.arange(N // 4, dtype=jnp.int32), spp=4)
     o = np.array(o).reshape(-1, 3)

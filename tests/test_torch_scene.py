@@ -25,15 +25,16 @@ torch.set_num_threads(1)  # several test workers share the cores
 TEAPOT_6K = tbench.TEAPOT_6K
 
 _MESH_FIELDS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_transform",
-                "normal_mat")
+                "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
 _STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
            "ksl_ranges", "dense_mesh_ids", "mat_types_present")
 
 
-def jax_bench_scene(width=16, height=16, spp=4, path_depth=4):
-    """bench.build_bench_scene with its mesh pinned to teapot_6k."""
+def jax_bench_scene(width=16, height=16, spp=4, path_depth=4, obj_path=TEAPOT_6K):
+    """bench.build_bench_scene with its mesh pinned to obj_path (teapot_6k
+    unless given, e.g. tbench.teapot_obj(9000))."""
     old = os.environ.get("RT_TEAPOT")
-    os.environ["RT_TEAPOT"] = TEAPOT_6K
+    os.environ["RT_TEAPOT"] = obj_path
     try:
         scene = bench.build_bench_scene(width, height, spp=spp, path_depth=path_depth)
     finally:
@@ -53,11 +54,12 @@ def port_data_from_jax(jsd) -> SceneData:
         if f.name not in _STATIC and f.name not in PACKED and f.name != "meshes"
     }
     arrays["meshes"] = [
-        {k: np.asarray(getattr(m, k)) for k in _MESH_FIELDS} for m in jsd.meshes
+        {**{k: np.asarray(getattr(m, k)) for k in _MESH_FIELDS}, "leaf_size": m.leaf_size}
+        for m in jsd.meshes
     ]
     meta = {k: getattr(jsd, k) for k in _STATIC}
     meta["mesh_mat_ids"] = [m.mat_id for m in jsd.meshes]
-    return scene_data_from_numpy(arrays, meta)
+    return scene_data_from_numpy(arrays, meta, device="cpu")
 
 
 def assert_scene_data_equal(port: SceneData, jsd) -> None:
@@ -69,7 +71,7 @@ def assert_scene_data_equal(port: SceneData, jsd) -> None:
         if name == "meshes":
             assert len(port.meshes) == len(jsd.meshes)
             for pm, jm in zip(port.meshes, jsd.meshes):
-                assert pm.mat_id == jm.mat_id
+                assert pm.mat_id == jm.mat_id and pm.leaf_size == jm.leaf_size
                 for k in _MESH_FIELDS:
                     a, b = pm.__dict__[k].numpy(), np.asarray(getattr(jm, k))
                     assert a.dtype == b.dtype, k
@@ -85,7 +87,8 @@ def assert_scene_data_equal(port: SceneData, jsd) -> None:
 
 @pytest.fixture(scope="module")
 def bench_pair():
-    return tbench.build(16, 16, spp=4, path_depth=4).compile(), jax_bench_scene().compile()
+    return (tbench.build(16, 16, spp=4, path_depth=4).compile(device="cpu"),
+            jax_bench_scene().compile())
 
 
 def test_bench_scene_tables_equal(bench_pair):
@@ -96,7 +99,7 @@ def test_bench_scene_tables_equal(bench_pair):
 
 
 def test_config3_tables_equal():
-    port = tcornell.build_config3(16, 16, spp=4, path_depth=4).compile()
+    port = tcornell.build_config3(16, 16, spp=4, path_depth=4).compile(device="cpu")
     jsd = jcornell.build_config3(16, 16, spp=4, path_depth=4).compile()
     assert_scene_data_equal(port, jsd)
 
@@ -114,6 +117,9 @@ def test_round_trip_from_numpy(bench_pair):
 
 
 def test_compile_refuses_the_staged_path(tmp_path):
+    """Textured meshes and general-boundary volumes are a later slice of
+    the staged path; meshes beyond the dense budget compile (see
+    test_big_mesh_tables_equal)."""
     from cs397raytracingsp22_tpu_torch import (
         ConvexVolume, Isotropic, Lambertian, Scene, StaticMesh, Triangle,
     )
@@ -125,7 +131,7 @@ def test_compile_refuses_the_staged_path(tmp_path):
         phase_function=Isotropic(), density=1.0,
     )
     with pytest.raises(NotImplementedError, match="staged path"):
-        Scene(camera=cam, objects=[gvol]).compile()
+        Scene(camera=cam, objects=[gvol]).compile(device="cpu")
     mesh = ObjMesh(
         positions=np.eye(3, dtype=np.float32), normals=np.eye(3, dtype=np.float32),
         texcoords=np.zeros((3, 2), np.float32), indices=np.array([[0, 1, 2]], np.int32),
@@ -133,16 +139,57 @@ def test_compile_refuses_the_staged_path(tmp_path):
     )
     textured = StaticMesh(mesh, [np.zeros((2, 2, 3), np.uint8)] + [None] * 4, None, np.eye(4))
     with pytest.raises(NotImplementedError, match="staged path"):
-        Scene(camera=cam, objects=[textured]).compile()
-    n = 8200  # beyond the dense budget
+        Scene(camera=cam, objects=[textured]).compile(device="cpu")
+    n = 8200  # beyond the dense budget: a big mesh, which compiles
     big = ObjMesh(
         positions=np.random.default_rng(0).random((n + 2, 3)).astype(np.float32),
         normals=np.zeros((n + 2, 3), np.float32), texcoords=np.zeros((n + 2, 2), np.float32),
         indices=np.stack([np.arange(n), np.arange(n) + 1, np.arange(n) + 2], 1).astype(np.int32),
         has_normals=False, has_texcoords=False,
     )
-    with pytest.raises(NotImplementedError, match="staged path"):
-        Scene(camera=cam, objects=[StaticMesh(big, [None] * 5, Lambertian(), np.eye(4))]).compile()
+    sd = Scene(camera=cam, objects=[StaticMesh(big, [None] * 5, Lambertian(), np.eye(4))]
+               ).compile(device="cpu")
+    assert sd.dense_mesh_ids == () and sd.meshes[0].tri_verts.shape == (n, 3, 3)
+
+
+def test_big_mesh_tables_equal():
+    """The bench scene with a 9,000-triangle teapot (beyond the dense
+    budget): the BVH node arrays, the reordered triangles and normals and
+    every other table equal the JAX package's compile bit for bit, and a
+    round trip of the JAX tables through scene_data_from_numpy keeps them."""
+    obj = tbench.teapot_obj(9000)
+    port = tbench.build(16, 16, spp=4, path_depth=4, obj_path=obj).compile(device="cpu")
+    jsd = jax_bench_scene(obj_path=obj).compile()
+    assert port.dense_mesh_ids == () and port.kmesh_ranges == ()
+    m = port.meshes[0]
+    assert m.tri_verts.shape == (9000, 3, 3) and m.leaf_size == 4
+    assert m.bounds_min.shape[0] == m.skip.shape[0] > 9000 // 4
+    assert_scene_data_equal(port, jsd)
+    assert_scene_data_equal(port_data_from_jax(jsd), jsd)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """Scene.compile, compile_scene, scene_data_from_numpy and
+    render_to_image run on the card unless the caller asks for the CPU;
+    without a card, a call that does not name a device raises."""
+    import inspect
+
+    from cs397raytracingsp22_tpu_torch.models import scene as scene_mod
+    from cs397raytracingsp22_tpu_torch.render import driver
+
+    for fn in (scene_mod.Scene.compile, scene_mod.compile_scene,
+               scene_mod.scene_data_from_numpy, driver.render_to_image):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = tcornell.build(8, 8, spp=1, path_depth=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scene.compile()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scene_mod.compile_scene(scene)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        driver.render_to_image(scene, verbose=False)
+    sd = scene.compile(device="cpu")
+    assert sd.device == torch.device("cpu")
 
 
 def test_bench_scene_refuses_a_missing_mesh(tmp_path):

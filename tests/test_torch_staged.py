@@ -1,0 +1,255 @@
+"""The staged path of the torch port against the JAX package on the CPU,
+on the bench scene with its teapot subdivided to 9,000 triangles (just
+beyond the dense budget of 8,192, so the teapot is a big mesh):
+
+- ops/bvh.py::traverse against JAX bvh.traverse (4,096 object-space rays);
+- intersect_scene_plain, and intersect_scene_fused on CPU tensors (the
+  plain versions of K2 and K3 plus the merge), against
+  intersect_scene_jnp;
+- path_trace_shrink against JAX path_trace_shrink (32² × 4 spp, depth 4),
+  bit-identical to path_trace and under any order of its input rays;
+- the dense-mesh test counts of the plain intersections (the work behind
+  the kernels' bounds);
+- render_to_image against the JAX package's image.
+
+Tolerances: the same winner on at least 99.9% of rays (both sides run
+float32 on the CPU, in another operation order: a ray grazing an edge can
+flip); where it agrees, t within rtol 1e-5, the barycentrics u, v within
+atol 1e-4 (the dot products behind them cancel: XLA's order moves them by
+up to 8e-5) and so the interpolated normals too, points within rtol 1e-4 /
+atol 1e-5;
+radiance within rtol 1e-4 / atol 1e-5 on at least 99.5% of rays with
+equal segment totals; images within 1 u8 on at least 99% of subpixels.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cs397raytracingsp22_tpu.ops import bvh as jbvh
+from cs397raytracingsp22_tpu.ops import intersect as jisect
+from cs397raytracingsp22_tpu.render import driver as jdriver
+from cs397raytracingsp22_tpu.render import integrator as jint
+from cs397raytracingsp22_tpu.utils import threefry as jtf
+from cs397raytracingsp22_tpu_torch.ops import bvh as tbvh
+from cs397raytracingsp22_tpu_torch.ops import intersect as tisect
+from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+from cs397raytracingsp22_tpu_torch.render import driver as tdriver
+from cs397raytracingsp22_tpu_torch.render import integrator as tint
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene as tbench
+from tests.test_torch_scene import jax_bench_scene
+from tests.test_torch_staged_kernels import BIG_TARGET, scene_rays, teapot_scene
+
+torch.set_num_threads(1)  # several test workers share the cores
+
+MIN_SAME = 0.999
+DEPTH = 4
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    """(JAX scene, JAX SceneData, port scene, port SceneData) at 32² × 4 spp."""
+    obj = tbench.teapot_obj(BIG_TARGET)
+    js = jax_bench_scene(32, 32, spp=4, path_depth=DEPTH, obj_path=obj)
+    ts = teapot_scene(BIG_TARGET, 32, 32, spp=4, path_depth=DEPTH)
+    return js, js.compile(), ts, ts.compile(device="cpu")
+
+
+def test_traverse_matches_jax(scenes):
+    _, jsd, _, tsd = scenes
+    m = tsd.meshes[0]
+    o, d, t_min, t_max, _ = scene_rays(4096, seed=2)
+    o_obj, d_obj = (x.numpy() for x in tisect.object_rays(m, torch.from_numpy(o),
+                                                             torch.from_numpy(d)))
+    jm = jsd.meshes[0]
+    jax_trav = jax.jit(jbvh.traverse, static_argnums=(10,))
+    hj, tj, ij, uj, vj = (np.asarray(x) for x in jax_trav(
+        jnp.asarray(o_obj), jnp.asarray(d_obj), jnp.asarray(t_min), jnp.asarray(t_max),
+        jm.bounds_min, jm.bounds_max, jm.skip, jm.leaf_start, jm.leaf_count, jm.tri_verts,
+        jm.leaf_size))
+    stats = {}
+    ht, tt, it, ut, vt = (x.numpy() for x in tri_scan_big.tri_scan_big_cuda(
+        m, torch.from_numpy(o_obj), torch.from_numpy(d_obj), torch.from_numpy(t_min),
+        torch.from_numpy(t_max)))
+    same = (hj == ht) & (ij == it)
+    assert same.mean() >= MIN_SAME, f"{(~same).sum()} winner flips"
+    assert 500 < ht.sum() < 4096 and not ht[::16].any()
+    np.testing.assert_allclose(tt[same], tj[same], rtol=1e-5, atol=1e-6)
+    for a, b in ((ut, uj), (vt, vj)):
+        np.testing.assert_allclose(a[same], b[same], rtol=0.0, atol=1e-4)
+    # the counting run: interior boxes and triangles tested per ray
+    tbvh.traverse(torch.from_numpy(o_obj), torch.from_numpy(d_obj), torch.from_numpy(t_min),
+                  torch.from_numpy(t_max), m.bounds_min, m.bounds_max, m.skip, m.leaf_start,
+                  m.leaf_count, m.tri_verts, m.leaf_size, stats=stats)
+    boxes, tris = stats["boxes"].numpy(), stats["tris"].numpy()
+    assert (boxes[::16] == 1).all() and (tris[::16] == 0).all(), "a dead ray stops at the root"
+    assert 0 < tris.mean() < 0.05 * m.tri_verts.shape[0]
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["plain", "fused"])
+def test_intersect_scene_matches_jnp(scenes, fused):
+    _, jsd, _, tsd = scenes
+    o, d, t_min, t_max, u_vol = scene_rays(2048, seed=3)
+    hj = jax.jit(jisect.intersect_scene_jnp)(
+        jsd, *(jnp.asarray(x) for x in (o, d, t_min, t_max, u_vol)))
+    fn = tisect.intersect_scene_fused if fused else tisect.intersect_scene_plain
+    k2, k3 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
+    ht = fn(tsd, *(torch.from_numpy(x) for x in (o, d, t_min, t_max, u_vol)))
+    assert (scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES) == (k2, k3), "CPU runs no kernel"
+    vj, vt = np.asarray(hj.valid), ht.valid.numpy()
+    tj, tt = np.asarray(hj.t), ht.t.numpy()
+    agree = (vj == vt) & (np.isclose(tt, tj, rtol=1e-5) | (~vj & ~vt))
+    assert agree.mean() >= MIN_SAME, f"{(~agree).sum()} rays disagree"
+    assert vj.sum() > 1000 and not vj[::16].any()
+    both = agree & vj
+    np.testing.assert_allclose(ht.point.numpy()[both], np.asarray(hj.point)[both],
+                               rtol=1e-4, atol=1e-5, err_msg="point")
+    np.testing.assert_allclose(ht.normal.numpy()[both], np.asarray(hj.normal)[both],
+                               rtol=0.0, atol=1e-4, err_msg="normal")
+    for f in ("frontface", "mtype", "albedo", "emission", "roughness", "metallic", "ior"):
+        np.testing.assert_array_equal(getattr(ht, f).numpy()[both],
+                                      np.asarray(getattr(hj, f))[both], err_msg=f)
+    # the teapot's material (albedo 0.7, 0.45, 0.2) wins a share of the rays
+    teapot = np.isclose(ht.albedo.numpy()[both], [0.7, 0.45, 0.2]).all(axis=1)
+    assert teapot.sum() > 100
+
+
+def test_k2_plain_matches_intersect_scene_plain(scenes):
+    """K2's plain version is intersect_scene_plain restricted to the
+    analytic classes and dense meshes: on the 6k bench scene (a dense
+    teapot) its winners, t and materials are the spec's."""
+    tsd = teapot_scene(None).compile(device="cpu")
+    o, d, t_min, t_max, u_vol = (torch.from_numpy(x) for x in scene_rays(2048, seed=4))
+    t, code, idx, mat, u, v, normal, ff = scene_intersect.scene_intersect_cuda(
+        tsd, o, d, t_min, t_max, u_vol)
+    ref = tisect.intersect_scene_plain(tsd, o, d, t_min, t_max, u_vol)
+    valid = code >= 0
+    assert torch.equal(valid, ref.valid) and int((code == 4).sum()) > 100
+    assert torch.equal(t[valid], ref.t[valid]) and torch.equal(t[~valid], t_max[~valid])
+    assert torch.equal(tsd.mat_albedo[mat[valid].long()], ref.albedo[valid])
+    analytic = valid & (code < 4)
+    assert torch.equal(normal[analytic], ref.normal[analytic])
+    assert torch.equal(ff[analytic], ref.frontface[analytic])
+
+
+@pytest.fixture(scope="module")
+def camera_rays(scenes):
+    js = scenes[0]
+    o, d = js.camera.generate_rays(7, jnp.arange(32 * 32, dtype=jnp.int32), spp=4)
+    return (np.array(o).reshape(-1, 3), np.array(d).reshape(-1, 3),
+            np.arange(32 * 32 * 4, dtype=np.int32))
+
+
+def test_path_trace_shrink_matches_jax(scenes, camera_rays):
+    _, jsd, _, tsd = scenes
+    o, d, uids = camera_rays
+    ref, ref_segs = jint.path_trace_shrink(jsd, jnp.asarray(o), jnp.asarray(d),
+                                           jnp.asarray(uids), jtf.key_words(7), DEPTH, 100.0)
+    args = (tsd, torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(uids), 7, DEPTH,
+            100.0)
+    rad, segs = tint.path_trace_shrink(*args)
+    ref = np.asarray(ref)
+    assert float(ref.max()) > 0.0
+    ok = np.isclose(rad.numpy(), ref, rtol=1e-4, atol=1e-5).all(axis=1)
+    assert ok.mean() >= 0.995, f"{(~ok).sum()} of {ok.size} rays outside rtol 1e-4 / atol 1e-5"
+    assert int(segs) == int(ref_segs)
+    plain_rad, plain_segs = tint.path_trace(*args)
+    assert torch.equal(plain_rad, rad) and int(plain_segs) == int(segs)
+
+
+def test_path_trace_shrink_is_order_invariant(scenes, camera_rays):
+    """The RNG follows each ray's uid, so the staged executor gives the
+    same bits for any order of its input rays (its compaction reorders
+    them after every bounce)."""
+    tsd = scenes[3]
+    o, d, uids = (torch.from_numpy(x) for x in camera_rays)
+    rad, segs = tint.path_trace_shrink(tsd, o, d, uids, 7, DEPTH, 100.0)
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(o.shape[0]))
+    rad_p, segs_p = tint.path_trace_shrink(tsd, o[perm], d[perm], uids[perm], 7, DEPTH, 100.0)
+    assert torch.equal(rad_p, rad[perm]) and int(segs_p) == int(segs)
+
+
+def test_dense_scan_counts():
+    """The plain intersections' stats on the 6k bench scene (a dense
+    teapot): a live ray tests every superleaf box and the 16 rows of each
+    box it reaches before its nearest hit, a dead ray nothing; K2's plain
+    version and intersect_scene_plain count alike, and path_trace sums the
+    counts over its segments."""
+    sc = teapot_scene(None, 16, 16, spp=4, path_depth=DEPTH)
+    tsd = sc.compile(device="cpu")
+    n_sl = sum(c for _, c in tsd.ksl_ranges)
+    o, d, t_min, t_max, u_vol = (torch.from_numpy(x) for x in scene_rays(1024, seed=5))
+    st2, st = {}, {}
+    code = scene_intersect.scene_intersect_plain(tsd, o, d, t_min, t_max, u_vol, stats=st2)[1]
+    tisect.intersect_scene_plain(tsd, o, d, t_min, t_max, u_vol, stats=st)
+    assert torch.equal(st2["boxes"], st["boxes"]) and torch.equal(st2["tris"], st["tris"])
+    boxes, tris = st["boxes"], st["tris"]
+    dead = t_max < t_min
+    assert (boxes[dead] == 0).all() and (tris[dead] == 0).all()
+    assert (boxes[~dead] == n_sl).all() and (tris % 16 == 0).all()
+    assert (tris[code == 4] >= 16).all() and int((code == 4).sum()) > 50
+    assert 0 < tris.float().mean() < 0.2 * 16 * n_sl, "culling skips most groups"
+    ids = torch.arange(16 * 16, dtype=torch.int32)
+    o, d, uids = tdriver._gen_chunk_rays(sc.camera, ids, 3, 0, 4, 1)
+    stp = {}
+    _, segs = tint.path_trace(tsd, o, d, uids, 3, DEPTH, 100.0, stats=stp)
+    assert int(stp["boxes"].sum()) == int(segs) * n_sl and int(stp["tris"].sum()) > 0
+
+
+def test_render_to_image_matches_jax(scenes):
+    js, jsd, ts, tsd = scenes
+    ref, ref_stats = jdriver.render_to_image(js, seed=11, verbose=False, scene_data=jsd)
+    img, stats = tdriver.render_to_image(ts, device="cpu", seed=11, verbose=False,
+                                         scene_data=tsd)
+    assert img.shape == (32, 32, 3) and img.dtype == np.uint8 and img.max() > 0
+    diff = np.abs(img.astype(int) - np.asarray(ref).astype(int))
+    assert (diff <= 1).mean() >= 0.99, f"{(diff > 1).sum()} subpixels off by > 1"
+    assert stats.path_segments == int(ref_stats.path_segments)
+
+
+def test_big_mesh_chunk_budget():
+    """The big-mesh chunk budget is 32× the dense one, rounded down to a
+    power of two as in the JAX driver: at 512² × 64 spp, depth 8, the
+    32,832-triangle bench scene renders in 4 chunks of 65,536 pixels
+    (4,194,304 rays), the 6,144-triangle one in 16 of 16,384."""
+    from cs397raytracingsp22_tpu_torch.models.scene import MeshBlock, SceneData
+
+    tsd = teapot_scene(None).compile(device="cpu")
+    cam = tbench.build(512, 512, spp=64, path_depth=8).camera
+    assert tdriver.chunk_pixels(tsd, cam, 64) == 16384  # dense: 6,144 triangles
+    big = MeshBlock(**{**tsd.meshes[0].__dict__,
+                       "tri_verts": torch.zeros((32832, 3, 3))})
+    fake = SceneData(**{**tsd.__dict__, "meshes": (big,), "dense_mesh_ids": ()})
+    assert tdriver.chunk_pixels(fake, cam, 64) == 65536
+
+
+def _camera_mesh_hits(target, eps, size=32):
+    """Camera rays (size², 1 spp) of the bench scene that hit the teapot
+    mesh (alone) with the Möller–Trumbore |det| epsilon `eps`."""
+    sc = teapot_scene(target, size, size, spp=1)
+    m = sc.compile(device="cpu").meshes[0]
+    o, d, _ = tdriver._gen_chunk_rays(sc.camera, torch.arange(size * size, dtype=torch.int32), 0,
+                                      0, 1, 1)
+    o_obj, d_obj = tisect.object_rays(m, o, d)
+    hit = torch.zeros(o.shape[0], dtype=torch.bool)
+    for c in range(0, m.tri_verts.shape[0], 2048):
+        tv = m.tri_verts[None, c:c + 2048]
+        valid, *_ = tbvh.moller_trumbore(o_obj[:, None], d_obj[:, None], tv[..., 0, :],
+                                         tv[..., 1, :], tv[..., 2, :], 0.001, 100.0, eps=eps)
+        hit |= valid.any(dim=1)
+    return int(hit.sum())
+
+
+def test_mt_epsilon_hides_small_triangles_of_the_32k_teapot():
+    """The reference's absolute |det| >= 1e-4 test (geometry.rs:335) scales
+    with triangle area: the 32,832-triangle teapot (area per triangle
+    1/5.3 of the 6,144-triangle one's) loses a large share of its camera
+    hits to it, the 6k teapot almost none. The port keeps the reference's
+    test, so the 32k cell renders the teapot with those dropouts."""
+    full6k, kept6k = _camera_mesh_hits(None, 0.0), _camera_mesh_hits(None, 1e-4)
+    full32k, kept32k = _camera_mesh_hits(32768, 0.0), _camera_mesh_hits(32768, 1e-4)
+    assert full6k == full32k > 0  # the same surface
+    assert kept6k >= 0.95 * full6k
+    assert kept32k <= 0.7 * full32k

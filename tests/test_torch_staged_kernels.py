@@ -1,0 +1,176 @@
+"""K2 (scene intersection) and K3 (big-mesh BVH traversal), the CUDA
+kernels of the staged path, against their plain torch versions on the
+card. Needs a CUDA device: the tests are marked `gpu` and skip without
+one. Run them on a machine with the card:
+
+    python -m pytest tests/test_torch_staged_kernels.py -q
+
+The file imports no JAX; its ray and scene helpers are shared with the
+JAX parity tests of tests/test_torch_staged.py.
+
+Tolerance: the same winner — K2's (code, idx), K3's (hit, tri) — on at
+least 99.9% of rays (a ray that grazes a triangle edge flips when one
+rounding differs), and t, u, v and the normals within rtol 1e-4 / atol
+1e-5 where the winners agree. Both kernels are built without FMA
+contraction and follow the plain version's operation order. The staged
+path as a whole is held to K1's contract (rtol 1e-3, atol 1e-4 on at
+least 99.5% of rays, segments within depth × rays outside).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+from cs397raytracingsp22_tpu_torch.render import driver, integrator
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+from test_torch_bounce_kernel import assert_paths_match  # tests/ is on sys.path under pytest
+
+MIN_SAME = 0.999
+RTOL, ATOL = 1e-4, 1e-5
+BIG_TARGET = 9000  # teapot subdivided just beyond the dense budget (8,192)
+
+
+def teapot_scene(target=None, width=16, height=16, spp=4, path_depth=4):
+    """The bench scene with teapot_6k (target None: a dense mesh) or its
+    subdivision to `target` triangles (a big mesh)."""
+    obj = bench_scene.TEAPOT_6K if target is None else bench_scene.teapot_obj(target)
+    return bench_scene.build(width, height, spp=spp, path_depth=path_depth, obj_path=obj)
+
+
+def scene_rays(n, seed=0):
+    """(o, d, t_min, t_max, u_vol) numpy rays inside the bench box: half
+    aimed at the teapot's bounds, n/16 axis-parallel (the 0·inf lanes of
+    the slab test), the rest in random directions; every 16th ray is dead
+    (t_max = 0) and every 16th + 1 has a short window (t_max = 1)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-2.4, 0.05, -2.4], [2.4, 4.95, 3.0], (n, 3))
+    d = rng.standard_normal((n, 3))
+    half = n // 2
+    d[:half] = rng.uniform([-1.0, 0.4, -1.4], [1.0, 1.8, 0.2], (half, 3)) - o[:half]
+    k = n // 16
+    axis = np.zeros((k, 3))
+    axis[np.arange(k), rng.integers(0, 3, k)] = rng.choice([-1.0, 1.0], k)
+    d[half:half + k] = axis
+    t_min = np.full((n,), 0.001, np.float32)
+    t_max = np.full((n,), 100.0, np.float32)
+    t_max[::16] = 0.0
+    t_max[1::16] = 1.0
+    u_vol = rng.random((n, 1)).astype(np.float32)
+    return o.astype(np.float32), d.astype(np.float32), t_min, t_max, u_vol
+
+
+def assert_winners_match(win, ref_win, fields, ref_fields, what):
+    """The same winner on >= MIN_SAME of rays; where it agrees, every float
+    field within RTOL / ATOL and every other field equal (fields: dict
+    name → array). Returns the share of rays with the same winner."""
+    same = np.ones(win[0].shape, bool)
+    for a, b in zip(win, ref_win):
+        same &= np.asarray(a) == np.asarray(b)
+    assert same.mean() >= MIN_SAME, f"{what}: {(~same).sum()} of {same.size} winners differ"
+    for name, a in fields.items():
+        a, b = np.asarray(a)[same], np.asarray(ref_fields[name])[same]
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL, err_msg=f"{what} {name}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=f"{what} {name}")
+    return float(same.mean())
+
+
+def k2_compare(out, ref, what="K2"):
+    """K2's outputs (t, code, idx, mat, u, v, normal, ff) against its plain
+    version's."""
+    out = [x.cpu().numpy() for x in out]
+    ref = [x.cpu().numpy() for x in ref]
+    t, code, idx, mat, u, v, normal, ff = out
+    rt, rcode, ridx, rmat, ru, rv, rnormal, rff = ref
+    return assert_winners_match((code, idx), (rcode, ridx),
+                                dict(t=t, u=u, v=v, mat=mat, normal=normal, ff=ff),
+                                dict(t=rt, u=ru, v=rv, mat=rmat, normal=rnormal, ff=rff), what)
+
+
+def k3_compare(out, ref, what="K3"):
+    """K3's outputs (hit, t, tri, u, v) against traverse's."""
+    hit, t, tri, u, v = [x.cpu().numpy() for x in out]
+    rhit, rt, rtri, ru, rv = [x.cpu().numpy() for x in ref]
+    return assert_winners_match((hit, tri), (rhit, rtri), dict(t=t, u=u, v=v),
+                                dict(t=rt, u=ru, v=rv), what)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _on(dev, *xs):
+    return [torch.from_numpy(x).to(dev) for x in xs]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("target", [None, BIG_TARGET])
+def test_k2_matches_plain_on_card(cuda, target):
+    data = teapot_scene(target).compile(device=cuda)
+    o, d, t_min, t_max, u_vol = _on(cuda, *scene_rays(4096))
+    before = scene_intersect.LAUNCHES
+    out = scene_intersect.scene_intersect_cuda(data, o, d, t_min, t_max, u_vol)
+    torch.cuda.synchronize()
+    assert scene_intersect.LAUNCHES == before + 1
+    ref = scene_intersect.scene_intersect_plain(data, o, d, t_min, t_max, u_vol)
+    k2_compare(out, ref)
+    code = out[1].cpu().numpy()
+    assert (code[::16] == -1).all(), "dead rays must miss"
+    if target is None:
+        assert (code == 4).sum() > 100, "the dense teapot must take part"
+
+
+@pytest.mark.gpu
+def test_k3_matches_traverse_on_card(cuda):
+    data = teapot_scene(BIG_TARGET).compile(device=cuda)
+    mesh = data.meshes[0]
+    o, d, t_min, t_max, _ = _on(cuda, *scene_rays(4096, seed=1))
+    o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh, o, d))
+    before = tri_scan_big.LAUNCHES
+    out = tri_scan_big.tri_scan_big_cuda(mesh, o_obj, d_obj, t_min, t_max)
+    torch.cuda.synchronize()
+    assert tri_scan_big.LAUNCHES == before + 1
+    ref = tri_scan_big.tri_scan_big_plain(mesh, o_obj, d_obj, t_min, t_max)
+    k3_compare(out, ref)
+    hit = out[0].cpu().numpy()
+    assert hit.sum() > 500 and not hit[::16].any()
+
+
+@pytest.mark.gpu
+def test_staged_path_on_card_matches_cpu(cuda):
+    scene = teapot_scene(BIG_TARGET)
+    ids = torch.arange(16 * 16, dtype=torch.int32)
+    o, d, uids = driver._gen_chunk_rays(scene.camera, ids, 5, 0, 4, 1)
+    ref, ref_segs = integrator.path_trace_shrink(scene.compile(device="cpu"), o, d, uids, 5, 4,
+                                                 100.0)
+    data = scene.compile(device=cuda)
+    k2, k3 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
+    rad, segs = integrator.path_trace_shrink(data, o.to(cuda), d.to(cuda), uids.to(cuda), 5, 4,
+                                             100.0)
+    torch.cuda.synchronize()
+    assert scene_intersect.LAUNCHES - k2 == 4 and tri_scan_big.LAUNCHES - k3 == 4
+    assert float(ref.max()) > 0.0
+    assert_paths_match(rad.cpu().numpy(), segs.cpu(), ref.numpy(), ref_segs)
+
+
+@pytest.mark.gpu
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    data = teapot_scene(BIG_TARGET).compile(device=cuda)
+    o, d, t_min, t_max, u_vol = _on(cuda, *scene_rays(64))
+    with pytest.raises(ValueError, match="dtype"):
+        scene_intersect.scene_intersect_cuda(data, o.double(), d, t_min, t_max, u_vol)
+    with pytest.raises(ValueError, match="shape"):
+        scene_intersect.scene_intersect_cuda(data, o, d, t_min[:8], t_max, u_vol)
+    with pytest.raises(ValueError, match="contiguous"):
+        scene_intersect.scene_intersect_cuda(data, o.t().contiguous().t(), d, t_min, t_max, u_vol)
+    mesh = data.meshes[0]
+    with pytest.raises(ValueError, match="on"):
+        tri_scan_big.tri_scan_big_cuda(mesh, o, d, t_min.cpu(), t_max)
+    with pytest.raises(ValueError, match="shape"):
+        tri_scan_big.tri_scan_big_cuda(mesh, o, d[:8], t_min, t_max)
