@@ -5,9 +5,12 @@
 Phases, each printing one line and raising on failure (any failure exits
 nonzero):
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: nvcc builds the mega-bounce kernel (K1), the scene-intersection
-     kernel (K2) and the big-mesh BVH traversal kernel (K3) from csrc/, one
-     nvcc each, all started together; prints registers and spills;
+  2. build: nvcc builds the mega-bounce kernel (K1), the wavefront kernel
+     (K4), the scene-intersection kernel (K2), the big-mesh BVH traversal
+     kernel (K3) and the dense-mesh scan (K5) from csrc/, one nvcc each, all
+     started together; prints registers and spills (K4's two variants), and
+     fails if K1, whose bounce body K4 shares, has more registers than
+     before or spills;
   3. K1 against its plain torch version on the card, bench scene
      (teapot_6k) at 64² × 4 spp, depth 8;
   4. the goldens (tests/goldens, seed 42) rendered through K1;
@@ -42,19 +45,41 @@ nonzero):
  13. a torch.profiler trace of one 32k render: device busy time, idle
      share, and the shares of K2, K3, the compaction's sorts and the
      package's "bounce_rng" and "raygen" spans.
-Phases 6, 7, 9 and 10 first hold a full-size launch (all of the chunk's
+Then this slice's paths, K4 and K5:
+ 14. K4 against K1 on the same rays at full width, through
+     path_trace_wavefront: the bench frame (16,777,216 rays, depth 8, one
+     K4 launch per bounce) and chunk 0 of the Cornell time-to-64spp render
+     (the rays render_chunk makes, depth 10): rows bit-identical to K1's,
+     K1's contract, segment totals, and the live share entering each
+     bounce; compact=False gives the same bits; a strided sample of each
+     traced alone and held to integrator.path_trace;
+ 15. K4 timing by CUDA events against K1 on the bench frame, in turns, and
+     one frame step by step (pack, each launch, each partition,
+     un-permute), and the same on the Cornell chunk; K4, K1 and the plain
+     wavefront at 128² × 16 spp (the
+     launch of K1's row in the kernels line);
+ 16. a torch.profiler trace of one K4 frame: busy, idle share, and the
+     shares of K4 and of the partition (the package's span
+     "wavefront_partition");
+ 17. K5 through intersect_mesh on 4,194,304 camera rays (chunk 0 of 4 of
+     the bench frame) against the 6k teapot, the sample held to
+     tri_scan_plain, and K5 timed against it;
+ 18. the bounds of K4 (K1's counted work plus the bytes of its state) and
+     K5 (rays × triangles × 53 FP32 operations).
+Phases 6, 7, 9, 10, 14 and 17 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
 traced alone must give the same rows, bit for bit, and those rows must
 match the plain version within the kernel's tolerance (K1 and the staged
-path: phase 3's; K2 and K3: the same winner on >= 99.9% of rays, t, u, v
-within rtol 1e-4 / atol 1e-5 where it agrees).
+path and K4: phase 3's; K2, K3 and K5: the same winner on >= 99.9% of
+rays, t, u, v within rtol 1e-4 / atol 1e-5 where it agrees).
 Then one JSON line describing the kernels, the card's nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
 
 The launch counts in the kernels line are those of the main paths only:
 K1's of the timed frames of phase 6 and the renders of phase 7, K2's and
-K3's of the timed renders of phase 10. Each counter is reset just before
+K3's of the timed renders of phase 10, K4's of the two wavefront runs of
+phase 14, K5's of the intersect_mesh call of phase 17. Each counter is reset just before
 its path runs and read just after; the launches that compare a kernel
 with its plain version fall outside.
 """
@@ -91,6 +116,11 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # and csrc/bvh_traverse.cu (an add, multiply, divide, square root, min, max
 # or compare is one). The bounds count only the intersection tests, not
 # the shading, the RNG or integer work, so they are lower bounds.
+# the launch of K1's (and K4's) row in the kernels line: 128² x 16 spp
+ROW_SIDE, ROW_SPP = 128, 16
+# nvcc 12.9 allots K1 64 registers with no spills; sharing its bounce
+# body with K4 (csrc/bounce.cuh) must not raise that
+K1_REGS = 64
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
 
@@ -576,6 +606,283 @@ def k1_bounds(dev, depth: int, launches) -> dict:
     return out
 
 
+def compare_k1(what: str, rad, segs, k1_rad, k1_segs, depth: int) -> tuple[int, int, float]:
+    """K4's rows against K1's on the same rays, by K1's contract (compare()).
+    Returns (rows bit-identical to K1's, rows outside the tolerance, max
+    |diff|)."""
+    n_bad, err, seg_diff = compare(rad, segs, k1_rad, k1_segs, depth)
+    same = int((rad == k1_rad).all(dim=1).sum())
+    log("k4-vs-k1", f"{what}: {same}/{rad.shape[0]} rows bit-identical to K1's, "
+        f"{rad.shape[0] - n_bad} within rtol {RTOL} atol {ATOL}, max |diff| {err:.3g}; segments "
+        f"K4 {int(segs)}, K1 {int(k1_segs)} (diff {seg_diff} <= {depth}x{n_bad})")
+    return same, n_bad, err
+
+
+def wavefront_split(wavefront, data, o, d, uids, key, depth: int, max_dist: float) -> dict:
+    """One wavefront frame run step by step as path_trace_wavefront runs it,
+    with CUDA events around each part: ms of packing the state, of each K4
+    launch, of each partition and of the un-permute."""
+    from cs397raytracingsp22_tpu_torch.render import integrator
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    # ev[1 + 2b] -> ev[2 + 2b]: launch b; ev[2 + 2b] -> ev[3 + 2b]: partition b
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * depth + 3)]
+    key_pair = threefry.key_pair(key)
+    torch.cuda.synchronize()
+    ev[0].record()
+    rows, alive = wavefront.pack_state(o, d, uids)
+    ev[1].record()
+    for b in range(depth):
+        wavefront.step_cuda(data, rows, alive, key_pair, b, b == depth - 1,
+                            integrator.PATH_T_MIN, max_dist)
+        ev[2 + 2 * b].record()
+        if b < depth - 1:
+            rows, alive = wavefront.stable_partition(alive, rows)
+        ev[3 + 2 * b].record()
+    wavefront.radiance_in_caller_order(rows)
+    ev[-1].record()
+    torch.cuda.synchronize()
+    return dict(pack=ev[0].elapsed_time(ev[1]),
+                k4=[ev[1 + 2 * b].elapsed_time(ev[2 + 2 * b]) for b in range(depth)],
+                partition=[ev[2 + 2 * b].elapsed_time(ev[3 + 2 * b]) for b in range(depth - 1)],
+                unpermute=ev[2 * depth + 1].elapsed_time(ev[-1]))
+
+
+def k4_state_bytes(n: int, live: list) -> int:
+    """The bytes K4's state adds on top of K1's: per launch the 4-byte alive
+    flag of every ray and, for each live ray, its 64-byte row read, 48 bytes
+    written (16 on the emission-only last launch) and its alive written; per
+    partition alive, every row read and written and the new alive."""
+    launches = sum(n * 4 + m * (64 + 48 + 4) for m in live[:-1]) + n * 4 + live[-1] * (64 + 16 + 4)
+    return launches + (len(live) - 1) * n * (4 + 64 + 64 + 4)
+
+
+def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: int) -> list:
+    """Phases 14-18 (see the module docstring): K4 and K5. k1b: phase 12's
+    K1 bounds by (width, spp). Returns the kernels line's entries of K4 and
+    K5."""
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, tri_scan, wavefront
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene, cornell
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    # ---- 14. K4 against K1 at full width, on its own main path ----
+    n_px = width * height
+    sc = bench_scene.build(width, height, spp=spp, path_depth=depth)
+    data = sc.compile(device=dev)
+    o, d, uids = driver._gen_chunk_rays(sc.camera, torch.arange(n_px, dtype=torch.int32,
+                                                                device=dev), 0, 0, spp, 1)
+    max_dist = 100.0
+    k1_rad, k1_segs = bounce.path_trace_cuda(data, o, d, uids, 0, depth, max_dist)
+    st = {}
+    wavefront.LAUNCHES = 0  # the wavefront path's count starts here
+    rad, segs = wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist, stats=st)
+    torch.cuda.synchronize()
+    k4_launches = wavefront.LAUNCHES  # read just after
+    if k4_launches != depth:
+        raise AssertionError(f"the bench frame launched K4 {k4_launches} times, not {depth}")
+    n = o.shape[0]
+    live6k = [int(x) for x in st["live"]]
+    compare_k1(f"bench teapot_6k {width}²x{spp}spp depth {depth}, one chunk of {n} rays, "
+               f"{k4_launches} K4 launches", rad, segs, k1_rad, k1_segs, depth)
+    log("k4-live", "bench teapot_6k: live share entering each bounce " + ", ".join(
+        f"{m / n:.6f}" for m in live6k) + f" ({live6k[-1]} of {n} rays reach bounce {depth - 1})")
+    rad_nc, segs_nc = wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist,
+                                                     compact=False)
+    if not torch.equal(rad_nc, rad) or int(segs_nc) != int(segs):
+        raise AssertionError("K4 with compact=False differs from compact=True")
+    log("k4-compact", f"bench teapot_6k: compact=False gives the same {n} rows bit for bit and "
+        f"the same {int(segs)} segments as compact=True")
+    idx = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+    k4 = lambda o_, d_, u_: wavefront.path_trace_wavefront(data, o_, d_, u_, 0, depth, max_dist)  # noqa: E731
+    sub, (rad_s, segs_s) = sample_alone("K4", k4, (rad,), (o, d, uids), idx)
+    ref_rad, ref_segs = integrator.path_trace(data, *sub, 0, depth, max_dist)
+    n_bad, k4_err, seg_diff = compare(rad_s, segs_s, ref_rad, ref_segs, depth)
+    log("parity-k4", f"bench teapot_6k: every {SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone "
+        f"through K4 is bit-identical to the full launch's rows; {idx.numel() - n_bad}/"
+        f"{idx.numel()} within rtol {RTOL} atol {ATOL} of integrator.path_trace, max |diff| "
+        f"{k4_err:.3g}, segment diff {seg_diff} <= {depth}x{n_bad}")
+    del rad_nc, rad_s, ref_rad
+
+    sc64 = cornell.build(width=512, height=512, spp=64, path_depth=10)
+    d64 = sc64.compile(device=dev)
+    cam = sc64.camera
+    key = threefry.key_words(0)
+    px_chunk = driver.chunk_pixels(d64, cam, cam.aa_sample_count)
+    n_chunks = (512 * 512 + px_chunk - 1) // px_chunk
+    ids = torch.arange(px_chunk, dtype=torch.int32, device=dev) * n_chunks
+    o64, d64r, u64 = driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
+    c_rad, c_segs = bounce.path_trace_cuda(d64, o64, d64r, u64, key, cam.path_depth,
+                                           cam.max_trace_dist)
+    st64 = {}
+    before = wavefront.LAUNCHES
+    w_rad, w_segs = wavefront.path_trace_wavefront(d64, o64, d64r, u64, key, cam.path_depth,
+                                                   cam.max_trace_dist, stats=st64)
+    torch.cuda.synchronize()
+    k4_launches += wavefront.LAUNCHES - before
+    n64 = o64.shape[0]
+    compare_k1(f"Cornell 512²x64spp depth {cam.path_depth}, chunk 0 of {n_chunks} ({n64} rays)",
+               w_rad, w_segs, c_rad, c_segs, cam.path_depth)
+    live64 = [int(x) for x in st64["live"]]
+    log("k4-live", "Cornell: live share entering each bounce " + ", ".join(
+        f"{m / n64:.6f}" for m in live64))
+    sub, (rad_s, segs_s) = sample_alone(
+        "K4 Cornell", lambda o_, d_, u_: wavefront.path_trace_wavefront(
+            d64, o_, d_, u_, key, cam.path_depth, cam.max_trace_dist),
+        (w_rad,), (o64, d64r, u64), idx[idx < n64])
+    ref_rad, ref_segs = integrator.path_trace(d64, *sub, key, cam.path_depth, cam.max_trace_dist)
+    n_bad, err, seg_diff = compare(rad_s, segs_s, ref_rad, ref_segs, cam.path_depth)
+    k4_err = max(k4_err, err)  # max |K4 - plain| over both samples
+    log("parity-k4", f"Cornell: every {SAMPLE_STRIDE}th ray ({rad_s.shape[0]}) traced alone "
+        f"through K4 is bit-identical to the full launch's rows; {rad_s.shape[0] - n_bad}/"
+        f"{rad_s.shape[0]} within rtol {RTOL} atol {ATOL} of integrator.path_trace, max |diff| "
+        f"{err:.3g}")
+    del c_rad, w_rad
+    c_k1 = lambda: bounce.path_trace_cuda(d64, o64, d64r, u64, key, cam.path_depth,  # noqa: E731
+                                          cam.max_trace_dist)
+    c_k4 = lambda: wavefront.path_trace_wavefront(d64, o64, d64r, u64, key,  # noqa: E731
+                                                  cam.path_depth, cam.max_trace_dist)
+    c_times = {"K1": [], "K4": []}
+    for name, fn in (("K1", c_k1), ("K4", c_k4), ("K4", c_k4), ("K1", c_k1)):
+        c_times[name].append(cuda_ms(fn, 3))
+    c_split = wavefront_split(wavefront, d64, o64, d64r, u64, key, cam.path_depth,
+                              cam.max_trace_dist)
+    log("timing-k4", f"Cornell chunk ({n64} rays, depth {cam.path_depth}), CUDA events, mean of 3 "
+        f"after a warm run, in turns K1, K4, K4, K1: K1 "
+        f"{', '.join(f'{t:.3f}' for t in c_times['K1'])} ms; K4 path "
+        f"{', '.join(f'{t:.3f}' for t in c_times['K4'])} ms "
+        f"({sum(c_times['K4']) / sum(c_times['K1']):.2f}x K1); step by step: pack "
+        f"{c_split['pack']:.3f} ms, K4 launches {sum(c_split['k4']):.3f} ms, partitions "
+        f"{sum(c_split['partition']):.3f} ms, un-permute {c_split['unpermute']:.3f} ms")
+    del o64, d64r, u64
+
+    # ---- 15. K4 timing against K1 on the same rays, the partition apart ----
+    run_k1 = lambda: bounce.path_trace_cuda(data, o, d, uids, 0, depth, max_dist)  # noqa: E731
+    run_k4 = lambda: wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist)  # noqa: E731
+    turns = [("K1", run_k1), ("K4", run_k4), ("K4", run_k4), ("K1", run_k1)]
+    times = {"K1": [], "K4": []}
+    for name, fn in turns:
+        times[name].append(cuda_ms(fn, 3))
+    split = wavefront_split(wavefront, data, o, d, uids, 0, depth, max_dist)
+    k4_sum, part_sum = sum(split["k4"]), sum(split["partition"])
+    k4_frame = sum(times["K4"]) / 2
+    log("timing-k4", f"bench teapot_6k frame ({n} rays, depth {depth}), CUDA events, mean of 3 "
+        f"after a warm run, in turns K1, K4, K4, K1: K1 {', '.join(f'{t:.3f}' for t in times['K1'])}"
+        f" ms; K4 path {', '.join(f'{t:.3f}' for t in times['K4'])} ms "
+        f"({k4_frame / (sum(times['K1']) / 2):.3f}x K1); one frame step by step: pack "
+        f"{split['pack']:.3f} ms, K4 launches {k4_sum:.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in split["k4"]) + f"), partitions {part_sum:.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in split["partition"]) + f"), un-permute "
+        f"{split['unpermute']:.3f} ms; partition share {part_sum / k4_frame:.1%} of the K4 path")
+
+    # at the shape of K1's row in the kernels line
+    sc_s = bench_scene.build(ROW_SIDE, ROW_SIDE, spp=ROW_SPP, path_depth=depth)
+    data_s = sc_s.compile(device=dev)
+    o_s, d_s, u_s = driver._gen_chunk_rays(
+        sc_s.camera, torch.arange(ROW_SIDE**2, dtype=torch.int32, device=dev), 0, 0, ROW_SPP, 1)
+    st_s = {}
+    wavefront.path_trace_wavefront(data_s, o_s, d_s, u_s, 0, depth, max_dist, stats=st_s)
+    k4_ms = cuda_ms(lambda: wavefront.path_trace_wavefront(data_s, o_s, d_s, u_s, 0, depth,
+                                                           max_dist), 5)
+    k1_ms = cuda_ms(lambda: bounce.path_trace_cuda(data_s, o_s, d_s, u_s, 0, depth, max_dist), 5)
+    k4_plain_ms = cuda_ms(lambda: wavefront.path_trace_wavefront_plain(
+        data_s, o_s, d_s, u_s, 0, depth, max_dist), 1)
+    log("timing-k4", f"bench teapot_6k {ROW_SIDE}²x{ROW_SPP}spp depth {depth} ({o_s.shape[0]} rays): K4 path "
+        f"{k4_ms:.3f} ms, K1 {k1_ms:.3f} ms, plain wavefront {k4_plain_ms:.3f} ms")
+
+    # ---- 18. K4's bound: K1's counted work plus the state's bytes ----
+    k4b = {}
+    for (w_, spp_), nr, live in (((ROW_SIDE, ROW_SPP), o_s.shape[0],
+                                  [int(x) for x in st_s["live"]]),
+                                 ((width, spp), n, live6k)):
+        _, _, w = k1b[(w_, spp_)]
+        extra = k4_state_bytes(nr, live)
+        k4b[(w_, spp_)] = bound(w["bytes"] + extra, w["ops"])
+        log("bound-k4", f"bench teapot_6k {w_}²x{spp_}spp depth {depth} ({nr} rays): K1's "
+            f"{w['ops']:.4g} FP32 ops and {w['bytes']:.4g} B plus {extra:.4g} B of state -> bound "
+            f"{k4b[(w_, spp_)][0]:.4f} ms ({k4b[(w_, spp_)][1]})")
+
+    # ---- 16. device trace of one K4 frame ----
+    tr = device_trace("wavefront_frame", run_k4, {"K4": "wavefront_kernel"},
+                      spans=("wavefront_partition",))
+    log("trace", "wavefront_frame: " + f"{tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} "
+        f"ms in a {tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
+        f"{tr['wall_ms']:.3f} ms wall under the profiler; " + ", ".join(
+            f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items()))
+    del o, d, uids, k1_rad, rad
+
+    # ---- 17. K5 at 4,194,304 rays, through intersect_mesh ----
+    mesh = data.meshes[data.dense_mesh_ids[0]]
+    nt = mesh.tri_table.shape[0]
+    ids = torch.arange(n_px // 4, dtype=torch.int32, device=dev) * 4  # chunk 0 of 4, as the staged path
+    o5, d5, _ = driver._gen_chunk_rays(sc.camera, ids, key, 0, spp, 1)
+    n5 = o5.shape[0]
+    tri_scan.LAUNCHES = 0  # the dense-mesh entry point's count starts here
+    f = isect.intersect_mesh(mesh, data, o5, d5, integrator.PATH_T_MIN, max_dist)
+    torch.cuda.synchronize()
+    k5_launches = tri_scan.LAUNCHES  # read just after
+    if k5_launches != 1:
+        raise AssertionError(f"intersect_mesh launched K5 {k5_launches} times, not once")
+    o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh, o5, d5))
+    ins = (o_obj, d_obj, torch.full((n5,), integrator.PATH_T_MIN, device=dev),
+           torch.full((n5,), max_dist, device=dev))
+    k5f = lambda *a: tri_scan.tri_scan_cuda(mesh, *a)  # noqa: E731
+    full5 = k5f(*ins)
+    if not torch.equal(full5[0], f["valid"]) or not torch.equal(full5[1], f["t"]):
+        raise AssertionError("intersect_mesh's hits differ from K5's on the same rays")
+    idx5 = torch.arange(0, n5, SAMPLE_STRIDE, device=dev)
+    sub5, alone5 = sample_alone("K5", k5f, full5, ins, idx5)
+    ref5 = tri_scan.tri_scan_plain(mesh.tri_table, *sub5)
+
+    def hits_only(x):
+        return {k: torch.where(x[0], x[j], torch.zeros_like(x[j]))
+                for k, j in (("t", 1), ("u", 3), ("v", 4))}
+
+    n_s, n_same, n_exact, k5_err = compare_hits(
+        "K5", (alone5[0], alone5[2]), (ref5[0], ref5[2]), hits_only(alone5), hits_only(ref5))
+    log("parity-k5", f"bench teapot_6k ({nt} triangles), chunk 0 of 4 of the frame ({n5} camera "
+        f"rays, {int(full5[0].sum())} hit the teapot) through intersect_mesh: {k5_launches} K5 "
+        f"launch; every {SAMPLE_STRIDE}th ray ({n_s}) alone is bit-identical to the launch's rows; "
+        f"{n_same}/{n_s} same (hit, tri) as tri_scan_plain, {n_exact}/{n_s} bit-identical, t/u/v "
+        f"max |diff| {k5_err:.3g}; {int(alone5[0].sum())} sampled hits")
+    k5_ms = cuda_ms(lambda: tri_scan.tri_scan_cuda(mesh, *ins), 5)
+    k5_plain_ms = cuda_ms(lambda: tri_scan.tri_scan_plain(mesh.tri_table, *ins, chunk=16), 1)
+    k5_ops = n5 * nt * OPS["mt"]
+    k5_bytes = nbytes(*ins) + n5 * (1 + 4 + 4 + 4 + 4) + nbytes(mesh.tri_table)
+    k5_bound, k5_by = bound(k5_bytes, k5_ops)
+    log("timing-k5", f"{n5} rays x {nt} triangles: K5 {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms "
+        f"({k5_plain_ms / k5_ms:.1f}x); bound {k5_ops:.4g} FP32 ops ({OPS['mt']} a test), "
+        f"{k5_bytes:.4g} B -> {k5_bound:.4f} ms ({k5_by}), K5 at {k5_bound / k5_ms:.1%} of it")
+
+    k4_bound, k4_by = k4b[(ROW_SIDE, ROW_SPP)]
+    return [{
+        "name": "wavefront",
+        "route": "cuda",
+        "source": "cs397raytracingsp22_tpu_torch/csrc/wavefront.cu",
+        "replaces": "cs397raytracingsp22_tpu/ops/pallas/bounce.py:1670",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        "ms": k4_ms,
+        "plain_ms": k4_plain_ms,
+        "bound_ms": k4_bound,
+        "bound_by": k4_by,
+        "library_ms": None,
+    }, {
+        "name": "tri_scan",
+        "route": "cuda",
+        "source": "cs397raytracingsp22_tpu_torch/csrc/tri_scan.cu",
+        "replaces": "cs397raytracingsp22_tpu/ops/pallas/tri_scan.py:100",
+        "launches": k5_launches,
+        "max_abs_err": k5_err,
+        "ms": k5_ms,
+        "plain_ms": k5_plain_ms,
+        "bound_ms": k5_bound,
+        "bound_by": k5_by,
+        "library_ms": None,
+    }]
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -589,23 +896,30 @@ def main() -> int:
     from PIL import Image
 
     from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect
-    from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan_big
+    from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, tri_scan_big, wavefront
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import bench_scene, cornell
     from cs397raytracingsp22_tpu_torch.utils import threefry
 
     # ---- 2. build ----
     t0 = time.perf_counter()
-    _build.build_all(["bounce", "scene_intersect", "bvh_traverse"])
+    _build.build_all(_build.KERNELS)
     build_s = time.perf_counter() - t0
-    for kid, name, mod in (("K1", "bounce", bounce), ("K2", "scene_intersect", scene_intersect),
-                           ("K3", "bvh_traverse", tri_scan_big)):
-        regs, spill = mod.kernel_attrs()
+    for kid, name, mod, kw in (("K1", "bounce", bounce, {}),
+                               ("K4", "wavefront", wavefront, {"last": False}),
+                               ("K4 last", "wavefront", wavefront, {"last": True}),
+                               ("K2", "scene_intersect", scene_intersect, {}),
+                               ("K3", "bvh_traverse", tri_scan_big, {}),
+                               ("K5", "tri_scan", tri_scan, {})):
+        regs, spill = mod.kernel_attrs(**kw)
         ptxas = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
         log("build", f"{kid} csrc/{name}.cu ({_build.BUILD_INFO[name]['seconds']:.2f}s nvcc, all "
-            f"three in {build_s:.2f}s): {regs} registers/thread, {spill} B local; ptxas: "
-            f"{' | '.join(ptxas)}")
+            f"{len(_build.KERNELS)} in {build_s:.2f}s): {regs} registers/thread, {spill} B local; "
+            f"ptxas: {' | '.join(ptxas)}")
+        if kid == "K1" and (regs > K1_REGS or spill):
+            raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; it had "
+                                 f"{K1_REGS} and none before its body moved to csrc/bounce.cuh")
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -758,6 +1072,8 @@ def main() -> int:
     staged = staged_phases(dev, data, width, height, spp, depth)
     k1b = k1_bounds(dev, depth, ((128, 128, 16, 16), (width, height, spp, SAMPLE_STRIDE)))
     k1_bound_ms, k1_by, _ = k1b[(128, 16)]
+    # ---- 14-18: the wavefront kernel K4 and the dense-mesh scan K5 ----
+    k45 = wavefront_phases(dev, k1b, width, height, spp, depth)
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",
@@ -770,7 +1086,7 @@ def main() -> int:
         "bound_ms": k1_bound_ms,
         "bound_by": k1_by,
         "library_ms": None,
-    }] + staged}))
+    }] + staged + k45}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,13 +11,15 @@
 // Shape: one thread per ray runs every bounce in a loop. Origin,
 // direction, throughput, radiance and the segment count stay in
 // registers, so device memory sees the camera rays once and the radiance
-// and per-ray segment count once. Each bounce: the analytic scan (spheres,
-// planes, triangles, volumes with free flight) against a running nearest
-// hit, the dense-mesh Möller–Trumbore scan with per-ray superleaf culling,
-// the winner resolve, Threefry-2x32-20 for the bounce draws, the five-way
-// BSDF and the throughput update. A miss ends the ray's loop; the last
-// bounce accumulates emission only (its scatter would never be traced)
-// but still draws its volume uniforms, whose counters are the spec's.
+// and per-ray segment count once. The body of the loop is bounce.cuh::
+// bounce_step, which the wavefront kernel (K4, wavefront.cu) runs one
+// bounce per launch: the analytic scan (spheres, planes, triangles,
+// volumes with free flight) against a running nearest hit, the dense-mesh
+// Möller–Trumbore scan with per-ray superleaf culling, the winner resolve,
+// Threefry-2x32-20 for the bounce draws, the five-way BSDF and the
+// throughput update. A miss ends the ray's loop; the last bounce
+// accumulates emission only (its scatter would never be traced) but still
+// draws its volume uniforms, whose counters are the spec's.
 //
 // Semantics kept from the spec: class order spheres → planes → triangles
 // → volumes → meshes with the earliest index winning ties (strict `<`
@@ -29,9 +31,7 @@
 // dense-mesh scan and the analytic resolve are the device functions of
 // intersect.cuh, which the scene-intersection kernel (K2) shares.
 //
-// Arithmetic: Threefry in native uint32 gives the bits of
-// utils/threefry.py::bounce_uniforms. sincos_2pi and cbrt_fast are the
-// same polynomials and Newton steps as utils/sampling.py (not sinf/cbrtf).
+// Arithmetic: see bounce.cuh (Threefry bits, sincos_2pi, cbrt_fast).
 // The mesh test is Möller–Trumbore with the reference's |det| >= 1e-4
 // reject and an exact IEEE divide (the Baldwin–Weber rows and approximate
 // reciprocal of the TPU kernel were an op-count trick for its vector
@@ -47,9 +47,12 @@
 //   BVH leaves, epsilon-padded) against the running best t skips most
 //   groups; a later PR replaces the flat scan with BVH traversal.
 // - Divergence from dead rays: a ray that misses leaves the loop and its
-//   lanes idle while the warp's other rays bounce on. Camera rays of one
-//   pixel sit in neighbouring lanes, so warps start coherent; compacting
-//   live rays between bounces (the wavefront kernel K4) is a later PR.
+//   lanes idle while the warp's other rays bounce on. On the scenes
+//   measured so far this costs little: 99.29% of the bench frame's rays
+//   and 99.00% of the Cornell box's are still alive entering the last
+//   bounce (PERF.md). The wavefront kernel K4 (wavefront.cu) runs the same
+//   bounce_step one bounce per launch and compacts the live rays between
+//   launches; on those scenes it is 1.27x slower than this kernel.
 // - Register pressure: the whole path state plus the scan's running hit is
 //   live across the loop. __launch_bounds__(128, 4) caps the kernel at 128
 //   registers (nvcc 12.9 allots it 64, with no spills, so 32 warps fit on
@@ -57,18 +60,13 @@
 //   shared memory, staged once per block, and the mesh rows (221 KB at
 //   6,144 triangles) are read through __ldg from L2.
 
-#include "intersect.cuh"
+#include "bounce.cuh"
 
 namespace {
 
 using namespace rt;
 
 constexpr int kThreads = 128;
-constexpr float kPi = 3.14159265358979f;
-constexpr float kTwoPi = 6.283185307179586f;
-
-// material type enum (models/materials.py); 0 = Lambertian is the switch's default
-constexpr int METAL = 1, DIELECTRIC = 2, PARAMETERIZED = 3, ISOTROPIC = 4;
 
 struct Params {
   const float* o;
@@ -88,65 +86,6 @@ struct Params {
   const float* sl;        // (NSL, 6) superleaf [lo, hi]
 };
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-#define TF_ROUND(r) { x0 += x1; x1 = rotl32(x1, r); x1 ^= x0; }
-#define TF_EVEN TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-#define TF_ODD TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-
-// Threefry-2x32-20 (utils/threefry.py::threefry2x32).
-__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0,
-                                             uint32_t c1, uint32_t& r0, uint32_t& r1) {
-  const uint32_t ks2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  uint32_t x0 = c0 + k0, x1 = c1 + k1;
-  TF_EVEN x0 += k1;  x1 += ks2 + 1u;
-  TF_ODD  x0 += ks2; x1 += k0 + 2u;
-  TF_EVEN x0 += k0;  x1 += k1 + 3u;
-  TF_ODD  x0 += k1;  x1 += ks2 + 4u;
-  TF_EVEN x0 += ks2; x1 += k0 + 5u;
-  r0 = x0;
-  r1 = x1;
-}
-
-// (cos 2πu, sin 2πu): quadrant reduction + Cephes polynomials
-// (utils/sampling.py::sincos_2pi).
-__device__ __forceinline__ void sincos_2pi(float u, float& co, float& si) {
-  const float y = u * 4.0f;
-  const float k = rintf(y);  // half to even, as torch.round
-  const float th = (y - k) * 1.5707963267948966f;
-  const float z = th * th;
-  const float s = th * (1.0f + z * (-1.6666654611e-1f + z * (8.3321608736e-3f + z * -1.9515295891e-4f)));
-  const float c = 1.0f - 0.5f * z +
-                  (z * z) * (4.166664568298827e-2f + z * (-1.388731625493765e-3f + z * 2.443315711809948e-5f));
-  const int ki = (int)k;
-  co = (ki & 1) ? -s : c;
-  si = (ki & 1) ? c : s;
-  if (ki & 2) { co = -co; si = -si; }
-}
-
-// x^(1/3): bit-hack seed + three Newton steps (utils/sampling.py::cbrt_fast).
-__device__ __forceinline__ float cbrt_fast(float u) {
-  const float x = fmaxf(u, 1.1754944e-38f);
-  float z = __int_as_float(0x54A21D2A - __float_as_int(x) / 3);
-  const float third = (float)(1.0 / 3.0);
-  for (int i = 0; i < 3; ++i) z = z * (4.0f - x * z * z * z) * third;
-  return x * z * z;
-}
-
-__device__ __forceinline__ float pow5(float x) {
-  const float x2 = x * x;
-  return x * (x2 * x2);
-}
-
-// Schlick fresnel of the full index of refraction (vecmath.fresnel).
-__device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
-  float r0 = (ir - 1.0f) / (ir + 1.0f);
-  r0 = r0 * r0;
-  return r0 + (1.0f - r0) * pow5(1.0f - cos_abs_term);
-}
-
 __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
   extern __shared__ float sm[];
   stage_table(sm, p.scene, p.scene_len);
@@ -156,152 +95,22 @@ __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
 
   const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat);
 
-  float ox = p.o[3 * i], oy = p.o[3 * i + 1], oz = p.o[3 * i + 2];
-  float dx = p.d[3 * i], dy = p.d[3 * i + 1], dz = p.d[3 * i + 2];
-  float tr = 1.0f, tg = 1.0f, tb = 1.0f;
-  float rr = 0.0f, rg = 0.0f, rb = 0.0f;
+  PathState st;
+  st.ox = p.o[3 * i]; st.oy = p.o[3 * i + 1]; st.oz = p.o[3 * i + 2];
+  st.dx = p.d[3 * i]; st.dy = p.d[3 * i + 1]; st.dz = p.d[3 * i + 2];
+  st.tr = 1.0f; st.tg = 1.0f; st.tb = 1.0f;
+  st.rr = 0.0f; st.rg = 0.0f; st.rb = 0.0f;
   int segs = 0;
   const uint32_t uid = (uint32_t)p.uid[i];
-  const float tmin = p.t_min, tmax = p.t_max;
 
   for (int depth = 0; depth < p.depth; ++depth) {
     ++segs;
-    const uint32_t site = (uint32_t)(1 + depth) << 16;  // SITE_BOUNCE0 + depth
-
-    // ---------------- nearest hit (intersect.cuh) ----------------
-    Nearest h = nearest_none();
-    const float a2 = dx * dx + dy * dy + dz * dz;
-    scan_spheres(R.sph, p.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
-    scan_planes(R.pln, p.n_pln, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
-    scan_triangles(R.tri, p.n_tri, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
-    uint32_t w0 = 0, w1 = 0;
-    for (int q = 0; q < p.n_vol; ++q) {
-      // free-flight uniform = draw 4+q: block 1 + q/2, 24-bit
-      if ((q & 1) == 0) threefry2x32(p.k0, p.k1, uid, site + 1u + (uint32_t)(q >> 1), w0, w1);
-      const float uq = (float)(((q & 1) ? w1 : w0) >> 8) * 5.9604644775390625e-08f;
-      test_volume(R.vol + kVol * q, q, uq, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
-    }
-    for (int m = 0; m < p.n_mesh; ++m) {
-      scan_dense_mesh(R.msh + kMesh * m, m, p.mesh_tri, p.sl, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
-    }
-    const float best = h.t;
-    const int cls = h.cls, widx = h.idx;
-
-    if (cls < 0) break;  // miss: black background, the ray dies
-
-    // ---------------- winner resolve ----------------
-    float px, py, pz, nx, ny, nz;
-    bool ff;
-    int mid;
-    if (cls == kClsMesh) {
-      const float* X = R.msh + kMesh * h.mesh;
-      float mox, moy, moz, mdx, mdy, mdz;
-      to_object(X, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);
-      const float bu = h.u, bv = h.v;
-      const float* N = p.mesh_nrm + 9 * widx;
-      const float w = 1.0f - bu - bv;
-      float sx = bu * __ldg(N + 3) + bv * __ldg(N + 6) + w * __ldg(N + 0);
-      float sy = bu * __ldg(N + 4) + bv * __ldg(N + 7) + w * __ldg(N + 1);
-      float sz = bu * __ldg(N + 5) + bv * __ldg(N + 8) + w * __ldg(N + 2);
-      float len = sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
-      sx /= len; sy /= len; sz /= len;
-      ff = sx * mdx + sy * mdy + sz * mdz < 0.0f;
-      if (!ff) { sx = -sx; sy = -sy; sz = -sz; }
-      const float wx = X[12] * sx + X[13] * sy + X[14] * sz;
-      const float wy = X[15] * sx + X[16] * sy + X[17] * sz;
-      const float wz = X[18] * sx + X[19] * sy + X[20] * sz;
-      len = sqrtf(wx * wx + wy * wy + wz * wz + 1e-30f);
-      nx = wx / len; ny = wy / len; nz = wz / len;
-      const float qx = mox + best * mdx, qy = moy + best * mdy, qz = moz + best * mdz;
-      px = X[21] * qx + X[22] * qy + X[23] * qz + X[30];
-      py = X[24] * qx + X[25] * qy + X[26] * qz + X[31];
-      pz = X[27] * qx + X[28] * qy + X[29] * qz + X[32];
-      mid = (int)X[33];
-    } else {
-      resolve_analytic(R, cls, widx, best, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff, mid);
-    }
-    const float* M = R.mat + kMat * mid;
-    rr += tr * M[4];
-    rg += tg * M[5];
-    rb += tb * M[6];
-    if (depth == p.depth - 1) break;  // the last scatter is never traced
-
-    // ---------------- scatter ----------------
-    uint32_t x0, x1;
-    threefry2x32(p.k0, p.k1, uid, site, x0, x1);
-    const float s16 = 1.52587890625e-05f;  // 2^-16
-    const float u0 = (float)(x0 >> 16) * s16, u1 = (float)(x0 & 0xFFFFu) * s16;
-    const float u2 = (float)(x1 >> 16) * s16, uc = (float)(x1 & 0xFFFFu) * s16;
-    const float zb = 2.0f * u0 - 1.0f;
-    float cphi, sphi;
-    sincos_2pi(u1, cphi, sphi);
-    const float rad_b = cbrt_fast(u2);
-    const float sb = sqrtf(fmaxf(1.0f - zb * zb, 0.0f));
-    const float bx = rad_b * (sb * cphi), by = rad_b * (sb * sphi), bz = rad_b * zb;
-
-    const int mtype = (int)M[0];
-    const float ar = M[1], ag = M[2], ab = M[3];
-    const float rough = M[7], metal = M[8], ior = M[9];
-    const float ddn = dx * nx + dy * ny + dz * nz;
-    const float bd = bx * nx + by * ny + bz * nz;
-    const float hx = bd < 0.0f ? bx - 2.0f * bd * nx : bx;
-    const float hy = bd < 0.0f ? by - 2.0f * bd * ny : by;
-    const float hz = bd < 0.0f ? bz - 2.0f * bd * nz : bz;
-    const float rfx = dx - 2.0f * ddn * nx, rfy = dy - 2.0f * ddn * ny, rfz = dz - 2.0f * ddn * nz;
-
-    float ndx, ndy, ndz, atr, atg, atb, ipdf;
-    if (mtype == METAL) {
-      ndx = rfx + rough * bx; ndy = rfy + rough * by; ndz = rfz + rough * bz;
-      atr = ar; atg = ag; atb = ab; ipdf = 1.0f;
-    } else if (mtype == DIELECTRIC) {
-      const float eta = ff ? 1.0f / ior : ior;
-      const float cos_in = fminf(-ddn, 1.0f);
-      const bool critical = eta * sqrtf(fmaxf(1.0f - cos_in * cos_in, 0.0f)) > 1.0f;
-      const float fres = fresnel(fabsf(ddn), ior);
-      if (!critical && uc >= fres) {
-        const float perx = eta * (dx + cos_in * nx);
-        const float pery = eta * (dy + cos_in * ny);
-        const float perz = eta * (dz + cos_in * nz);
-        const float par = -sqrtf(fabsf(1.0f - (perx * perx + pery * pery + perz * perz)));
-        ndx = perx + par * nx; ndy = pery + par * ny; ndz = perz + par * nz;
-      } else {
-        ndx = rfx; ndy = rfy; ndz = rfz;
-      }
-      atr = atg = atb = 1.0f; ipdf = 1.0f;
-    } else if (mtype == PARAMETERIZED) {
-      const float k_s = fresnel(fabsf(ddn), 1.5f) * (1.0f - rough);
-      const float k_d = (1.0f - k_s) * (1.0f - metal);
-      if (uc < k_d) {
-        ndx = hx; ndy = hy; ndz = hz;
-        atr = ar / kPi; atg = ag / kPi; atb = ab / kPi; ipdf = kTwoPi;
-      } else {
-        ndx = rfx + rough * bx; ndy = rfy + rough * by; ndz = rfz + rough * bz;
-        atr = (1.0f - metal) * 1.0f + metal * ar;
-        atg = (1.0f - metal) * 1.0f + metal * ag;
-        atb = (1.0f - metal) * 1.0f + metal * ab;
-        ipdf = 1.0f;
-      }
-    } else if (mtype == ISOTROPIC) {
-      ndx = bx; ndy = by; ndz = bz;
-      atr = ar; atg = ag; atb = ab; ipdf = 1.0f;
-    } else {  // Lambertian (and the masked switch's default)
-      ndx = hx; ndy = hy; ndz = hz;
-      atr = ar / kPi; atg = ag / kPi; atb = ab / kPi; ipdf = kTwoPi;
-    }
-    // dot term |dir·n| clamped to [0, 1]; 1 for zero-normal volume hits
-    const float n2 = nx * nx + ny * ny + nz * nz;
-    const float dot_term = n2 > 0.0f ? fminf(fmaxf(fabsf(ndx * nx + ndy * ny + ndz * nz), 0.0f), 1.0f) : 1.0f;
-    const float fac = dot_term * ipdf;
-    tr = tr * (fac * atr);
-    tg = tg * (fac * atg);
-    tb = tb * (fac * atb);
-    ox = px; oy = py; oz = pz;
-    dx = ndx; dy = ndy; dz = ndz;
+    if (!bounce_step(p, R, uid, depth, depth == p.depth - 1, st)) break;
   }
 
-  p.rad[3 * i] = rr;
-  p.rad[3 * i + 1] = rg;
-  p.rad[3 * i + 2] = rb;
+  p.rad[3 * i] = st.rr;
+  p.rad[3 * i + 1] = st.rg;
+  p.rad[3 * i + 2] = st.rb;
   p.segs[i] = segs;
 }
 

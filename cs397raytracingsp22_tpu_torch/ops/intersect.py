@@ -13,7 +13,10 @@ textures or general-boundary volumes:
   with the running best t as its far bound, the merge, and one shading
   resolve of the mesh winners;
 - `intersect_scene` picks the fused path for CUDA tensors and the plain
-  one for CPU tensors.
+  one for CPU tensors;
+- `intersect_mesh` is one mesh's candidate: the dense-scan kernel K5
+  (ops/kernels/tri_scan.py) for a dense mesh of CUDA tensors, else
+  `intersect_mesh_plain`, the per-mesh half of the spec.
 
 Replicated reference quirks:
 - mesh hits keep object-space t and are compared with the world-space t
@@ -176,9 +179,20 @@ def object_rays(mesh: MeshBlock, o, d):
     return vm.apply_mat4_point(mesh.inv_transform, o), vm.apply_mat4_vector(mesh.inv_transform, d)
 
 
-def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dict:
-    """One mesh: the dense scan (at most DENSE_MESH_MAX_TRIS triangles) or
-    the BVH traversal, then the shading resolve. t stays in object space."""
+def _mesh_candidate(mesh: MeshBlock, o_obj, d_obj, hit, t, tri, u, v) -> dict:
+    """The candidate fields of one mesh's nearest hits (t inf on a miss)."""
+    fields = resolve_mesh_hit(mesh, o_obj, d_obj, t, tri, u, v)
+    fields["mat"] = torch.full(t.shape, mesh.mat_id, dtype=torch.int32, device=t.device)
+    fields["valid"] = hit
+    fields["t"] = torch.where(hit, t, torch.full_like(t, _BIG))
+    return fields
+
+
+def intersect_mesh_plain(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dict:
+    """One mesh by the plain scans on any device: the dense scan (at most
+    DENSE_MESH_MAX_TRIS triangles) or the BVH traversal, then the shading
+    resolve. t stays in object space. intersect_scene_plain, the spec that
+    K1's and K2's card checks run, takes this path."""
     o_obj, d_obj = object_rays(mesh, o, d)
     if mesh.tri_verts.shape[0] <= bvhlib.DENSE_MESH_MAX_TRIS:
         hit, t, tri, u, v = bvhlib.intersect_tris_scan(o_obj, d_obj, mesh.tri_verts, t_min, t_max)
@@ -187,11 +201,22 @@ def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dic
             o_obj, d_obj, t_min, t_max, mesh.bounds_min, mesh.bounds_max, mesh.skip,
             mesh.leaf_start, mesh.leaf_count, mesh.tri_verts, mesh.leaf_size,
         )
-    fields = resolve_mesh_hit(mesh, o_obj, d_obj, t, tri, u, v)
-    fields["mat"] = torch.full(t.shape, mesh.mat_id, dtype=torch.int32, device=t.device)
-    fields["valid"] = hit
-    fields["t"] = torch.where(hit, t, torch.full_like(t, _BIG))
-    return fields
+    return _mesh_candidate(mesh, o_obj, d_obj, hit, t, tri, u, v)
+
+
+def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dict:
+    """One mesh, as intersect_mesh of the JAX package (intersect.py:279):
+    for CUDA tensors a dense mesh goes through the dense-scan kernel K5
+    (ops/kernels/tri_scan.py, on the mesh's tri_table rows); CPU tensors
+    and big meshes take intersect_mesh_plain."""
+    if o.device.type != "cuda" or mesh.tri_verts.shape[0] > bvhlib.DENSE_MESH_MAX_TRIS:
+        return intersect_mesh_plain(mesh, scene, o, d, t_min, t_max)
+    from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan
+
+    o_obj, d_obj = object_rays(mesh, o, d)
+    hit, t, tri, u, v = tri_scan.tri_scan_cuda(mesh, o_obj.contiguous(), d_obj.contiguous(),
+                                               t_min, t_max)
+    return _mesh_candidate(mesh, o_obj, d_obj, hit, t, tri, u, v)
 
 
 def analytic_candidates(scene: SceneData, o, d, t_min, t_max, u_vol) -> list[dict]:
@@ -301,7 +326,7 @@ def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
     n = o.shape[0]
     candidates = analytic_candidates(scene, o, d, t_min, t_max, u_vol)
     for mesh in scene.meshes:
-        candidates.append(intersect_mesh(mesh, scene, o, d, t_min, t_max))
+        candidates.append(intersect_mesh_plain(mesh, scene, o, d, t_min, t_max))
 
     # winner: argmin of raw t across classes, the earlier class on ties
     # (object-space mesh t against world t — the reference's quirk)

@@ -10,8 +10,8 @@ Kernels held bit for bit to their plain versions add `-fmad=false`
 (EXTRA_FLAGS): without contraction every multiply and add rounds on its
 own, as in the plain version's separate torch kernels. The library name
 carries a hash of the source, of every header under csrc/ (the kernels
-share csrc/intersect.cuh) and of the flags, so an edited kernel or header
-is rebuilt. `build_all` starts one nvcc per
+share csrc/intersect.cuh; K1 and K4 csrc/bounce.cuh) and of the flags,
+so an edited kernel or header is rebuilt. `build_all` starts one nvcc per
 source at once. A failed build raises with the compiler's output;
 nothing falls back to the plain version.
 """
@@ -36,7 +36,10 @@ NVCC_FLAGS = (
 )
 
 # per kernel: flags after NVCC_FLAGS
-EXTRA_FLAGS = {"scene_intersect": ("-fmad=false",), "bvh_traverse": ("-fmad=false",)}
+EXTRA_FLAGS = {"scene_intersect": ("-fmad=false",), "bvh_traverse": ("-fmad=false",),
+               "tri_scan": ("-fmad=false",)}
+# every kernel of the package, for build_all
+KERNELS = ("bounce", "wavefront", "scene_intersect", "bvh_traverse", "tri_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

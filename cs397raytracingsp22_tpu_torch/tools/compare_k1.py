@@ -1,0 +1,114 @@
+"""Hold this checkout's mega-bounce kernel (K1) against K1 built from
+other source trees, on the card: the check for a change to csrc/bounce.cu
+or the headers it includes that should leave K1's registers, bits and
+speed as they were.
+
+    python -m cs397raytracingsp22_tpu_torch.tools.compare_k1 OTHER_CSRC [OTHER_CSRC ...]
+
+Each OTHER_CSRC is a csrc/ directory, for example a parent commit's,
+unpacked with `git archive <commit> cs397raytracingsp22_tpu_torch/csrc`.
+Every build uses this checkout's nvcc flags (ops/kernels/_build.py). The
+bench frame (scenes/bench_scene.py, 512² × 64 spp, depth 8: one launch of
+16,777,216 rays) runs through each build. Printed: each build's
+registers and spills, the rows whose radiance differs from this
+checkout's build, bit for bit, and each build's milliseconds a frame by
+CUDA events, timed in turns (four runs of three frames each, after a warm
+frame), with the card's nvidia-smi name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import os
+import statistics
+import subprocess
+
+import torch
+
+from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce
+from cs397raytracingsp22_tpu_torch.render import driver
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+
+
+@contextlib.contextmanager
+def _using(lib: ctypes.CDLL):
+    """bounce.path_trace_cuda launches `lib`'s kernel inside the block."""
+    saved = _build._libs.get("bounce")
+    _build._libs["bounce"] = lib
+    try:
+        yield
+    finally:
+        _build._libs["bounce"] = saved
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("other_csrc", nargs="+", help="csrc/ directories to build K1 from")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("compare_k1: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"device: {smi}")
+    out_dir = os.path.join(_build.BUILD_DIR, "compare_k1")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = []
+    for i, csrc in enumerate(args.other_csrc):
+        path = os.path.join(out_dir, f"libbounce-{i}.so")
+        src = os.path.join(os.path.abspath(csrc), "bounce.cu")
+        jobs.append((csrc, path, subprocess.Popen(
+            [_build.nvcc_path(), *_build._flags("bounce"), "-o", path, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = {"this checkout": bounce.library()}
+    logs = {"this checkout": _build.BUILD_INFO["bounce"]["log"]}
+    for csrc, path, proc in jobs:
+        logs[csrc] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {csrc}/bounce.cu:\n{logs[csrc]}")
+        libs[csrc] = ctypes.CDLL(path)
+    for name, log in logs.items():
+        ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"{name}: {' | '.join(ptxas) or 'built earlier, no ptxas output'}")
+
+    dev = torch.device("cuda")
+    scene = bench_scene.build(512, 512, spp=64, path_depth=8)
+    data = scene.compile(device=dev)
+    ids = torch.arange(512 * 512, dtype=torch.int32, device=dev)
+    o, d, uids = driver._gen_chunk_rays(scene.camera, ids, 0, 0, 64, 1)
+
+    def frame():
+        return bounce.path_trace_cuda(data, o, d, uids, 0, 8, 100.0)
+
+    rad = {}
+    for name, lib in libs.items():
+        with _using(lib):
+            rad[name] = frame()[0]
+    ref = rad["this checkout"]
+    for name in args.other_csrc:
+        diff = (rad[name] != ref).any(dim=1)
+        print(f"{name}: {int(diff.sum())} of {ref.shape[0]} rows differ from this checkout's, "
+              f"max |diff| {float((rad[name] - ref).abs().max()):.3g}")
+    names = list(libs)
+    order = names + names[::-1] + names + names[::-1]
+    ms = {name: [] for name in names}
+    for name in order:
+        with _using(libs[name]):
+            frame()
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                frame()
+            end.record()
+            torch.cuda.synchronize()
+        ms[name].append(start.elapsed_time(end) / 3)
+    for name, t in ms.items():
+        print(f"{name}: {', '.join(f'{x:.3f}' for x in t)} ms a frame, median "
+              f"{statistics.median(t):.3f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -13,8 +13,10 @@ import cs397raytracingsp22_tpu_torch as pkg
 from cs397raytracingsp22_tpu_torch import cli
 from cs397raytracingsp22_tpu_torch.ops import intersect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect, tri_scan_big
+from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, wavefront
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell
+from cs397raytracingsp22_tpu_torch.tools import compare_k1
 from cs397raytracingsp22_tpu_torch.utils import subdivide
 import torch
 print(json.dumps({
@@ -23,7 +25,9 @@ print(json.dumps({
                        for m in sys.modules),
     "triton": "triton" in sys.modules,
     "cuda_initialized": torch.cuda.is_initialized(),
-    "launches": [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES],
+    "launches": [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES,
+                 wavefront.LAUNCHES, tri_scan.LAUNCHES],
+    "kernels": list(_build.KERNELS),
     "api": sorted(pkg.__all__),
 }))
 """
@@ -41,7 +45,10 @@ def test_import_needs_no_jax_triton_or_cuda():
     assert info["jax_package"] is False
     assert info["triton"] is False
     assert info["cuda_initialized"] is False
-    assert info["launches"] == [0, 0, 0]
+    assert info["launches"] == [0, 0, 0, 0, 0]
+    assert sorted(info["kernels"]) == sorted(
+        f[:-3] for f in os.listdir(os.path.join(ROOT, "cs397raytracingsp22_tpu_torch", "csrc"))
+        if f.endswith(".cu"))
     assert info["api"] == sorted([
         "Camera", "CameraProjectionMode", "ShadingMode", "Scene", "Sphere", "Triangle",
         "Plane", "ConvexVolume", "StaticMesh", "Lambertian", "Metal", "Dielectric",
