@@ -66,6 +66,31 @@ Then this slice's paths, K4 and K5:
      tri_scan_plain, and K5 timed against it;
  18. the bounds of K4 (K1's counted work plus the bytes of its state) and
      K5 (rays × triangles × 53 FP32 operations).
+Then this slice's path, the roofline probes P1-P5 (csrc/vpu_peak.cu,
+csrc/dtype_rate.cu, csrc/bw_scan.cu), which no render path runs; their
+path is the port's tools:
+ 19. (after phase 2's lines) the probe kernels' registers and spills;
+ 20. the SASS check: `cuobjdump -sass` of each probe library and the count
+     of FFMA, FMUL, HFMA2, HMMA, IMAD, IADD3, LOP3, LDS, LDC, ULDC, LDG and
+     MUFU in each instantiation; fails if a chain holds fewer operations a
+     thread than its tool counts (a probe the compiler folded), and prints
+     the loads a FMA of P3's tables;
+ 21. each probe kernel against its plain version at a small size: chains
+     within rtol 1e-3 up to unroll 12, integers bit-exact; P4 f32 within
+     rtol 1e-6, bf16 within 8 ulps; P5's scalar kernel the same key as
+     bw_scan_plain once the low 12 bits are dropped on >= 99.9% of rays,
+     its mma kernel the same winner as bw_mma_plain with TF32 operands on
+     >= 99.9%, and hits of the two kernels agreeing on >= 99%;
+ 22. P1 (tools/vpu_peak.py, every mix at unroll 256 and 1024) and P2
+     (tools/vpu_peak_shape.py) at full size through their entry points,
+     with nvidia-smi's SM clock, power draw and limit sampled beside each
+     run, every full-size output held to the plain version on a strided
+     sample, a sustained run of the row's kernel, rates, plain times and
+     bounds;
+ 23. P3 (tools/vpu_peak_smem.py) and P4 (tools/profile_split.py, all four
+     sections) the same way;
+ 24. P5 (tools/bench_mxu_scan.py): its parity line and both rates, a
+     strided sample traced alone and held to bw_scan_plain, the bounds.
 Phases 6, 7, 9, 10, 14 and 17 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
@@ -79,15 +104,17 @@ and the last line {"ok": true, "device": {...}}.
 The launch counts in the kernels line are those of the main paths only:
 K1's of the timed frames of phase 6 and the renders of phase 7, K2's and
 K3's of the timed renders of phase 10, K4's of the two wavefront runs of
-phase 14, K5's of the intersect_mesh call of phase 17. Each counter is reset just before
-its path runs and read just after; the launches that compare a kernel
-with its plain version fall outside.
+phase 14, K5's of the intersect_mesh call of phase 17, and P1-P5's of their
+tools' runs in phases 22-24. Each counter is reset just before its path
+runs and read just after; the launches that compare a kernel with its
+plain version fall outside.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -280,9 +307,10 @@ def sample_alone(what: str, fn, full, inputs, idx):
     return sub, alone
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    """(least milliseconds on the card, "bytes" or "operations")."""
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
+def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
+    """(least milliseconds on the card, "bytes" or "operations"): operations
+    at `peak` a second (FP32 unless given)."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / peak
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
@@ -660,7 +688,7 @@ def k4_state_bytes(n: int, live: list) -> int:
 def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: int) -> list:
     """Phases 14-18 (see the module docstring): K4 and K5. k1b: phase 12's
     K1 bounds by (width, spp). Returns the kernels line's entries of K4 and
-    K5."""
+    K5, and K5's ray-triangle tests a second in billions (Gtri-tests/s)."""
     from cs397raytracingsp22_tpu_torch.ops import intersect as isect
     from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, tri_scan, wavefront
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
@@ -880,8 +908,509 @@ def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: i
         "bound_ms": k5_bound,
         "bound_by": k5_by,
         "library_ms": None,
-    }]
+    }], n5 * nt / k5_ms / 1e6
 
+
+# ---- the roofline probes P1-P5 (phases 19-24) ----
+
+# the H100's published dense tensor-core peaks (the same data sheet): bf16,
+# the only bf16 rate it gives (the SIMT cores' packed bf16 has none, so P4's
+# bf16 bound is a loose lower bound), and TF32
+PEAK_BF16, PEAK_TF32 = 989e12, 495e12
+PROBE_LIBS = ("vpu_peak", "dtype_rate", "bw_scan")
+SASS_OPS = ("FFMA", "FMUL", "FADD", "HFMA2", "HMMA", "IMAD", "IADD3", "VIADD", "LOP3", "LDS",
+            "LDC", "ULDC", "LDG", "MUFU")
+INT_ADDS = ("IADD3", "VIADD", "IMAD")  # an integer add may issue as any of these
+_SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+class ClockSampler:
+    """`nvidia-smi --query-gpu=clocks.sm,power.draw,power.limit` every 100 ms
+    while the block runs (it starts sampling before the block begins)."""
+
+    def __enter__(self):
+        import threading
+
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,power.limit",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.lines: list = []
+        self._first = threading.Event()
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.append(line.strip())
+                self._first.set()
+
+        self._thread = threading.Thread(target=read, daemon=True)
+        self._thread.start()
+        if not self._first.wait(20):
+            self.__exit__(None, None, None)
+            raise AssertionError("nvidia-smi printed no clock sample within 20 s")
+        self._start = len(self.lines)
+        return self
+
+    def __exit__(self, *exc):
+        time.sleep(0.25)  # one more sample after the work
+        self.proc.terminate()
+        try:
+            self.proc.wait(10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(10)
+        self._thread.join(5)
+        return False
+
+    def summary(self) -> str:
+        rows = []
+        for line in self.lines[self._start:]:
+            try:
+                rows.append([float(x) for x in line.split(",")])
+            except ValueError:
+                continue
+        if not rows:
+            raise AssertionError("no clock sample fell inside the run")
+        clk, draw, limit = (np.array(c) for c in zip(*rows))
+        return (f"SM clock {clk.min():.0f}/{np.median(clk):.0f}/{clk.max():.0f} MHz (min/median/"
+                f"max), power draw median {np.median(draw):.1f} W max {draw.max():.1f} W, limit "
+                f"{limit[0]:.2f} W ({len(rows)} samples)")
+
+
+def sass_counts(name: str, loop: bool = False) -> dict:
+    """{function name: {opcode: count}} of the built library's SASS, from
+    `cuobjdump -sass` (opcodes without their modifiers). loop=True counts
+    only the body of each function's loop that holds the most FFMA (from a
+    backward branch's target to the branch), and leaves out functions
+    without one."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([tool, "-sass", _build.BUILD_INFO[name]["path"]], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    funcs: dict = {}  # name -> [(address, opcode, line)]
+    cur = None
+    for line in out.splitlines():
+        if "Function : " in line:
+            cur = funcs.setdefault(line.split("Function : ", 1)[1].strip(), [])
+            continue
+        m = _SASS_LINE.search(line) if cur is not None else None
+        if m:
+            cur.append((int(re.search(r"/\*([0-9a-f]+)\*/", line).group(1), 16), m.group(1), line))
+    if not funcs:
+        raise AssertionError(f"cuobjdump found no function in lib{name}")
+    counts = {}
+    for fn, ins in funcs.items():
+        if loop:
+            best = (-1, 0, -1)
+            for addr, op, line in ins:
+                t = re.search(r"BRA\s+0x([0-9a-f]+)", line) if op == "BRA" else None
+                if t and int(t.group(1), 16) < addr:
+                    lo = int(t.group(1), 16)
+                    n_ffma = sum(1 for a, o, _ in ins if lo <= a <= addr and o == "FFMA")
+                    best = max(best, (n_ffma, lo, addr))
+            if best[0] <= 0:
+                continue  # no loop holds an FFMA
+            ins = [x for x in ins if best[1] <= x[0] <= best[2]]
+        c: dict = {}
+        for _, op, _ in ins:
+            c[op] = c.get(op, 0) + 1
+        counts[fn] = c
+    return counts
+
+
+def ptxas_summary(name: str) -> str:
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build
+
+    lines = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    regs = [int(m) for ln in lines for m in re.findall(r"Used (\d+) registers", ln)]
+    spills = [int(m) for ln in lines for m in re.findall(r"(\d+) bytes spill stores", ln)]
+    return (f"{len(regs)} kernels, registers {min(regs)}-{max(regs)}, spill stores "
+            f"{sum(spills)} B" if regs else "built earlier, no ptxas output")
+
+
+def probe_build_and_sass(build_s: float) -> None:
+    """Phases 19 and 20: registers and spills of the probe kernels, and the
+    SASS check."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bw_scan, dtype_rate, vpu_peak
+
+    attrs = {"vpu_peak": [(f"chain<{m},{u},{c}>", vpu_peak.kernel_attrs(m, u, c))
+                          for m, u, c in (("fma", 1024, "const"), ("i32", 1024, "const"),
+                                          ("both", 1024, "const"), ("fma", 176, "const"),
+                                          ("fma", 1, "shared"), ("fma", 1, "constant"),
+                                          ("fma", 1, "ldg"))],
+             "dtype_rate": [(f"dtype_rate<{t}>", dtype_rate.kernel_attrs(dt))
+                            for t, dt in (("f32", torch.float32), ("bf16", torch.bfloat16))],
+             "bw_scan": [(k, bw_scan.kernel_attrs(mma)) for k, mma in (("scalar", False),
+                                                                        ("mma", True))]}
+    for name in PROBE_LIBS:
+        log("build", f"csrc/{name}.cu ({_build.BUILD_INFO[name]['seconds']:.2f}s nvcc, all "
+            f"{len(_build.KERNELS)} in {build_s:.2f}s): ptxas {ptxas_summary(name)}; "
+            + ", ".join(f"{k} {r} registers/{s} B local" for k, (r, s) in attrs[name]))
+
+    chains = {}
+    for fn, ops in sass_counts("vpu_peak").items():
+        m = re.search(r"chainILi(\d+)ELi(\d+)ELi(\d+)E", fn)
+        if m:
+            mix, u, mem = int(m.group(1)), int(m.group(2)), int(m.group(3))
+            chains[(vpu_peak.MIXES[mix], u, vpu_peak.MEMORIES[mem])] = ops
+    if set(chains) != set(vpu_peak.VARIANTS):
+        raise AssertionError(f"libvpu_peak's SASS holds {sorted(chains)}, expected "
+                             f"{sorted(vpu_peak.VARIANTS)}")
+
+    def fmt(ops):
+        return " ".join(f"{k} {ops[k]}" for k in SASS_OPS if ops.get(k))
+
+    for (mix, u, mem), ops in sorted(chains.items(), key=lambda kv: (kv[0][2], kv[0][0], kv[0][1])):
+        # what one step of the 8 chains must issue a thread: the lane-ops the
+        # tools count
+        need = {"fma": [("FFMA",), 8 * u], "mul": [("FMUL",), 8 * u],
+                "i32": [("LOP3",), 8 * u, INT_ADDS, 8 * u],
+                "both": [("FFMA",), 4 * u, ("LOP3",), 4 * u, INT_ADDS, 4 * u]}[mix]
+        for names, count in zip(need[::2], need[1::2]):
+            have = sum(ops.get(k, 0) for k in names)
+            if have < count:
+                raise AssertionError(f"chain<{mix},{u},{mem}> holds {have} {'+'.join(names)}, "
+                                     f"fewer than the {count} a thread that the tool counts: the "
+                                     f"compiler folded the probe (its SASS: {sorted(ops.items())})")
+        log("sass", f"chain<{mix},{u},{mem}>: {fmt(ops)} (needs " + ", ".join(
+            f"{'+'.join(k)} >= {c}" for k, c in zip(need[::2], need[1::2])) + ")")
+    bodies = {}
+    for fn, ops in sass_counts("vpu_peak", loop=True).items():
+        m = re.search(r"chainILi0ELi1ELi(\d+)E", fn)
+        if m:
+            bodies[vpu_peak.MEMORIES[int(m.group(1))]] = ops
+    n_load = lambda ops: sum(ops.get(k, 0) for k in ("LDS", "LDC", "ULDC", "LDG"))  # noqa: E731
+    if set(bodies) != set(vpu_peak.MEMORIES):
+        raise AssertionError(f"no FFMA loop found in P3's SASS for {set(vpu_peak.MEMORIES) - set(bodies)}")
+    for mem in vpu_peak.MEMORIES:
+        ops = bodies[mem]
+        log("sass", f"P3 {mem}: the loop body holds {ops['FFMA']} FFMA, {n_load(ops)} loads "
+            f"({', '.join(f'{k} {ops.get(k, 0)}' for k in ('LDS', 'LDC', 'ULDC', 'LDG'))}) = "
+            f"{n_load(ops) / ops['FFMA']:.3f} loads per FMA, {sum(ops.values())} instructions "
+            f"in all: {fmt(ops)}")
+    # each kernel must hold the instruction it measures: FFMA and HFMA2 in
+    # P4's two instantiations, MUFU.RCP in both scans, the 6 HMMA of a tile
+    for lib, want in (("dtype_rate", {"dtype_rateIf": "FFMA", "dtype_rateI14": "HFMA2"}),
+                      ("bw_scan", {"bw_scalar_kernel": "MUFU", "bw_mma_kernel": "HMMA"})):
+        for fn, ops in sass_counts(lib).items():
+            log("sass", f"{lib} {fn}: {fmt(ops)}")
+            need = [op for key, op in want.items() if key in fn]
+            if not need or ops.get(need[0], 0) < (6 if need[0] == "HMMA" else 1):
+                raise AssertionError(f"{fn} holds too few {need or list(want.values())}")
+
+
+def probe_parity(dev) -> dict:
+    """Phase 21: each probe kernel against its plain version on the card at
+    a small size. Returns max |kernel - plain| per row."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_peak
+    from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, vpu_peak_smem
+
+    rng = np.random.default_rng(0)
+    err = {}
+    tiny = float(np.finfo(np.float32).tiny)
+
+    def close(what, out, ref, rtol, exact=False):
+        out, ref = out.double(), ref.double()
+        same = int((out == ref).sum())
+        if exact:
+            ok = out == ref
+        else:
+            ok = (out - ref).abs() <= rtol * ref.abs() + 8 * tiny
+        if not bool(ok.all()):
+            raise AssertionError(f"{what}: {int((~ok).sum())} of {ok.numel()} elements outside "
+                                 f"{'bit-exact' if exact else f'rtol {rtol}'}")
+        d = float((out - ref).abs().max())
+        log("parity-probes", f"{what}: {same}/{out.numel()} bit-identical, max |diff| {d:.3g}")
+        return d
+
+    for mix in vpu_peak.MIXES:
+        span = 5000.0 if mix == "i32" else 0.3
+        x = torch.from_numpy(rng.uniform(-span, span, (1024, 128)).astype(np.float32)).to(dev)
+        for unroll in (4, 12):
+            e = close(f"P1 chain<{mix},{unroll}> on 131,072 random x in ±{span:g}",
+                      vpu_peak.chain_cuda(x, mix, unroll), vpu_peak.chain_plain(x, mix, unroll),
+                      1e-3, exact=mix == "i32")
+            if (mix, unroll) == ("fma", 4):
+                err["P1"] = e
+    x = torch.from_numpy(rng.uniform(-0.3, 0.3, (1024, 128)).astype(np.float32)).to(dev)
+    for u, steps in ((2, 3), (1, 5), (8, 1)):
+        e = close(f"P2 loop of {steps} x {u} rounds", vpu_peak.looped_cuda(x, u, steps),
+                  vpu_peak.looped_plain(x, u, steps), 1e-3)
+        err.setdefault("P2", e)
+    coefs = vpu_peak_smem.coefficients(dev)
+    ref = vpu_peak.table_plain(x, coefs, 8)
+    for mem in vpu_peak_smem.MEMORIES:
+        e = close(f"P3 {mem} table, 8 steps", vpu_peak.table_cuda(x, coefs, 8, mem), ref, 1e-3)
+        if mem == "shared":
+            err["P3"] = e
+    xr = torch.from_numpy(rng.uniform(0.5, 0.9, (512, 128)).astype(np.float32)).to(dev)
+    for dtype in dtype_rate.DTYPES:
+        for iters in (8, 2000):
+            xd = xr.to(dtype)
+            out, ref = dtype_rate.dtype_rate_cuda(xd, iters), dtype_rate.dtype_rate_plain(xd, iters)
+            if dtype == torch.float32:
+                close(f"P4 f32, {iters} rounds", out, ref, 1e-6)
+                continue
+            a, b = out.float(), ref.float()
+            e = torch.floor(torch.log2(torch.maximum(a.abs(), b.abs()).clamp(min=1e-30)))
+            ulps = float(((a - b).abs() / 2.0 ** (e - 7)).max())
+            if ulps > 8 or not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"P4 bf16, {iters} rounds: {ulps} ulps from the plain version")
+            d = float((a - b).abs().max())
+            log("parity-probes", f"P4 bf16, {iters} rounds: {int((a == b).sum())}/{a.numel()} "
+                f"bit-identical, max {ulps:.0f} bf16 ulps, max |diff| {d:.3g} (within 8 ulps)")
+            if iters == 8:
+                err["P4"] = d
+    a = bench_mxu_scan.inputs(dev, nblk=4)
+    key = bw_scan.bw_scan_cuda(a["bw"], a["o4"], a["d4"])
+    ref = bw_scan.bw_scan_plain(a["bw"], a["o4"], a["d4"])
+    same = float(((key & -4096) == (ref & -4096)).double().mean())
+    hit, t = bw_scan.hit_t(key, False)
+    hit_r, t_r = bw_scan.hit_t(ref, False)
+    both = hit & hit_r
+    rel = ((t[both] - t_r[both]).abs() / t_r[both]).double().cpu()
+    if same < 0.999:
+        raise AssertionError(f"P5 scalar: the same key (low 12 bits dropped) on {same:.5f} of rays")
+    err["P5"] = float((t[both] - t_r[both]).abs().max())
+    log("parity-probes", f"P5 scalar on {key.numel()} rays x 256 triangles: same key (low 12 bits "
+        f"dropped) on {same:.5f} of rays (need 0.999), bit-identical on "
+        f"{float((key == ref).double().mean()):.5f}, {int(both.sum())} hit; t rel diff p99 "
+        f"{float(torch.quantile(rel, 0.99)):.2e}, max {float(rel.max()):.2e}")
+    km = bw_scan.bw_mma_cuda(a["lhs_o"], a["lhs_d"], a["o4"], a["d4"])
+    for tf32 in (True, False):
+        kp = bw_scan.bw_mma_plain(a["lhs_o"], a["lhs_d"], a["o4"], a["d4"], tf32=tf32)
+        hm, _ = bw_scan.hit_t(km, True)
+        hp, _ = bw_scan.hit_t(kp, True)
+        win = float(((hm == hp) & (~hm | ((km & 4095) == (kp & 4095)))).double().mean())
+        if tf32 and win < 0.999:
+            raise AssertionError(f"P5 mma: the same winner as bw_mma_plain(tf32) on {win:.5f}")
+        log("parity-probes", f"P5 mma against bw_mma_plain({'TF32' if tf32 else 'f32'} operands): "
+            f"same winner on {win:.5f} of rays{' (need 0.999)' if tf32 else ''}, same key on "
+            f"{float((km == kp).double().mean()):.5f}")
+    hm, _ = bw_scan.hit_t(km, True)
+    agree = float((hm == hit).double().mean())
+    if agree < 0.99:
+        raise AssertionError(f"P5 mma against scalar: hits agree on {agree:.5f} (need 0.99)")
+    log("parity-probes", f"P5 mma against the scalar kernel: hits agree on {agree:.5f} (need 0.99)")
+    return err
+
+
+def plain_ms(fn) -> float:
+    """One call of a plain version, by CUDA events (no warm run: its torch
+    kernels are warm from the parity phase)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def sustained(what: str, fn, ms_hint: float, seconds: float = 1.5) -> float:
+    """fn() repeated for ~`seconds` (at most 20,000 launches) under the clock
+    sampler, timed as the tools time (tools/timing.py); prints the clocks
+    beside the mean milliseconds a call."""
+    from cs397raytracingsp22_tpu_torch.tools import timing
+
+    reps = min(20000, max(3, int(seconds * 1e3 / max(ms_hint, 1e-3))))
+    with ClockSampler() as smi:
+        ms = timing.seconds(fn, reps, torch.device("cuda")) * 1e3
+    log("clocks", f"{what}: {ms:.4f} ms a launch over {reps} launches; {smi.summary()}")
+    return ms
+
+
+def probe_row(name: str, source: str, replaces: str, launches: int, err: float, ms: float,
+              plain: float, bnd: tuple) -> dict:
+    """One probe's entry of the kernels line; its tool must have launched
+    the kernel."""
+    if launches < 1:
+        raise AssertionError(f"{name}: its tool launched the kernel no time")
+    return {"name": name, "route": "cuda",
+            "source": f"cs397raytracingsp22_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
+
+def probe_phases(dev, err: dict, k5_gtests: float) -> list:
+    """Phases 22-24: each probe tool at full size through its entry point,
+    with clocks, each full-size output held to its plain version on a
+    strided sample, the rows' plain times, and the bounds. err: phase 21's
+    max |kernel - plain| by row; k5_gtests: K5's ray-triangle tests a
+    second in phase 17. Returns the kernels line's entries of P1-P5."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_peak
+    from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, profile_split
+    from cs397raytracingsp22_tpu_torch.tools import vpu_peak as p1_tool
+    from cs397raytracingsp22_tpu_torch.tools import vpu_peak_shape, vpu_peak_smem
+
+    rows = []
+    x = torch.full((p1_tool.N_ROWS, p1_tool.LANES), 0.3, dtype=torch.float32, device=dev)
+    n = x.numel()
+    sample = slice(None, None, 4099)  # rows of the full-size output
+
+    def held(what, out, ref_fn):
+        """A full-size output, all of whose elements have the same input 0.3:
+        every element equal, and the sample's inf/0 pattern (and value
+        within rtol 1e-3 where finite) as the plain version's."""
+        first = out.reshape(-1)[0]
+        if not bool((out == first).all()):
+            raise AssertionError(f"{what}: the elements of one input differ")
+        ref = ref_fn(x[sample])
+        o = out[sample]
+        fin = torch.isfinite(ref) & (ref != 0)
+        ok = (torch.equal(torch.isinf(o), torch.isinf(ref)) and torch.equal(o == 0, ref == 0)
+              and bool(((o[fin] - ref[fin]).abs() <= 1e-3 * ref[fin].abs()).all()))
+        if not ok:
+            raise AssertionError(f"{what}: the full-size output differs from the plain version")
+        return float(first)
+
+    # ---- 22. P1 and P2 ----
+    vpu_peak.LAUNCHES = 0  # P1's tool starts here
+    with ClockSampler() as smi:
+        p1 = {mix: p1_tool.marginal(mix, 1024, device=dev) for mix in vpu_peak.MIXES}
+    p1_launches = vpu_peak.LAUNCHES  # read just after
+    log("clocks", f"P1 tool (4 mixes x unroll 256 and 1024, 10 launches each after a warm one): "
+        f"{smi.summary()}")
+    for mix in vpu_peak.MIXES:
+        for unroll in (256, 1024):
+            v = held(f"P1 {mix} unroll {unroll}", vpu_peak.chain_cuda(x, mix, unroll),
+                     lambda xs: vpu_peak.chain_plain(xs, mix, unroll))
+            log("full-probes", f"P1 {mix} unroll {unroll}: {n} elements, each {v:.6g} as in the "
+                "plain version on every 4099th row")
+    fma_ms = p1["fma"][2][0] * 1e3
+    sus = sustained("P1 fma unroll 1024", lambda: vpu_peak.chain_cuda(x, "fma", 1024), fma_ms)
+    for mix, (rate, _, (w2, o2)) in p1.items():
+        flop = f", {2 * o2 / w2 / 1e12:.2f} TFLOP/s = {2 * o2 / w2 / PEAK_FP32:.1%} of 67" \
+            if mix == "fma" else (f", {o2 / w2 / 1e12:.2f} TFLOP/s" if mix == "mul" else
+                                  " (no published INT32 peak)")
+        log("rate", f"P1 {mix} unroll 1024: {w2 * 1e3:.3f} ms, {o2 / w2 / 1e12:.3f} T lane-ops/s"
+            f"{flop}; marginal (256 -> 1024) {rate / 1e12:.3f} T lane-ops/s")
+    ops = 2 * p1_tool.lane_ops("fma", 1024, n)
+    b_ms, b_by = bound(8 * n, ops)
+    p1_plain = plain_ms(lambda: vpu_peak.chain_plain(x, "fma", 1024))
+    rows.append(probe_row("vpu_peak_p1", "vpu_peak.cu", "tools/vpu_peak.py:49", p1_launches,
+                          err["P1"], fma_ms, p1_plain, (b_ms, b_by)))
+    log("bound-probes", f"P1 fma unroll 1024: {ops:.4g} FP32 ops, {8 * n:.4g} B -> bound "
+        f"{b_ms:.4f} ms ({b_by}); kernel {fma_ms:.4f} ms (sustained {sus:.4f} ms), plain "
+        f"{p1_plain:.1f} ms")
+
+    vpu_peak.LAUNCHES = 0  # P2's tool starts here
+    with ClockSampler() as smi:
+        p2 = {u: vpu_peak_shape.run(u, steps, device=dev) for u, steps in vpu_peak_shape.PAIRS}
+    p2_launches = vpu_peak.LAUNCHES
+    log("clocks", f"P2 tool (5 body sizes): {smi.summary()}")
+    for u, steps in vpu_peak_shape.PAIRS:
+        held(f"P2 body {u} x {steps}", vpu_peak.looped_cuda(x, u, steps),
+             lambda xs: vpu_peak.looped_plain(xs, u, steps))
+        w, o = p2[u]
+        log("rate", f"P2 body {8 * u} FMAs x {steps}: {w * 1e3:.3f} ms, {o / w / 1e12:.3f} T FMA/s "
+            f"= {2 * o / w / 1e12:.2f} TFLOP/s = {2 * o / w / PEAK_FP32:.1%} of 67")
+    w, o = p2[176]
+    b_ms, b_by = bound(8 * n, 2 * o)
+    p2_plain = plain_ms(lambda: vpu_peak.looped_plain(x, 176, 23))
+    rows.append(probe_row("vpu_peak_p2", "vpu_peak.cu", "tools/vpu_peak_shape.py:23",
+                          p2_launches, err["P2"], w * 1e3, p2_plain, (b_ms, b_by)))
+    log("bound-probes", f"P2 body 1,408 FMAs x 23: {2 * o:.4g} FP32 ops -> bound {b_ms:.4f} ms "
+        f"({b_by}); kernel {w * 1e3:.4f} ms, plain {p2_plain:.1f} ms")
+
+    # ---- 23. P3 and P4 ----
+    vpu_peak.LAUNCHES = 0  # P3's tool starts here
+    with ClockSampler() as smi:
+        p3 = {m: vpu_peak_smem.run(m, device=dev) for m in ("const",) + vpu_peak_smem.MEMORIES}
+    p3_launches = vpu_peak.LAUNCHES
+    log("clocks", f"P3 tool (control and 3 tables): {smi.summary()}")
+    coefs = vpu_peak_smem.coefficients(dev)
+    for mem in ("const",) + vpu_peak_smem.MEMORIES:
+        held(f"P3 {mem}", vpu_peak.table_cuda(x, coefs, vpu_peak_smem.STEPS, mem),
+             lambda xs: vpu_peak.table_plain(xs, None if mem == "const" else coefs,
+                                             vpu_peak_smem.STEPS))
+    fmas = n * 8 * vpu_peak_smem.STEPS
+    for mem in vpu_peak_smem.MEMORIES:
+        extra_ns = (p3[mem] - p3["const"]) * 1e9
+        log("rate", f"P3 {mem}: {p3[mem] * 1e3:.3f} ms against the control's "
+            f"{p3['const'] * 1e3:.3f} ms (+{(p3[mem] / p3['const'] - 1):.1%}); one uniform load "
+            f"an FMA costs {(p3[mem] / p3['const'] - 1):.3f} FMA issue slots, "
+            f"{extra_ns / fmas * 1e3:.4f} ps a load across the card")
+    b_ms, b_by = bound(8 * n + 4 * vpu_peak.TABLE, 2 * fmas)
+    p3_plain = plain_ms(lambda: vpu_peak.table_plain(x, coefs, vpu_peak_smem.STEPS))
+    rows.append(probe_row("vpu_peak_p3", "vpu_peak.cu", "tools/vpu_peak_smem.py:21",
+                          p3_launches, err["P3"], p3["shared"] * 1e3, p3_plain, (b_ms, b_by)))
+    log("bound-probes", f"P3 shared table: {2 * fmas:.4g} FP32 ops -> bound {b_ms:.4f} ms "
+        f"({b_by}); kernel {p3['shared'] * 1e3:.4f} ms, plain {p3_plain:.1f} ms")
+    del x
+
+    dtype_rate.LAUNCHES = 0  # P4's tool (all four sections) starts here
+    with ClockSampler() as smi:
+        p4 = profile_split.run(dev)
+    p4_launches = dtype_rate.LAUNCHES
+    log("clocks", f"P4 tool (render split, sorts, bf16 vs f32): {smi.summary()}")
+    cap = torch.cuda.get_device_properties(dev)
+    cap = cap.multi_processor_count * cap.max_threads_per_multi_processor
+    for r in sorted({r for r, _ in p4["dtype"]}):
+        (w32, o), (w16, _) = p4["dtype"][(r, torch.float32)], p4["dtype"][(r, torch.bfloat16)]
+        log("rate", f"P4 ({r}, 128) x {profile_split.P4_ITERS} rounds: f32 {w32 * 1e3:.4f} ms "
+            f"({o / w32 / 1e12:.2f} T ops/s, {r * 128} threads of {cap}), bf16x2 "
+            f"{w16 * 1e3:.4f} ms ({o / w16 / 1e12:.2f} T ops/s, {r * 64} threads); bf16 / f32 "
+            f"time {w16 / w32:.3f}")
+    xb = torch.ones((512, 128), dtype=torch.bfloat16, device=dev) * 0.5
+    full = dtype_rate.dtype_rate_cuda(xb, profile_split.P4_ITERS)
+    ref = dtype_rate.dtype_rate_plain(xb, profile_split.P4_ITERS)
+    if not bool(torch.isfinite(full.float()).all()) or float((full.float() - ref.float()).abs()
+                                                              .max()) > 2.0 ** -6:
+        raise AssertionError("P4 bf16 at the tool's size differs from the plain version")
+    log("full-probes", f"P4 bf16 (512, 128) x 2000 rounds from 0.5: kernel {float(full[0, 0]):.6g}, "
+        f"plain {float(ref[0, 0]):.6g} (within 2^-6)")
+    w16, o = p4["dtype"][(512, torch.bfloat16)]
+    b_ms, b_by = bound(4 * 512 * 128, o, PEAK_BF16)
+    sus = sustained("P4 bf16 (512, 128)",
+                    lambda: dtype_rate.dtype_rate_cuda(xb, profile_split.P4_ITERS), w16 * 1e3)
+    p4_plain = plain_ms(lambda: dtype_rate.dtype_rate_plain(xb, profile_split.P4_ITERS))
+    rows.append(probe_row("dtype_rate_p4", "dtype_rate.cu", "tools/profile_split.py:106",
+                          p4_launches, err["P4"], w16 * 1e3, p4_plain, (b_ms, b_by)))
+    log("bound-probes", f"P4 bf16 (512, 128): {o:.4g} ops against the data sheet's bf16 "
+        f"{PEAK_BF16 / 1e12:.0f} TFLOP/s (tensor cores), {4 * 512 * 128} B -> bound {b_ms:.6f} ms "
+        f"({b_by}); kernel {w16 * 1e3:.4f} ms (sustained {sus:.4f} ms), plain {p4_plain:.1f} ms")
+
+    # ---- 24. P5 ----
+    bw_scan.LAUNCHES = bw_scan.MMA_LAUNCHES = 0  # P5's tool starts here
+    with ClockSampler() as smi:
+        p5 = bench_mxu_scan.run(dev)
+    p5_launches, p5_mma_launches = bw_scan.LAUNCHES, bw_scan.MMA_LAUNCHES
+    log("clocks", f"P5 tool (parity, scalar and mma rates): {smi.summary()}")
+    a = bench_mxu_scan.inputs(dev)
+    nr, g = p5["rays"], bench_mxu_scan.G
+    idx = torch.arange(0, nr, SAMPLE_STRIDE, device=dev)
+    sub = {k: (v[:, idx].contiguous() if k in ("o4", "d4") else v) for k, v in a.items()}
+    ks = bw_scan.bw_scan_cuda(sub["bw"], sub["o4"], sub["d4"])
+    km = bw_scan.bw_mma_cuda(sub["lhs_o"], sub["lhs_d"], sub["o4"], sub["d4"])
+    if not (torch.equal(ks, p5["keys"]["scalar"][idx]) and torch.equal(km, p5["keys"]["mma"][idx])):
+        raise AssertionError("P5: the sampled rays alone differ from the full launch's keys")
+    kp = bw_scan.bw_scan_plain(sub["bw"], sub["o4"], sub["d4"])
+    same = float(((ks & -4096) == (kp & -4096)).double().mean())
+    if same < 0.999:
+        raise AssertionError(f"P5 full size: the same scalar key on {same:.5f} of sampled rays")
+    log("full-probes", f"P5 at {nr} rays x {g} triangles: every {SAMPLE_STRIDE}th ray "
+        f"({idx.numel()}) alone gives the full launch's keys; scalar key as bw_scan_plain's (low 12 "
+        f"bits dropped) on {same:.5f}; mma launches {p5_mma_launches}")
+    ts, tm = p5["scalar"][0], p5["mma"][0]
+    log("rate", f"P5 scalar {ts * 1e3:.4f} ms = {nr * g / ts / 1e9:.1f} Gtri-tests/s; mma "
+        f"{tm * 1e3:.4f} ms = {nr * g / tm / 1e9:.1f} Gtri-tests/s ({ts / tm:.2f}x the scalar's "
+        f"rate); K5 (phase 17) {k5_gtests:.1f} Gtri-tests/s")
+    n_bytes = nr * (4 * 4 + 4 * 4 + 4) + nbytes(a["bw"])
+    b_ms, b_by = bound(n_bytes, nr * g * bw_scan.SCALAR_OPS)
+    mb_ops = max(nr * g * bw_scan.MMA_EPILOGUE_OPS / PEAK_FP32,
+                 nr * g * bw_scan.MMA_PRODUCT_OPS / PEAK_TF32)
+    log("bound-probes", f"P5 scalar: {nr * g * bw_scan.SCALAR_OPS:.4g} FP32 ops "
+        f"({bw_scan.SCALAR_OPS} a test), {n_bytes:.4g} B -> bound {b_ms:.4f} ms ({b_by}); mma: "
+        f"{bw_scan.MMA_EPILOGUE_OPS} FP32 ops a test on the SIMT cores and "
+        f"{bw_scan.MMA_PRODUCT_OPS} on the tensor cores (TF32) -> bound "
+        f"{max(mb_ops, n_bytes / PEAK_BYTES) * 1e3:.4f} ms")
+    p5_plain = plain_ms(lambda: bw_scan.bw_scan_plain(a["bw"], a["o4"], a["d4"], chunk=65536))
+    rows.append(probe_row("bw_scan_p5", "bw_scan.cu", "tools/bench_mxu_scan.py:32",
+                          p5_launches, err["P5"], ts * 1e3, p5_plain, (b_ms, b_by)))
+    return rows
 
 def main() -> int:
     # ---- 1. device ----
@@ -920,6 +1449,8 @@ def main() -> int:
         if kid == "K1" and (regs > K1_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; it had "
                                  f"{K1_REGS} and none before its body moved to csrc/bounce.cuh")
+    # ---- 19-20. the probes' registers and spills; the SASS check ----
+    probe_build_and_sass(build_s)
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -1073,7 +1604,9 @@ def main() -> int:
     k1b = k1_bounds(dev, depth, ((128, 128, 16, 16), (width, height, spp, SAMPLE_STRIDE)))
     k1_bound_ms, k1_by, _ = k1b[(128, 16)]
     # ---- 14-18: the wavefront kernel K4 and the dense-mesh scan K5 ----
-    k45 = wavefront_phases(dev, k1b, width, height, spp, depth)
+    k45, k5_gtests = wavefront_phases(dev, k1b, width, height, spp, depth)
+    # ---- 21-24: the roofline probes P1-P5 ----
+    probes = probe_phases(dev, probe_parity(dev), k5_gtests)
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",
@@ -1086,7 +1619,7 @@ def main() -> int:
         "bound_ms": k1_bound_ms,
         "bound_by": k1_by,
         "library_ms": None,
-    }] + staged + k45}))
+    }] + staged + k45 + probes}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

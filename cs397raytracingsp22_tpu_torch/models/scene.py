@@ -194,6 +194,44 @@ def _oct_decode(packed: np.ndarray) -> np.ndarray:
     return (v / np.maximum(n, np.float32(1e-30))).astype(np.float32)
 
 
+def baldwin_weber_rows(verts: np.ndarray) -> np.ndarray:
+    """Per-triangle Baldwin–Weber intersection rows (T, 12) float32 from
+    verts (T, 3, 3), built in float64 (the JAX package's
+    models/scene.py::_baldwin_weber_rows).
+
+    For triangle (a, b, c) with e1 = b-a, e2 = c-a, n = e1×e2:
+      row = [n(3), n·a, ū(3), -ū·a, v̄(3), -v̄·a]
+    where ū = (e2×n)/|n|² and v̄ = (n×e1)/|n|², so for a hit point P the
+    barycentrics u = ū·P - ū·a and v = v̄·P - v̄·a are Möller–Trumbore's,
+    and t = (n·a − n·o)/(n·d) with |n·d| = |MT det|. Degenerate (zero-area)
+    triangles get all-zero rows: n·d = 0 is rejected. No render path reads
+    these rows yet; the Baldwin–Weber scan probe (csrc/bw_scan.cu) does.
+    """
+    v = verts.astype(np.float64)
+    a, b, c = v[:, 0], v[:, 1], v[:, 2]
+    e1 = b - a
+    e2 = c - a
+    n = np.cross(e1, e2)
+    n2 = np.sum(n * n, axis=-1, keepdims=True)
+    ok = n2 > 0.0
+    inv_n2 = np.where(ok, 1.0 / np.where(ok, n2, 1.0), 0.0)
+    u_row = np.cross(e2, n) * inv_n2
+    v_row = np.cross(n, e1) * inv_n2
+    n = np.where(ok, n, 0.0)
+    rows = np.concatenate(
+        [
+            n,
+            np.sum(n * a, axis=-1, keepdims=True),
+            u_row,
+            -np.sum(u_row * a, axis=-1, keepdims=True),
+            v_row,
+            -np.sum(v_row * a, axis=-1, keepdims=True),
+        ],
+        axis=1,
+    )
+    return rows.astype(np.float32)
+
+
 def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, leaf_size: int) -> dict:
     if any(t is not None for t in sm.textures) or sm.material is None:
         raise NotImplementedError(f"textured StaticMesh: {_STAGED}")

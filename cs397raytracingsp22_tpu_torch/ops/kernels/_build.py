@@ -8,7 +8,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 
 Kernels held bit for bit to their plain versions add `-fmad=false`
 (EXTRA_FLAGS): without contraction every multiply and add rounds on its
-own, as in the plain version's separate torch kernels. The library name
+own, as in the plain version's separate torch kernels. The FMA-rate probe
+(vpu_peak) states `-fmad=true`, nvcc's default, because the fused
+multiply-add is what it measures. The library name
 carries a hash of the source, of every header under csrc/ (the kernels
 share csrc/intersect.cuh; K1 and K4 csrc/bounce.cuh) and of the flags,
 so an edited kernel or header is rebuilt. `build_all` starts one nvcc per
@@ -37,9 +39,11 @@ NVCC_FLAGS = (
 
 # per kernel: flags after NVCC_FLAGS
 EXTRA_FLAGS = {"scene_intersect": ("-fmad=false",), "bvh_traverse": ("-fmad=false",),
-               "tri_scan": ("-fmad=false",)}
-# every kernel of the package, for build_all
-KERNELS = ("bounce", "wavefront", "scene_intersect", "bvh_traverse", "tri_scan")
+               "tri_scan": ("-fmad=false",), "vpu_peak": ("-fmad=true",)}
+# every kernel of the package, for build_all: the render kernels K1-K5 and
+# the roofline probes P1-P3 (vpu_peak), P4 (dtype_rate) and P5 (bw_scan)
+KERNELS = ("bounce", "wavefront", "scene_intersect", "bvh_traverse", "tri_scan", "vpu_peak",
+           "dtype_rate", "bw_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -14,9 +14,12 @@ from cs397raytracingsp22_tpu_torch import cli
 from cs397raytracingsp22_tpu_torch.ops import intersect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect, tri_scan_big
 from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, wavefront
+from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_peak
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell
-from cs397raytracingsp22_tpu_torch.tools import compare_k1
+from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, compare_k1, profile_split
+from cs397raytracingsp22_tpu_torch.tools import vpu_peak as vpu_peak_tool
+from cs397raytracingsp22_tpu_torch.tools import vpu_peak_shape, vpu_peak_smem
 from cs397raytracingsp22_tpu_torch.utils import subdivide
 import torch
 print(json.dumps({
@@ -26,7 +29,8 @@ print(json.dumps({
     "triton": "triton" in sys.modules,
     "cuda_initialized": torch.cuda.is_initialized(),
     "launches": [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES,
-                 wavefront.LAUNCHES, tri_scan.LAUNCHES],
+                 wavefront.LAUNCHES, tri_scan.LAUNCHES, vpu_peak.LAUNCHES, dtype_rate.LAUNCHES,
+                 bw_scan.LAUNCHES, bw_scan.MMA_LAUNCHES],
     "kernels": list(_build.KERNELS),
     "api": sorted(pkg.__all__),
 }))
@@ -45,7 +49,7 @@ def test_import_needs_no_jax_triton_or_cuda():
     assert info["jax_package"] is False
     assert info["triton"] is False
     assert info["cuda_initialized"] is False
-    assert info["launches"] == [0, 0, 0, 0, 0]
+    assert info["launches"] == [0] * 9
     assert sorted(info["kernels"]) == sorted(
         f[:-3] for f in os.listdir(os.path.join(ROOT, "cs397raytracingsp22_tpu_torch", "csrc"))
         if f.endswith(".cu"))
