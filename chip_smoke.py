@@ -8,9 +8,11 @@ nonzero):
   2. build: nvcc builds the mega-bounce kernel (K1), the wavefront kernel
      (K4), the scene-intersection kernel (K2), the big-mesh BVH traversal
      kernel (K3) and the dense-mesh scan (K5) from csrc/, one nvcc each, all
-     started together; prints registers and spills (K4's two variants), and
-     fails if K1, whose bounce body K4 shares, has more registers than
-     before or spills;
+     started together; prints registers and spills (K4's two variants) and
+     K1's resident blocks an SM with the bench scene's scene table and
+     superleaf tree staged, and fails if K1, whose bounce body K4 shares,
+     spills, has more registers than keep K1_BLOCKS blocks of 128 threads
+     on an SM (K1_MAX_REGS), or has fewer resident blocks;
   3. K1 against its plain torch version on the card, bench scene
      (teapot_6k) at 64² × 4 spp, depth 8;
   4. the goldens (tests/goldens, seed 42) rendered through K1;
@@ -41,7 +43,10 @@ nonzero):
      bounce-0 inputs, and K3 on the aimed rays;
  12. bounds: the work of each kernel on these inputs (the tests that the
      plain versions count with their `stats` on a strided sample, scaled
-     to the launch) and the least time the card could take for it;
+     to the launch) and the least time the card could take for it; K1's
+     from the superleaf-tree walk's node tests, with the bound of the flat
+     superleaf scan it replaced (every box on every segment) beside it,
+     and node and triangle tests a segment;
  13. a torch.profiler trace of one 32k render: device busy time, idle
      share, and the shares of K2, K3, the compaction's sorts and the
      package's "bounce_rng" and "raygen" spans.
@@ -145,9 +150,12 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # the shading, the RNG or integer work, so they are lower bounds.
 # the launch of K1's (and K4's) row in the kernels line: 128² x 16 spp
 ROW_SIDE, ROW_SPP = 128, 16
-# nvcc 12.9 allots K1 64 registers with no spills; sharing its bounce
-# body with K4 (csrc/bounce.cuh) must not raise that
-K1_REGS = 64
+# K1 (and K4, which shares its bounce body csrc/bounce.cuh) runs 128-thread
+# blocks, each staging the scene table and the superleaf tree (24,544 B for
+# the bench scene's teapot). nvcc 12.9 allots it 87 registers with no
+# spills: 5 blocks, 20 warps, an SM; up to 96 registers a thread (allotted
+# in steps of 8) keep those 5 blocks in the SM's 65,536 registers
+K1_MAX_REGS, K1_BLOCKS = 96, 5
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
 
@@ -329,22 +337,28 @@ def k1_bound(data, o, d, uids, key, depth, max_dist, stride):
     """(bound ms, bound_by, work) of one K1 launch on (o, d, uids): bytes =
     o, d, uids in, radiance and segment counts out, the scene tables read
     once; operations = the tests that a strided sample's segments need
-    (every analytic primitive, and the dense scan's boxes and triangles
-    from the plain path's stats), scaled to the launch."""
+    (every analytic primitive, and the superleaf-tree walk's node tests
+    and triangles from the plain path's stats), scaled to the launch. The
+    work also holds the flat superleaf scan's count ("boxes": every box
+    on every segment), its operations and its bound (flat_ops, flat_ms),
+    the yardstick of K1 before the tree."""
     from cs397raytracingsp22_tpu_torch.render import integrator
 
     idx = torch.arange(0, o.shape[0], stride, device=o.device)
     st = {}
     _, segs = integrator.path_trace(data, o[idx], d[idx], uids[idx], key, depth, max_dist,
                                     stats=st)
-    w = dict(segments=int(segs), boxes=int(st["boxes"].sum()), tris=int(st["tris"].sum()))
+    w = {k: int(st[k].sum()) for k in ("boxes", "nodes", "tris")}
+    w["segments"] = int(segs)
     scale = o.shape[0] / idx.numel()
-    ops = scale * (w["segments"] * analytic_ops(data) + w["boxes"] * OPS["box"]
-                   + w["tris"] * OPS["mt"])
+    common = w["segments"] * analytic_ops(data) + w["tris"] * OPS["mt"]
+    ops = scale * (common + w["nodes"] * OPS["box"])
+    flat_ops = scale * (common + w["boxes"] * OPS["box"])
     n_bytes = (o.shape[0] * (12 + 12 + 4 + 12 + 4)
-               + nbytes(data.kscene, data.kmesh_tri, data.kmesh_nrm, data.ksl_bounds))
+               + nbytes(data.kscene, data.kmesh_tri, data.kmesh_nrm, data.ksl_tree))
     ms, by = bound(n_bytes, ops)
-    w.update(rays=idx.numel(), scale=scale, ops=ops, bytes=n_bytes)
+    w.update(rays=idx.numel(), scale=scale, ops=ops, bytes=n_bytes, flat_ops=flat_ops,
+             flat_ms=bound(n_bytes, flat_ops)[0])
     return ms, by, w
 
 
@@ -555,13 +569,13 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     st2 = {}
     scene_intersect.scene_intersect_plain(sd32, *[x[idx] for x in k2_in], stats=st2)
     scale = n32 / idx.numel()
-    k2_ops = n32 * analytic_ops(sd32) + scale * (int(st2["boxes"].sum()) * OPS["box"]
+    k2_ops = n32 * analytic_ops(sd32) + scale * (int(st2["nodes"].sum()) * OPS["box"]
                                                  + int(st2["tris"].sum()) * OPS["mt"])
     # what the kernel moves: o, d, t_min, t_max and one u_vol column per
     # volume in (it reads no padding column), 37 B of outputs out, the
-    # scene table and any dense-mesh rows once
+    # scene table and any dense-mesh rows and superleaf tree once
     k2_bytes = (n32 * (12 + 12 + 4 + 4 + 4 * sd32.n_volumes + 37) + nbytes(sd32.kscene)
-                + (nbytes(sd32.kmesh_tri, sd32.ksl_bounds) if sd32.dense_mesh_ids else 0))
+                + (nbytes(sd32.kmesh_tri, sd32.ksl_tree) if sd32.dense_mesh_ids else 0))
     k2_bound, k2_by = bound(k2_bytes, k2_ops)
     log("bound-k2", f"teapot_32k chunk 0 bounce 0 ({n32} rays): {analytic_ops(sd32)} FP32 ops of "
         f"analytic tests per ray, {int(st2['tris'].sum()) / idx.numel():.2f} dense-mesh triangles "
@@ -628,9 +642,11 @@ def k1_bounds(dev, depth: int, launches) -> dict:
         ms, by, w = out[(w_, spp_)] = k1_bound(sd, o, d, uids, 0, depth, 100.0, stride)
         log("bound-k1", f"bench teapot_6k {w_}²x{spp_}spp depth {depth}, {o.shape[0]} rays; every "
             f"{stride}th ray ({w['rays']}): {w['segments']} segments, per segment "
-            f"{w['boxes'] / w['segments']:.2f} superleaf boxes and {w['tris'] / w['segments']:.2f} "
-            f"triangles tested; launch {w['ops']:.4g} FP32 ops, {w['bytes']:.4g} B -> bound "
-            f"{ms:.4f} ms ({by})")
+            f"{w['nodes'] / w['segments']:.4f} superleaf-tree nodes and "
+            f"{w['tris'] / w['segments']:.4f} triangles tested (the flat scan: "
+            f"{w['boxes'] / w['segments']:.2f} boxes); launch {w['ops']:.4g} FP32 ops, "
+            f"{w['bytes']:.4g} B -> bound {ms:.4f} ms ({by}); the flat scan's "
+            f"{w['flat_ops']:.4g} ops -> {w['flat_ms']:.4f} ms")
     return out
 
 
@@ -1435,6 +1451,7 @@ def main() -> int:
     _build.build_all(_build.KERNELS)
     build_s = time.perf_counter() - t0
     for kid, name, mod, kw in (("K1", "bounce", bounce, {}),
+                               ("K1 no mesh", "bounce", bounce, {"dense": False}),
                                ("K4", "wavefront", wavefront, {"last": False}),
                                ("K4 last", "wavefront", wavefront, {"last": True}),
                                ("K2", "scene_intersect", scene_intersect, {}),
@@ -1446,9 +1463,21 @@ def main() -> int:
         log("build", f"{kid} csrc/{name}.cu ({_build.BUILD_INFO[name]['seconds']:.2f}s nvcc, all "
             f"{len(_build.KERNELS)} in {build_s:.2f}s): {regs} registers/thread, {spill} B local; "
             f"ptxas: {' | '.join(ptxas)}")
-        if kid == "K1" and (regs > K1_REGS or spill):
-            raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; it had "
-                                 f"{K1_REGS} and none before its body moved to csrc/bounce.cuh")
+        if kid == "K1" and (regs > K1_MAX_REGS or spill):
+            raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
+                                 f"blocks an SM need at most {K1_MAX_REGS} and none")
+        if kid == "K1 no mesh" and spill:
+            raise AssertionError(f"K1 without the mesh walk spills {spill} B")
+    for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
+                      ("the Cornell box (no dense mesh)", cornell.build(64, 64, spp=4))):
+        tables = sc_.compile(device=dev)
+        blocks = bounce.resident_blocks(tables)
+        staged = bounce.staged_bytes(tables)
+        log("build", f"K1 with {what}'s tables staged ({tables.kscene.numel() * 4} B scene table, "
+            f"{tables.ksl_tree.numel() * 4} B superleaf tree, {staged} B a block): {blocks} "
+            f"resident blocks of 128 threads an SM ({blocks * 4} warps)")
+        if tables.dense_mesh_ids and blocks < K1_BLOCKS:
+            raise AssertionError(f"K1 keeps {blocks} blocks an SM resident, not {K1_BLOCKS}")
     # ---- 19-20. the probes' registers and spills; the SASS check ----
     probe_build_and_sass(build_s)
 

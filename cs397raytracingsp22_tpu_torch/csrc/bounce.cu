@@ -14,8 +14,9 @@
 // and per-ray segment count once. The body of the loop is bounce.cuh::
 // bounce_step, which the wavefront kernel (K4, wavefront.cu) runs one
 // bounce per launch: the analytic scan (spheres, planes, triangles,
-// volumes with free flight) against a running nearest hit, the dense-mesh
-// Möller–Trumbore scan with per-ray superleaf culling, the winner resolve,
+// volumes with free flight) against a running nearest hit, the walk of each
+// dense mesh's superleaf tree with Möller–Trumbore on the superleaves it
+// reaches, the winner resolve,
 // Threefry-2x32-20 for the bounce draws, the five-way BSDF and the
 // throughput update. A miss ends the ray's loop; the last bounce
 // accumulates emission only (its scatter would never be traced) but still
@@ -42,10 +43,24 @@
 // which the parity tests allow for (a winner flip re-rolls one path).
 //
 // What bounds it on the H100, and what the design does about it:
-// - FP32 issue in the mesh scan: a 6,144-triangle mesh is ~40 FP32 ops per
-//   triangle test. Per-ray culling of 16-triangle superleaf boxes (sibling
-//   BVH leaves, epsilon-padded) against the running best t skips most
-//   groups; a later PR replaces the flat scan with BVH traversal.
+// - The dense-mesh scan. A flat scan tested every 16-triangle superleaf box
+//   of the mesh on every segment (384 for the 6,144-triangle teapot), each
+//   box 6 scalar __ldg: 95% of the counted operations and, with the leaf
+//   scans, 108 ms of a 512² x 64 spp frame. The scan now walks a binary tree
+//   over those boxes (intersect.cuh::scan_dense_mesh), staged into shared
+//   memory beside the scene table, one node two 16-byte loads: a segment
+//   whose running best lies before the mesh's box tests the root alone, one
+//   that reaches the mesh tests the path to each superleaf it enters. The
+//   walk scans the same superleaves in the same order as the flat scan, so
+//   the rows keep their bits.
+// - The superleaf scans. What is left is divergence: a ray leaving the
+//   teapot's surface reaches ~4-5 overlapping superleaves, so one lane of a
+//   warp often holds most of its warp's leaves, and a leaf scanned on its
+//   own lane idles the other 31 for 16 Möller–Trumbore tests. The whole warp
+//   scans each reached leaf together (16 lanes, one row each; two warp
+//   reductions pick the least t, the lowest row on ties): 46 ms a frame
+//   became 32 ms (PERF.md). The rows (kmesh_tri4, 295 KB) stay in device
+//   memory, three 16-byte __ldg a row.
 // - Divergence from dead rays: a ray that misses leaves the loop and its
 //   lanes idle while the warp's other rays bounce on. On the scenes
 //   measured so far this costs little: 99.29% of the bench frame's rays
@@ -53,12 +68,20 @@
 //   bounce (PERF.md). The wavefront kernel K4 (wavefront.cu) runs the same
 //   bounce_step one bounce per launch and compacts the live rays between
 //   launches; on those scenes it is 1.27x slower than this kernel.
-// - Register pressure: the whole path state plus the scan's running hit is
-//   live across the loop. __launch_bounds__(128, 4) caps the kernel at 128
-//   registers (nvcc 12.9 allots it 64, with no spills, so 32 warps fit on
-//   an SM); the scene's analytic and material tables (a few KB) sit in
-//   shared memory, staged once per block, and the mesh rows (221 KB at
-//   6,144 triangles) are read through __ldg from L2.
+// - Occupancy: the whole path state plus the scan's running hit, the
+//   walk's node and a leaf's broadcast ray are live together.
+//   __launch_bounds__(128, 4) caps the kernel at 128 registers; nvcc 12.9
+//   allots 87 with no spills, so 5 blocks of 128 threads (20 warps) fit an
+//   SM. Each block stages the scene's analytic and material tables (a few
+//   hundred bytes) and the superleaf trees (2S - 1 nodes of 32 bytes for S
+//   superleaves: 24,544 B for the teapot, at most 32,736 B under the dense
+//   budget). Capped at 64 registers (32 warps) the kernel spills 128 B and
+//   runs ~18% faster (PERF.md); it stays spill-free. A scene without a
+//   dense mesh launches bounce_kernel<false>, which leaves the walk out and
+//   keeps the registers, and occupancy, of the kernel before it.
+//   chip_smoke.py prints the resident blocks (rt_bounce_occupancy) and
+//   fails on spills or on registers beyond 96, the most that keeps 5
+//   blocks.
 
 #include "bounce.cuh"
 
@@ -81,19 +104,22 @@ struct Params {
   const float* scene;
   int scene_len;
   int n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh;
-  const float* mesh_tri;  // (TT, 9) [a, e1, e2]
+  const float4* mesh_tri;  // (TT, 3) float4: kmesh_tri4 [a, e1, e2, 0, 0, 0]
   const float* mesh_nrm;  // (TT, 9) decoded corner normals n0 n1 n2
-  const float* sl;        // (NSL, 6) superleaf [lo, hi]
+  const float* tree;      // (nodes, 8) superleaf trees [lo, 0, hi, 0]
+  int tree_len;           // floats of tree
 };
 
+// kDense: the scene has a dense mesh (the walk is compiled in).
+template <bool kDense>
 __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
-  extern __shared__ float sm[];
-  stage_table(sm, p.scene, p.scene_len);
+  extern __shared__ __align__(16) float sm[];
+  const float4* tree = stage_tables(sm, p.scene, p.scene_len, p.tree, p.tree_len);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
 
-  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat);
+  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
 
   PathState st;
   st.ox = p.o[3 * i]; st.oy = p.o[3 * i + 1]; st.oz = p.o[3 * i + 2];
@@ -105,13 +131,22 @@ __global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
 
   for (int depth = 0; depth < p.depth; ++depth) {
     ++segs;
-    if (!bounce_step(p, R, uid, depth, depth == p.depth - 1, st)) break;
+    if (!bounce_step<kDense>(p, R, uid, depth, depth == p.depth - 1, st)) break;
   }
 
   p.rad[3 * i] = st.rr;
   p.rad[3 * i + 1] = st.rg;
   p.rad[3 * i + 2] = st.rb;
   p.segs[i] = segs;
+}
+
+// The instantiation for a scene with (dense) or without dense meshes, its
+// dynamic shared memory allowed up to `smem` bytes.
+template <bool kDense>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(bounce_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 }  // namespace
@@ -124,29 +159,45 @@ int rt_bounce_launch(const float* o, const float* d, const int* uid, int n, floa
                      int* segs, unsigned k0, unsigned k1, int depth, float t_min,
                      float t_max, const float* scene, int scene_len, int n_sph, int n_pln,
                      int n_tri, int n_vol, int n_mat, int n_mesh, const float* mesh_tri,
-                     const float* mesh_nrm, const float* sl, void* stream) {
+                     const float* mesh_nrm, const float* tree, int tree_len, void* stream) {
   if (n <= 0) return 0;
   Params p{o, d, uid, n, rad, segs, k0, k1, depth, t_min, t_max, scene, scene_len,
-           n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh, mesh_tri, mesh_nrm, sl};
-  const size_t smem = sizeof(float) * (size_t)scene_len;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(bounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+           n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh, reinterpret_cast<const float4*>(mesh_tri),
+           mesh_nrm, tree, tree_len};
+  const size_t smem = staged_bytes(scene_len, tree_len);
   const int blocks = (n + kThreads - 1) / kThreads;
-  bounce_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  cudaError_t e = n_mesh > 0 ? prepare<true>(smem) : prepare<false>(smem);
+  if (e != cudaSuccess) return (int)e;
+  if (n_mesh > 0) {
+    bounce_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  } else {
+    bounce_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
-// Registers per thread and local (spill) bytes of the compiled kernel.
-int rt_bounce_attrs(int* num_regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes of the compiled kernel for a
+// scene with (dense != 0) or without dense meshes.
+int rt_bounce_attrs(int dense, int* num_regs, int* local_bytes) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, bounce_kernel);
+  cudaError_t e = dense ? cudaFuncGetAttributes(&a, bounce_kernel<true>)
+                        : cudaFuncGetAttributes(&a, bounce_kernel<false>);
   if (e != cudaSuccess) return (int)e;
   *num_regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
   return 0;
+}
+
+// Blocks of the kernel resident on one SM when each stages the tables of a
+// scene with `scene_len` and `tree_len` floats and `n_mesh` dense meshes.
+int rt_bounce_occupancy(int scene_len, int tree_len, int n_mesh, int* blocks) {
+  const size_t smem = staged_bytes(scene_len, tree_len);
+  cudaError_t e = n_mesh > 0 ? prepare<true>(smem) : prepare<false>(smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)(n_mesh > 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                blocks, bounce_kernel<true>, kThreads, smem)
+                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                                blocks, bounce_kernel<false>, kThreads, smem));
 }
 
 }  // extern "C"

@@ -89,18 +89,20 @@ __device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
 }
 
 // Bounce `depth` (RNG site SITE_BOUNCE0 + depth) of ray `uid`, whose scene
-// table R is staged in shared memory. `a` is the calling kernel's own flat
-// parameter block, read by field name: the RNG key (k0, k1), the ray
+// table and superleaf trees R are staged in shared memory. `a` is the
+// calling kernel's own flat parameter block, read by field name: the RNG
+// key (k0, k1), the ray
 // window (t_min, t_max), the table counts (n_sph, n_pln, n_tri, n_vol,
-// n_mesh) and the dense-mesh rows (mesh_tri, mesh_nrm, sl;
+// n_mesh) and the dense-mesh rows (mesh_tri, mesh_nrm;
 // models/scene.py::pack_kernel_tables). A flat block keeps K1 as fast as
 // before this body was shared; the same fields in a nested struct made K1
 // 1.3% slower on the H100 (PERF.md). Returns false when the ray ends here:
 // it misses (black background), or this is the `last` bounce, which adds
 // emission only (its scatter would never be traced) but still draws its
 // volume uniforms, whose counters are the spec's. Otherwise the state moves
-// on to the scattered ray and returns true.
-template <class Args>
+// on to the scattered ray and returns true. kDense false compiles out the
+// dense-mesh walk and resolve, for a scene with no dense mesh.
+template <bool kDense = true, class Args>
 __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, uint32_t uid,
                                             int depth, bool last, PathState& s) {
   float &ox = s.ox, &oy = s.oy, &oz = s.oz, &dx = s.dx, &dy = s.dy, &dz = s.dz;
@@ -121,8 +123,8 @@ __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, u
     const float uq = (float)(((q & 1) ? w1 : w0) >> 8) * 5.9604644775390625e-08f;
     test_volume(R.vol + kVol * q, q, uq, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
   }
-  for (int m = 0; m < a.n_mesh; ++m) {
-    scan_dense_mesh(R.msh + kMesh * m, m, a.mesh_tri, a.sl, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
+  for (int m = 0; kDense && m < a.n_mesh; ++m) {
+    scan_dense_mesh(R.msh + kMesh * m, m, a.mesh_tri, R.tree, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
   }
   const float best = h.t;
   const int cls = h.cls, widx = h.idx;
@@ -133,7 +135,7 @@ __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, u
   float px, py, pz, nx, ny, nz;
   bool ff;
   int mid;
-  if (cls == kClsMesh) {
+  if (kDense && cls == kClsMesh) {
     const float* X = R.msh + kMesh * h.mesh;
     float mox, moy, moz, mdx, mdy, mdz;
     to_object(X, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);

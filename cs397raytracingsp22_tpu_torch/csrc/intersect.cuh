@@ -1,10 +1,11 @@
 // Intersection device functions shared by the mega-bounce kernel (K1,
 // bounce.cu) and the scene-intersection kernel (K2, scene_intersect.cu).
 //
-// They read the packed scene table of models/scene.py::pack_kernel_tables
-// (staged into shared memory by each kernel) and the dense-mesh rows
-// kmesh_tri / ksl_bounds (through __ldg). Semantics are those of the plain
-// torch spec, ops/intersect.py::intersect_scene_plain:
+// They read the packed scene table and the superleaf trees of
+// models/scene.py::pack_kernel_tables (both staged into shared memory by
+// each kernel) and the dense-mesh rows kmesh_tri4 (through __ldg, three
+// 16-byte loads a row). Semantics are those of the plain torch spec,
+// ops/intersect.py::intersect_scene_plain:
 // - a running nearest hit with strict `<`, visited in class order spheres →
 //   planes → triangles → volumes → dense meshes, so the earliest class and
 //   index win ties (the spec's class-ordered argmin);
@@ -68,10 +69,12 @@ struct SceneRows {
   const float* vol;
   const float* mat;
   const float* msh;
+  const float4* tree;  // the dense meshes' superleaf trees, two float4 a node
 };
 
 __device__ __forceinline__ SceneRows scene_rows(const float* table, int n_sph, int n_pln,
-                                                int n_tri, int n_vol, int n_mat) {
+                                                int n_tri, int n_vol, int n_mat,
+                                                const float4* tree) {
   SceneRows r;
   r.sph = table;
   r.pln = r.sph + kSph * n_sph;
@@ -79,6 +82,7 @@ __device__ __forceinline__ SceneRows scene_rows(const float* table, int n_sph, i
   r.vol = r.tri + kTri * n_tri;
   r.mat = r.vol + kVol * n_vol;
   r.msh = r.mat + kMat * n_mat;
+  r.tree = tree;
   return r;
 }
 
@@ -173,48 +177,149 @@ __device__ __forceinline__ void to_object(const float* X, float ox, float oy, fl
   mdz = X[6] * dx + X[7] * dy + X[8] * dz;
 }
 
-// Dense mesh m (packed row X): Möller–Trumbore over its kmesh_tri rows in
-// BVH order, 16 at a time, skipping each 16-row superleaf whose
-// epsilon-padded box the ray cannot reach before its running best.
-__device__ __forceinline__ void scan_dense_mesh(const float* X, int m, const float* mesh_tri,
-                                                const float* sl, float ox, float oy, float oz,
+// The slab test of one superleaf-tree node (lo, hi: two float4 in shared
+// memory) for an object-space ray (origin mo, inverse direction i): does the
+// ray meet the box within [tmin, far]? fminf / fmaxf drop a NaN slab (0 * inf
+// where a direction component is zero and the origin lies on a face), and
+// tmin and far are never NaN, so neither bound is.
+__device__ __forceinline__ bool node_reached(const float4* node, float mox, float moy, float moz,
+                                             float ix, float iy, float iz, float tmin,
+                                             float far) {
+  const float4 lo = node[0], hi = node[1];
+  const float t0x = (lo.x - mox) * ix, t1x = (hi.x - mox) * ix;
+  const float t0y = (lo.y - moy) * iy, t1y = (hi.y - moy) * iy;
+  const float t0z = (lo.z - moz) * iz, t1z = (hi.z - moz) * iz;
+  const float near_t = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmin));
+  const float far_t = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), far));
+  return far_t >= near_t;
+}
+
+// Möller–Trumbore of kmesh_tri4 row `row` (three 16-byte loads) against
+// the object-space ray (origin mo, direction md): true on a hit with t in
+// [tmin, far), far excluded (the spec's scan keeps a hit only when it is
+// strictly nearer than its running best, which starts at t_max).
+__device__ __forceinline__ bool mt_row(const float4* mesh_tri, int row, float mox, float moy,
+                                       float moz, float mdx, float mdy, float mdz, float tmin,
+                                       float far, float& t, float& u, float& v) {
+  const float4 p = __ldg(mesh_tri + 3 * row), q = __ldg(mesh_tri + 3 * row + 1),
+               w = __ldg(mesh_tri + 3 * row + 2);  // [a, e1, e2, 0, 0, 0]
+  const float ax = p.x, ay = p.y, az = p.z, e1x = p.w, e1y = q.x, e1z = q.y;
+  const float e2x = q.z, e2y = q.w, e2z = w.x;
+  const float qx = mdy * e2z - mdz * e2y, qy = mdz * e2x - mdx * e2z, qz = mdx * e2y - mdy * e2x;
+  const float det = e1x * qx + e1y * qy + e1z * qz;
+  if (!(fabsf(det) >= kMtEps)) return false;
+  const float f = 1.0f / det;
+  const float sx = mox - ax, sy = moy - ay, sz = moz - az;
+  u = f * (sx * qx + sy * qy + sz * qz);
+  if (!(u >= 0.0f)) return false;
+  const float rx = sy * e1z - sz * e1y, ry = sz * e1x - sx * e1z, rz = sx * e1y - sy * e1x;
+  v = f * (mdx * rx + mdy * ry + mdz * rz);
+  t = f * (e2x * rx + e2y * ry + e2z * rz);
+  return v >= 0.0f && u + v <= 1.0f && t >= tmin && t < far;
+}
+
+// A float's bits as an unsigned key in the float's order (not NaN), and
+// back.
+__device__ __forceinline__ unsigned ordered_key(float x) {
+  const unsigned b = __float_as_uint(x);
+  return b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+}
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float(key ^ ((key >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// Dense mesh m (packed row X): a stackless preorder walk of the mesh's
+// superleaf tree (models/scene.py::superleaf_tree, staged in shared memory),
+// with Möller–Trumbore on the 16 kmesh_tri4 rows of each superleaf reached.
+// Node k (1-based heap order; the mesh's nodes start at tree row
+// 2 * sl_first - m) is entered when the ray meets its box within
+// [tmin, min(running best, tmax)]: an inner node goes on to its first child
+// 2k; a culled node, or a leaf once scanned, skips its subtree (strip k's
+// trailing one bits, add 1), and the walk ends back at the root. A ray
+// whose running best lies before the mesh's box costs the root's test alone.
+//
+// The warp scans leaves together. Each step, every lane still walking tests
+// one node; then each lane that reached a leaf has it scanned by the whole
+// warp, one leaf after another: its ray and bounds are broadcast, the active
+// lanes test the 16 rows (lane rank r takes rows r, r + lanes, ...), and the
+// least t wins, the lowest row on ties (two warp reductions). A ray leaving
+// the mesh's surface reaches several overlapping superleaves, so one lane
+// often holds most of its warp's leaves; scanning them on one lane idled the
+// other 31 for 16 rows each (PERF.md, PR 5). The reductions and broadcasts
+// use the lanes active on entry (__activemask), which all stay in the loop
+// until no lane walks.
+//
+// The walk scans exactly the superleaves that a flat scan of every
+// superleaf box in row order scans, in the same order, so the rows give
+// the same bits: preorder meets the leaves in row order, and an ancestor of
+// leaf g is tested with a running best no nearer than the one leaf g is
+// tested with. Its box contains the leaf's (an exact float32 union), and
+// the slab bounds (b - o) * inv are monotone in b, so on every axis its
+// interval contains the leaf's: the leaf is never culled by an ancestor
+// where it would pass itself. NaN slabs need b == o with a zero direction
+// component; since every superleaf box has lo < hi on each axis (the eps
+// pad, checked by models/scene.py::superleaf_trees), a leaf that passes
+// such an axis has lo < o < hi there, and so has each ancestor. Within a leaf the least t
+// against the bound at the leaf's entry, lowest row first, is the row a
+// serial scan with strict `<` keeps; rows are met in ascending order, so
+// ties keep the lowest row overall.
+__device__ __forceinline__ void scan_dense_mesh(const float* X, int m, const float4* mesh_tri,
+                                                const float4* tree, float ox, float oy, float oz,
                                                 float dx, float dy, float dz, float tmin,
                                                 float tmax, Nearest& h) {
   float mox, moy, moz, mdx, mdy, mdz;
   to_object(X, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);
   const float ix = 1.0f / mdx, iy = 1.0f / mdy, iz = 1.0f / mdz;
-  const int start = (int)X[34], sl_first = (int)X[36], sl_count = (int)X[37];
-  for (int g = 0; g < sl_count; ++g) {
-    const float* B = sl + 6 * (sl_first + g);
-    const float t0x = (__ldg(B + 0) - mox) * ix, t1x = (__ldg(B + 3) - mox) * ix;
-    const float t0y = (__ldg(B + 1) - moy) * iy, t1y = (__ldg(B + 4) - moy) * iy;
-    const float t0z = (__ldg(B + 2) - moz) * iz, t1z = (__ldg(B + 5) - moz) * iz;
-    const float lo = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmin));
-    const float hi = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                           fminf(fmaxf(t0z, t1z), fminf(h.t, tmax)));
-    if (!(hi >= lo)) continue;  // the ray cannot reach this group before its best hit
-    const int r0 = start + 16 * g;
-    for (int k = 0; k < 16; ++k) {
-      const float* T = mesh_tri + 9 * (r0 + k);
-      const float ax = __ldg(T + 0), ay = __ldg(T + 1), az = __ldg(T + 2);
-      const float e1x = __ldg(T + 3), e1y = __ldg(T + 4), e1z = __ldg(T + 5);
-      const float e2x = __ldg(T + 6), e2y = __ldg(T + 7), e2z = __ldg(T + 8);
-      const float qx = mdy * e2z - mdz * e2y, qy = mdz * e2x - mdx * e2z, qz = mdx * e2y - mdy * e2x;
-      const float det = e1x * qx + e1y * qy + e1z * qz;
-      if (!(fabsf(det) >= kMtEps)) continue;
-      const float f = 1.0f / det;
-      const float sx = mox - ax, sy = moy - ay, sz = moz - az;
-      const float u = f * (sx * qx + sy * qy + sz * qz);
-      if (!(u >= 0.0f)) continue;
-      const float rx = sy * e1z - sz * e1y, ry = sz * e1x - sx * e1z, rz = sx * e1y - sy * e1x;
-      const float v = f * (mdx * rx + mdy * ry + mdz * rz);
-      const float t = f * (e2x * rx + e2y * ry + e2z * rz);
-      // t < tmax strictly: the spec's scan starts its running best at t_max
-      if (v >= 0.0f && u + v <= 1.0f && t >= tmin && t < fminf(h.t, tmax)) {
-        h.t = t; h.cls = kClsMesh; h.idx = r0 + k; h.mesh = m; h.u = u; h.v = v;
+  const int s = (int)X[37];
+  const float4* nodes = tree + 2 * (2 * (int)X[36] - m - 1);  // node k at nodes[2k], nodes[2k + 1]
+  const unsigned warp = __activemask();
+  int k = 1;
+  bool walking = true;
+  do {
+    int r0 = -1;  // the first row of a superleaf this lane reached in this step
+    if (walking) {
+      if (node_reached(nodes + 2 * k, mox, moy, moz, ix, iy, iz, tmin, fminf(h.t, tmax))) {
+        if (k < s) {
+          k *= 2;  // an inner node: enter its first child
+        } else {
+          // leaf k is superleaf g: the deepest level, from node `top`, holds the first ones
+          const int top = 1 << (31 - __clz(2 * s - 1));
+          r0 = (int)X[34] + 16 * (k - top + (k < top ? s : 0));
+          k = (k >> (__ffs(~k) - 1)) + 1;
+        }
+      } else {
+        k = (k >> (__ffs(~k) - 1)) + 1;  // past k's subtree: the next sibling of k or of an ancestor
+      }
+      walking = k != 1;
+    }
+    for (unsigned pend = __ballot_sync(warp, r0 >= 0); pend; pend &= pend - 1) {
+      const int src = __ffs(pend) - 1, lane = threadIdx.x & 31;
+      const int rank = __popc(warp & ((1u << lane) - 1u)), lanes = __popc(warp);
+      const int sr0 = __shfl_sync(warp, r0, src);
+      const float sox = __shfl_sync(warp, mox, src), soy = __shfl_sync(warp, moy, src),
+                  soz = __shfl_sync(warp, moz, src), sdx = __shfl_sync(warp, mdx, src),
+                  sdy = __shfl_sync(warp, mdy, src), sdz = __shfl_sync(warp, mdz, src);
+      const float stmin = __shfl_sync(warp, tmin, src);
+      const float sfar = __shfl_sync(warp, fminf(h.t, tmax), src);
+      unsigned key = 0xffffffffu, row = 16;
+      float bu = 0.0f, bv = 0.0f;
+      for (int j = rank; j < 16; j += lanes) {
+        float t, u, v;
+        if (mt_row(mesh_tri, sr0 + j, sox, soy, soz, sdx, sdy, sdz, stmin, sfar, t, u, v) &&
+            ordered_key(t) < key) {
+          key = ordered_key(t); row = j; bu = u; bv = v;
+        }
+      }
+      const unsigned kmin = __reduce_min_sync(warp, key);
+      if (kmin == 0xffffffffu) continue;  // no row of this leaf hits
+      const unsigned jmin = __reduce_min_sync(warp, key == kmin ? row : 16u);
+      const int wl = __ffs(__ballot_sync(warp, key == kmin && row == jmin)) - 1;
+      const float wu = __shfl_sync(warp, bu, wl), wv = __shfl_sync(warp, bv, wl);
+      if (lane == src) {
+        h.t = key_value(kmin); h.cls = kClsMesh; h.idx = sr0 + (int)jmin; h.mesh = m; h.u = wu; h.v = wv;
       }
     }
-  }
+  } while (__any_sync(warp, walking));
 }
 
 // Point, front-facing shading normal and material id of an analytic winner
@@ -256,11 +361,28 @@ __device__ __forceinline__ void resolve_analytic(const SceneRows& r, int cls, in
   if (cls != kClsVolume && !ff) { nx = -nx; ny = -ny; nz = -nz; }
 }
 
-// Stage `len` floats of a table into shared memory (all threads of the
-// block take part; ends with a barrier).
-__device__ __forceinline__ void stage_table(float* sm, const float* table, int len) {
+// Where the superleaf trees start in shared memory, in floats after a
+// scene table of `len` floats: the next 16-byte boundary.
+__host__ __device__ constexpr int tree_offset(int len) { return (len + 3) & ~3; }
+
+// Bytes of shared memory a block stages: the scene table (`len` floats)
+// and the superleaf trees (`tree_len` floats, TREE_ROW = 8 a node).
+__host__ __device__ constexpr size_t staged_bytes(int len, int tree_len) {
+  return sizeof(float) * (size_t)(tree_offset(len) + tree_len);
+}
+
+// Stage the scene table (`len` floats) and the superleaf trees (`tree_len`
+// floats, 16-byte aligned in device memory) into shared memory `sm` (16-byte
+// aligned). All threads of the block take part; ends with a barrier.
+// Returns the staged trees.
+__device__ __forceinline__ const float4* stage_tables(float* sm, const float* table, int len,
+                                                      const float* tree, int tree_len) {
   for (int k = threadIdx.x; k < len; k += blockDim.x) sm[k] = table[k];
+  float4* dst = reinterpret_cast<float4*>(sm + tree_offset(len));
+  const float4* src = reinterpret_cast<const float4*>(tree);
+  for (int k = threadIdx.x; k < tree_len / 4; k += blockDim.x) dst[k] = __ldg(src + k);
   __syncthreads();
+  return dst;
 }
 
 }  // namespace rt

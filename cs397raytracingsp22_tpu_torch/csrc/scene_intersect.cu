@@ -10,10 +10,12 @@
 // resolves mesh winners around it (ops/intersect.py::intersect_scene_fused).
 //
 // Shape: one thread per ray. The scene's analytic, material and mesh-row
-// tables (kscene, a few KB) are staged into shared memory once per block;
-// the class tests and the dense-mesh Möller–Trumbore scan with per-ray
-// superleaf culling are the device functions of intersect.cuh, which K1
-// runs too. The winner rules are the spec's: class order with a running
+// tables (kscene, a few hundred bytes) and the dense meshes' superleaf
+// trees (ksl_tree, at most 32,736 B) are staged into shared memory once
+// per block; the class tests and the dense-mesh walk (the superleaf tree,
+// then Möller–Trumbore on the superleaves it reaches) are the device
+// functions of intersect.cuh, which K1 runs too. The winner rules are the
+// spec's: class order with a running
 // best and strict `<`, analytic t in [t_min, t_max], mesh t < t_max
 // strictly and in object space (the ray is transformed without
 // renormalisation, intersect.py:287-288 in the JAX package). A ray whose
@@ -39,8 +41,8 @@
 //   mesh), each ray does a few dozen FP32 tests and moves ~70 B of rays,
 //   bounds and outputs: memory-bound. Rows are read and written once;
 //   outputs are structure-of-arrays, so a warp's stores coalesce.
-// - With a dense mesh, FP32 throughput in the mesh scan, as in K1: superleaf
-//   culling skips most 16-triangle groups. Warp divergence follows ray
+// - With a dense mesh, the mesh walk, as in K1: a ray tests the tree's root,
+//   and the path to each superleaf it reaches. Warp divergence follows ray
 //   coherence: camera rays start coherent, later bounces less so.
 
 #include "intersect.cuh"
@@ -62,8 +64,9 @@ struct Params {
   const float* scene;
   int scene_len;
   int n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh;
-  const float* mesh_tri;  // (TT, 9) [a, e1, e2]
-  const float* sl;        // (NSL, 6) superleaf [lo, hi]
+  const float4* mesh_tri;  // (TT, 3) float4: kmesh_tri4 [a, e1, e2, 0, 0, 0]
+  const float* tree;      // (nodes, 8) superleaf trees [lo, 0, hi, 0]
+  int tree_len;           // floats of tree
   float* t;
   int* code;
   int* idx;
@@ -75,13 +78,13 @@ struct Params {
 };
 
 __global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params p) {
-  extern __shared__ float sm[];
-  stage_table(sm, p.scene, p.scene_len);
+  extern __shared__ __align__(16) float sm[];
+  const float4* tree = stage_tables(sm, p.scene, p.scene_len, p.tree, p.tree_len);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.n) return;
 
-  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat);
+  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
   const float ox = p.o[3 * i], oy = p.o[3 * i + 1], oz = p.o[3 * i + 2];
   const float dx = p.d[3 * i], dy = p.d[3 * i + 1], dz = p.d[3 * i + 2];
   const float tmin = p.t_min[i], tmax = p.t_max[i];
@@ -96,7 +99,7 @@ __global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params 
     test_volume(R.vol + kVol * q, q, uq[q], ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
   }
   for (int m = 0; m < p.n_mesh; ++m) {
-    scan_dense_mesh(R.msh + kMesh * m, m, p.mesh_tri, p.sl, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
+    scan_dense_mesh(R.msh + kMesh * m, m, p.mesh_tri, R.tree, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
   }
 
   float t = tmax, u = 0.0f, v = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
@@ -137,12 +140,14 @@ int rt_scene_intersect_launch(const float* o, const float* d, const float* t_min
                               const float* t_max, const float* u_vol, int u_ld, int n,
                               const float* scene, int scene_len, int n_sph, int n_pln, int n_tri,
                               int n_vol, int n_mat, int n_mesh, const float* mesh_tri,
-                              const float* sl, float* t, int* code, int* idx, int* mat, float* u,
-                              float* v, float* normal, unsigned char* ff, void* stream) {
+                              const float* tree, int tree_len, float* t, int* code, int* idx,
+                              int* mat, float* u, float* v, float* normal, unsigned char* ff,
+                              void* stream) {
   if (n <= 0) return 0;
   Params p{o, d, t_min, t_max, u_vol, u_ld, n, scene, scene_len, n_sph, n_pln, n_tri, n_vol,
-           n_mat, n_mesh, mesh_tri, sl, t, code, idx, mat, u, v, normal, ff};
-  const size_t smem = sizeof(float) * (size_t)scene_len;
+           n_mat, n_mesh, reinterpret_cast<const float4*>(mesh_tri), tree, tree_len, t, code,
+           idx, mat, u, v, normal, ff};
+  const size_t smem = staged_bytes(scene_len, tree_len);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(scene_intersect_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

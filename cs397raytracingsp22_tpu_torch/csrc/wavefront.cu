@@ -29,9 +29,9 @@
 // Built with K1's flags (-fmad on), so its rows can be compared with K1's.
 //
 // What bounds it on the H100, and what the design does about it: the same
-// FP32 issue of the dense-mesh scan as K1 (bounce.cu), plus what the
-// wavefront adds: 64 bytes a live ray read and 48 written per launch, 4
-// bytes of `alive` read a ray, the scene table staged once per launch and
+// dense-mesh walk as K1 (bounce.cu), plus what the wavefront adds: 64
+// bytes a live ray read and 48 written per launch, 4 bytes of `alive` read
+// a ray, the scene table and superleaf trees staged once per launch and
 // block, and one launch per bounce. Compaction pays only where many rays
 // die before the last bounce; on the scenes measured so far over 99% live
 // to the end (PERF.md), so this kernel costs more than K1 there.
@@ -54,21 +54,22 @@ struct Params {
   const float* scene;
   int scene_len;
   int n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh;
-  const float* mesh_tri;  // (TT, 9) [a, e1, e2]
+  const float4* mesh_tri;  // (TT, 3) float4: kmesh_tri4 [a, e1, e2, 0, 0, 0]
   const float* mesh_nrm;  // (TT, 9) decoded corner normals n0 n1 n2
-  const float* sl;        // (NSL, 6) superleaf [lo, hi]
+  const float* tree;      // (nodes, 8) superleaf trees [lo, 0, hi, 0]
+  int tree_len;           // floats of tree
 };
 
 template <bool kLast>
 __global__ void __launch_bounds__(kThreads, 4) wavefront_kernel(const Params p) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(16) float sm[];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < p.n && p.alive[i] != 0;
   if (!__syncthreads_or(live)) return;  // a block of dead rays skips the bounce
-  stage_table(sm, p.scene, p.scene_len);
+  const float4* tree = stage_tables(sm, p.scene, p.scene_len, p.tree, p.tree_len);
   if (!live) return;
 
-  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat);
+  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
   float4* row = p.rows + 4 * (size_t)i;
   const float4 q0 = row[0], q1 = row[1], q2 = row[2];
   const uint32_t uid = __float_as_uint(reinterpret_cast<const float*>(row)[12]);
@@ -109,12 +110,14 @@ extern "C" {
 int rt_wavefront_launch(float* rows, int* alive, int n, int depth, int last, unsigned k0,
                         unsigned k1, float t_min, float t_max, const float* scene,
                         int scene_len, int n_sph, int n_pln, int n_tri, int n_vol, int n_mat,
-                        int n_mesh, const float* mesh_tri, const float* mesh_nrm, const float* sl,
-                        void* stream) {
+                        int n_mesh, const float* mesh_tri, const float* mesh_nrm,
+                        const float* tree, int tree_len, void* stream) {
   if (n <= 0) return 0;
   Params p{reinterpret_cast<float4*>(rows), alive, n, k0, k1, depth, t_min, t_max, scene,
-           scene_len, n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh, mesh_tri, mesh_nrm, sl};
-  const size_t smem = sizeof(float) * (size_t)scene_len;
+           scene_len, n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh,
+           reinterpret_cast<const float4*>(mesh_tri), mesh_nrm, tree,
+           tree_len};
+  const size_t smem = staged_bytes(scene_len, tree_len);
   return last ? launch<true>(p, smem, (cudaStream_t)stream)
               : launch<false>(p, smem, (cudaStream_t)stream);
 }

@@ -121,6 +121,8 @@ class SceneData:
     # the mega-bounce kernel's packed tables (pack_kernel_tables)
     kscene: torch.Tensor
     kmesh_nrm: torch.Tensor
+    ksl_tree: torch.Tensor
+    kmesh_tri4: torch.Tensor
     n_spheres: int
     n_planes: int
     n_tris: int
@@ -381,7 +383,7 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
 
     # superleaf AABBs over 16 consecutive rows (sibling BVH leaves), from
     # the real rows only: zero padding rows would pull a box to the origin
-    SL = 16
+    SL = SUPERLEAF
     sl_bounds, sl_ranges = [], []
     for (start, count), real in zip(ranges, real_counts):
         first = len(sl_bounds)
@@ -445,10 +447,72 @@ _MESH_ARRAYS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_trans
                 "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
 _STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
            "ksl_ranges", "dense_mesh_ids", "mat_types_present")
-PACKED = ("kscene", "kmesh_nrm")  # built by pack_kernel_tables, never passed in
+# built by pack_kernel_tables, never passed in
+PACKED = ("kscene", "kmesh_nrm", "ksl_tree", "kmesh_tri4")
+
+SUPERLEAF = 16  # kmesh_tri rows under one superleaf box
+# the superleaf trees of all dense meshes: 2S - 1 nodes for S superleaves,
+# and DENSE_MESH_MAX_TRIS caps the scene at 512 superleaves
+TREE_MAX_NODES = 2 * (bvhlib.DENSE_MESH_MAX_TRIS // SUPERLEAF) - 1
+TREE_ROW = 8  # floats a node: lo.xyz, 0, hi.xyz, 0 (two 16-byte loads)
 
 
-def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, np.ndarray]:
+def superleaf_tree(boxes: np.ndarray) -> np.ndarray:
+    """The superleaf tree of one dense mesh: (2S - 1, TREE_ROW) float32
+    from its S superleaf boxes (S, 6) [lo, hi] in BVH row order.
+
+    A complete binary tree in heap order: node k (1-based, row k - 1) has
+    children 2k and 2k + 1, and k >= S is a leaf. Every inner node has two
+    children, so a preorder walk needs no stack: after node k it goes to
+    2k (enter) or, skipping k's subtree, strips k's trailing one bits and
+    adds 1 (back at the root means done). The deepest level is filled from
+    the left, so preorder meets the leaves k = 2^D .. 2S - 1 and then
+    S .. 2^D - 1 (2^D the largest power of two <= 2S - 1): the leaf of
+    rank g, superleaf g, is k = 2^D + g, less S where that passes 2S - 1.
+    Leaves hold the boxes as they are; an inner node holds the exact
+    float32 min / max union of its children, which rounds nothing, so a
+    parent's box contains each child's."""
+    s = boxes.shape[0]
+    assert s >= 1 and boxes.shape[1] == 6
+    n = 2 * s - 1
+    top = 1 << (n.bit_length() - 1)
+    k = top + np.arange(s)
+    k = np.where(k > n, k - s, k)
+    lo = np.zeros((n + 1, 3), np.float32)
+    hi = np.zeros((n + 1, 3), np.float32)
+    lo[k], hi[k] = boxes[:, :3], boxes[:, 3:]
+    for j in range(s - 1, 0, -1):
+        lo[j] = np.minimum(lo[2 * j], lo[2 * j + 1])
+        hi[j] = np.maximum(hi[2 * j], hi[2 * j + 1])
+    zero = np.zeros((n, 1), np.float32)
+    return np.concatenate([lo[1:], zero, hi[1:], zero], axis=1)
+
+
+def superleaf_trees(ksl_bounds: np.ndarray, ksl_ranges) -> np.ndarray:
+    """ksl_tree: (nodes, TREE_ROW) the superleaf trees of the dense meshes
+    (superleaf_tree over each mesh's ksl_bounds rows), mesh k's 2S - 1
+    nodes first at row 2 * first superleaf - k; one inert zero row when
+    there is no dense mesh. Raises ValueError on ranges that do not follow
+    each other, on a box that is not lo < hi on every axis, and beyond
+    TREE_MAX_NODES."""
+    trees, rows = [], 0
+    for k, (sl_first, sl_count) in enumerate(ksl_ranges):
+        boxes = np.asarray(ksl_bounds, np.float32)[sl_first:sl_first + sl_count]
+        if rows != 2 * sl_first - k:
+            raise ValueError(f"superleaf range {k} starts at {sl_first}, after {rows} tree rows")
+        # a leaf with lo >= hi on an axis could be entered where its parent
+        # is culled (a NaN slab); the eps pad of tri_rows_aabb rules it out
+        if not (boxes[:, :3] < boxes[:, 3:]).all():
+            raise ValueError(f"a superleaf box of dense mesh {k} is flat, empty or not finite")
+        trees.append(superleaf_tree(boxes))
+        rows += len(trees[-1])
+    ksl_tree = np.concatenate(trees) if trees else np.zeros((1, TREE_ROW), np.float32)
+    if ksl_tree.shape[0] > TREE_MAX_NODES:
+        raise ValueError(f"{ksl_tree.shape[0]} superleaf tree nodes, more than {TREE_MAX_NODES}")
+    return ksl_tree
+
+
+def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     """The mega-bounce kernel's tables (csrc/bounce.cu), from host arrays
     laid out as for scene_data_from_numpy.
 
@@ -459,7 +523,10 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, np.ndarray
     [inverse R, inverse t, normal matrix, R, t, mat, first row, rows,
     first superleaf, superleaves] (ids and counts are exact in float32).
     kmesh_nrm: (TT, 9) decoded corner normals of the kmesh_tri rows, zero
-    on padding rows. The kernel reads kmesh_tri and ksl_bounds as they are.
+    on padding rows. ksl_tree: the superleaf trees (superleaf_trees),
+    which the kernels stage into shared memory. kmesh_tri4: (TT, 12) the
+    kmesh_tri rows [a, e1, e2] padded with three zeros, so that a kernel
+    reads a row as three 16-byte loads.
     """
     ns, npl, nt, nv = (int(meta[k]) for k in ("n_spheres", "n_planes", "n_tris", "n_volumes"))
 
@@ -493,7 +560,9 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, np.ndarray
         tn = f(m["tri_normals"]).reshape(-1, 9)
         kmesh_nrm[start:start + tn.shape[0]] = tn
     kscene = np.concatenate([r.reshape(-1) for r in rows]).astype(np.float32)
-    return kscene, kmesh_nrm
+    kmesh_tri = f(a["kmesh_tri"])
+    kmesh_tri4 = np.concatenate([kmesh_tri, np.zeros((kmesh_tri.shape[0], 3), np.float32)], 1)
+    return kscene, kmesh_nrm, superleaf_trees(a["ksl_bounds"], meta["ksl_ranges"]), kmesh_tri4
 
 
 def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
@@ -523,8 +592,7 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
                   leaf_size=int(m["leaf_size"]))
         for m, mid in zip(arrays["meshes"], mesh_mat_ids)
     )
-    kscene, kmesh_nrm = pack_kernel_tables(arrays, meta)
-    fields = {"meshes": meshes, "kscene": t(kscene), "kmesh_nrm": t(kmesh_nrm)}
+    fields = {"meshes": meshes, **{k: t(x) for k, x in zip(PACKED, pack_kernel_tables(arrays, meta))}}
     for f in dataclasses.fields(SceneData):
         if f.name in fields:
             continue

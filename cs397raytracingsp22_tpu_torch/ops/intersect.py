@@ -32,6 +32,7 @@ planes → triangles → volumes → meshes.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 
@@ -264,37 +265,159 @@ def analytic_candidates(scene: SceneData, o, d, t_min, t_max, u_vol) -> list[dic
     return out
 
 
+def _slab(lo, hi, o, inv, t_min, far) -> torch.Tensor:
+    """The kernels' box test (csrc/intersect.cuh::node_reached): does the
+    ray (origin o, inverse direction inv) meet the box [lo, hi] within
+    [t_min, far]? Arguments broadcast; fmin / fmax drop a NaN slab as
+    fminf / fmaxf do."""
+    t0, t1 = (lo - o) * inv, (hi - o) * inv
+    near, fa = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    lo_t = torch.fmax(torch.fmax(near[..., 0], near[..., 1]), torch.fmax(near[..., 2], t_min))
+    hi_t = torch.fmin(torch.fmin(fa[..., 0], fa[..., 1]), torch.fmin(fa[..., 2], far))
+    return hi_t >= lo_t
+
+
+def superleaf_tree_rows(scene: SceneData, k: int) -> torch.Tensor:
+    """Dense mesh k's superleaf tree: its 2S - 1 rows of scene.ksl_tree
+    (models/scene.py::superleaf_tree), node j (1-based heap order) at row
+    j - 1, [lo, 0, hi, 0] each."""
+    first, s = scene.ksl_ranges[k]
+    return scene.ksl_tree[2 * first - k:2 * first - k + 2 * s - 1]
+
+
+def tree_preorder(s: int) -> list[int]:
+    """The heap indices of a superleaf tree over s superleaves in the order
+    the kernels' walk visits them when it enters every node: after node j
+    it goes to 2j (an inner node, j < s) or, past j's subtree, strips j's
+    trailing one bits and adds 1; back at the root it is done."""
+    order, j = [], 1
+    while True:
+        order.append(j)
+        if j < s:
+            j *= 2
+            continue
+        j = (j >> (((~j) & (j + 1)).bit_length() - 1)) + 1
+        if j == 1:
+            return order
+
+
+def tree_leaf(j: int, s: int) -> int:
+    """The superleaf (rank in row order) of leaf j of a tree over s
+    superleaves: the deepest level (from 2^D, the largest power of two
+    <= 2s - 1) holds the first ones, the level above the rest."""
+    top = 1 << ((2 * s - 1).bit_length() - 1)
+    return j - top + (s if j < top else 0)
+
+
+class MeshWalk(NamedTuple):
+    """One dense mesh's nearest hits by the superleaf-tree walk."""
+
+    hit: torch.Tensor  # (N,) bool
+    t: torch.Tensor  # (N,) the nearest t, t_max on a miss
+    row: torch.Tensor  # (N,) int32 the mesh's own row (tri_verts order), -1 on a miss
+    u: torch.Tensor  # (N,)
+    v: torch.Tensor  # (N,)
+    nodes: torch.Tensor  # (N,) int64 tree nodes tested
+    tris: torch.Tensor  # (N,) int64 triangle rows tested (16 a superleaf reached)
+    leaves: torch.Tensor  # (N, S) bool the superleaves whose rows were tested
+
+
+def walk_dense_mesh(scene: SceneData, k: int, o_obj, d_obj, t_min, t_max) -> MeshWalk:
+    """The plain version of csrc/intersect.cuh::scan_dense_mesh on dense
+    mesh k, for object-space rays o_obj, d_obj (N, 3) and t_min, t_max
+    (scalars or (N,)): the stackless preorder walk of the mesh's superleaf
+    tree against a running best that starts at t_max, each node tested
+    with the kernels' box test within [t_min, best], then Möller–Trumbore
+    over the 16 kmesh_tri rows of each superleaf reached, a hit kept only
+    when t < best strictly (tri_scan_plain's arithmetic and order). Rows
+    are met in ascending order, so ties keep the lowest row, as
+    bvh.intersect_tris_scan does. The spec of the device function, which
+    scans each reached superleaf with the whole warp and keeps the least t
+    against the bound at the leaf's entry, the lowest row on ties: the row
+    this serial scan keeps. The tests and the work counts use it; no card
+    path calls it."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels.tri_scan import tri_scan_plain
+
+    n, dev = o_obj.shape[0], o_obj.device
+    first, s = scene.ksl_ranges[k]
+    start = scene.kmesh_ranges[k][0]
+    tree = superleaf_tree_rows(scene, k)
+    t_min = torch.broadcast_to(vm.as_f32(t_min, o_obj), (n,))
+    t_max = torch.broadcast_to(vm.as_f32(t_max, o_obj), (n,))
+    inv = 1.0 / d_obj
+    best = t_max.clone()
+    row = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    v = torch.zeros_like(u)
+    nodes = torch.zeros((n,), dtype=torch.int64, device=dev)
+    leaves = torch.zeros((n, s), dtype=torch.bool, device=dev)
+    entered = torch.zeros((n, 2 * s), dtype=torch.bool, device=dev)  # by heap index
+    for j in tree_preorder(s):
+        tested = torch.ones((n,), dtype=torch.bool, device=dev) if j == 1 else entered[:, j // 2]
+        nodes += tested
+        box = tree[j - 1]
+        entered[:, j] = tested & _slab(box[0:3], box[4:7], o_obj, inv, t_min, best)
+        if j < s:
+            continue
+        g = tree_leaf(j, s)
+        leaves[:, g] = entered[:, j]
+        sel = entered[:, j].nonzero()[:, 0]
+        r0 = start + 16 * g
+        hit_l, t_l, tri_l, u_l, v_l = tri_scan_plain(
+            scene.kmesh_tri[r0:r0 + 16], o_obj[sel], d_obj[sel], t_min[sel], best[sel], chunk=16)
+        idx = sel[hit_l]
+        best[idx], row[idx] = t_l[hit_l], 16 * g + tri_l[hit_l]
+        u[idx], v[idx] = u_l[hit_l], v_l[hit_l]
+    return MeshWalk(row >= 0, best, row, u, v, nodes, 16 * leaves.sum(dim=1), leaves)
+
+
+def tree_entered(tree: torch.Tensor, s: int, o_obj, inv, t_min, far, live) -> torch.Tensor:
+    """(N, 2s - 1) bool: the nodes of a superleaf tree over s superleaves
+    (rows in heap order) that a walk culling against the fixed far bound
+    `far` (N,) enters: a node whose box the ray meets within [t_min, far]
+    and whose ancestors it entered; a ray not `live` enters none."""
+    entered = _slab(tree[:, 0:3], tree[:, 4:7], o_obj[:, None], inv[:, None], t_min[:, None],
+                    far[:, None])
+    entered[:, 0] &= live
+    j = 2
+    while j <= 2 * s - 1:  # level by level: node j's parent j // 2 is decided first
+        cols = torch.arange(j, min(2 * j, 2 * s), device=tree.device)
+        entered[:, cols - 1] &= entered[:, cols // 2 - 1]
+        j *= 2
+    return entered
+
+
 def dense_scan_counts(scene: SceneData, o, d, t_min, t_max, t_hit, stats: dict) -> None:
-    """Add to stats["boxes"] and stats["tris"] (per-ray int64) the tests
-    that the CUDA kernels' culled dense-mesh scan
-    (csrc/intersect.cuh::scan_dense_mesh) needs for rays whose nearest hit
-    is at t_hit (inf on a miss): every 16-triangle superleaf box of every
-    dense mesh, and the 16 rows of each box that the ray reaches within
-    [t_min, min(t_hit, t_max)]. The kernels cull against a running best
-    that only falls to t_hit, so they test at least as many. A ray with an
-    empty window (t_max < t_min: a dead ray) needs none."""
+    """Add to stats (per-ray int64) the tests that the CUDA kernels'
+    dense-mesh walk (csrc/intersect.cuh::scan_dense_mesh) needs for rays
+    whose nearest hit is at t_hit (inf on a miss), culling against
+    [t_min, min(t_hit, t_max)]:
+    - "nodes": the superleaf-tree nodes the preorder walk tests: the root,
+      and both children of every inner node it enters;
+    - "tris": the 16 rows of each superleaf it reaches;
+    - "boxes": every superleaf box of every dense mesh, the tests of the
+      flat scan that the walk replaced (the old yardstick).
+    The kernels cull against a running best that only falls to t_hit, so
+    they test at least as many. The walk reaches exactly the superleaves
+    that the flat scan reaches, so "tris" counts both. A ray with an empty
+    window (t_max < t_min: a dead ray) needs none."""
     n = o.shape[0]
     t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,))
     t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,))
-    far = torch.fmin(t_hit, t_max)[:, None]
+    far = torch.fmin(t_hit, t_max)
     live = t_max >= t_min
     boxes = torch.zeros((n,), dtype=torch.int64, device=o.device)
-    tris = torch.zeros_like(boxes)
+    nodes, tris = torch.zeros_like(boxes), torch.zeros_like(boxes)
     for k, mi in enumerate(scene.dense_mesh_ids):
         o_obj, d_obj = object_rays(scene.meshes[mi], o, d)
-        first, count = scene.ksl_ranges[k]
-        b = scene.ksl_bounds[first:first + count]
-        inv = (1.0 / d_obj)[:, None, :]
-        t0 = (b[:, :3] - o_obj[:, None, :]) * inv
-        t1 = (b[:, 3:] - o_obj[:, None, :]) * inv
-        near, fa = torch.fmin(t0, t1), torch.fmax(t0, t1)  # the kernel's fminf / fmaxf
-        lo = torch.fmax(torch.fmax(near[..., 0], near[..., 1]),
-                        torch.fmax(near[..., 2], t_min[:, None]))
-        hi = torch.fmin(torch.fmin(fa[..., 0], fa[..., 1]), torch.fmin(fa[..., 2], far))
-        boxes += count * live
-        tris += 16 * ((hi >= lo) & live[:, None]).sum(dim=1)
-    stats["boxes"] = stats.get("boxes", 0) + boxes
-    stats["tris"] = stats.get("tris", 0) + tris
+        s = scene.ksl_ranges[k][1]
+        entered = tree_entered(superleaf_tree_rows(scene, k), s, o_obj, 1.0 / d_obj, t_min, far,
+                               live)
+        boxes += s * live
+        nodes += live + 2 * entered[:, :s - 1].sum(dim=1)
+        tris += 16 * entered[:, s - 1:].sum(dim=1)
+    for key, x in (("boxes", boxes), ("nodes", nodes), ("tris", tris)):
+        stats[key] = stats.get(key, 0) + x
 
 
 def select_winner(candidates: list[dict], fields):

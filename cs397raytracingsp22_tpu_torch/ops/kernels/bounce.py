@@ -30,8 +30,9 @@ _ARGTYPES = [
     _P, _P, _P, _I, _P, _P,  # o, d, uid, n, rad, segs
     ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_float, ctypes.c_float,  # k0 k1 depth t_min t_max
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
-    _P, _P, _P, _P,  # mesh_tri, mesh_nrm, sl, stream
+    _P, _P, _P, _I, _P,  # mesh_tri (kmesh_tri4), mesh_nrm, tree, tree_len, stream
 ]
+TABLES = ("kscene", "kmesh_tri4", "kmesh_nrm", "ksl_tree")  # the scene tables K1 and K4 read
 
 
 def library() -> ctypes.CDLL:
@@ -39,18 +40,41 @@ def library() -> ctypes.CDLL:
     lib = _build.load_library("bounce")
     lib.rt_bounce_launch.argtypes = _ARGTYPES
     lib.rt_bounce_launch.restype = _I
-    lib.rt_bounce_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_bounce_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rt_bounce_attrs.restype = _I
+    lib.rt_bounce_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.rt_bounce_occupancy.restype = _I
     return lib
 
 
-def kernel_attrs() -> tuple[int, int]:
-    """(registers per thread, local spill bytes) of the compiled kernel."""
+def kernel_attrs(dense: bool = True) -> tuple[int, int]:
+    """(registers per thread, local spill bytes) of the compiled kernel:
+    the instantiation for scenes with a dense mesh, or without (dense
+    False), which leaves the superleaf walk out."""
     regs, local = _I(), _I()
-    rc = library().rt_bounce_attrs(ctypes.byref(regs), ctypes.byref(local))
+    rc = library().rt_bounce_attrs(int(dense), ctypes.byref(regs), ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
     return regs.value, local.value
+
+
+def staged_bytes(scene: SceneData) -> int:
+    """Shared memory a block of K1, K2 or K4 stages for `scene`: the scene
+    table, padded to 16 bytes, then the superleaf trees
+    (csrc/intersect.cuh::staged_bytes)."""
+    return 4 * ((scene.kscene.numel() + 3) // 4 * 4 + scene.ksl_tree.numel())
+
+
+def resident_blocks(scene: SceneData) -> int:
+    """Blocks of K1 resident on one SM when each stages `scene`'s scene
+    table and superleaf trees, for the instantiation `scene` launches
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    blocks = _I()
+    rc = library().rt_bounce_occupancy(int(scene.kscene.numel()), int(scene.ksl_tree.numel()),
+                                       len(scene.dense_mesh_ids), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed with CUDA error {rc}")
+    return blocks.value
 
 
 def scene_is_simple(scene: SceneData) -> bool:
@@ -90,8 +114,8 @@ def path_trace_cuda(
     """Trace N ray chains with K1.
 
     o, d: (N, 3) float32; uids: (N,) int32; rng_key: int seed or (2,) key
-    words. The kernel reads the scene's packed tables (kscene, kmesh_tri,
-    kmesh_nrm, ksl_bounds; models/scene.py::pack_kernel_tables).
+    words. The kernel reads the scene's packed tables (TABLES:
+    models/scene.py::pack_kernel_tables).
     Returns (radiance (N, 3) float32, segments int64 scalar tensor).
 
     CPU tensors run the plain version (integrator.path_trace). CUDA
@@ -110,7 +134,7 @@ def path_trace_cuda(
     check_tensor("o", o, torch.float32, (n, 3), dev)
     check_tensor("d", d, torch.float32, (n, 3), dev)
     check_tensor("uids", uids, torch.int32, (n,), dev)
-    for key in ("kscene", "kmesh_tri", "kmesh_nrm", "ksl_bounds"):
+    for key in TABLES:
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
     if n >= 2**31 // 3:
@@ -129,8 +153,8 @@ def path_trace_cuda(
             scene.kscene.data_ptr(), int(scene.kscene.numel()),
             scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
-            scene.kmesh_tri.data_ptr(), scene.kmesh_nrm.data_ptr(),
-            scene.ksl_bounds.data_ptr(), stream,
+            scene.kmesh_tri4.data_ptr(), scene.kmesh_nrm.data_ptr(),
+            scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()), stream,
         )
     if rc != 0:
         raise RuntimeError(f"mega-bounce kernel launch failed with CUDA error {rc}")

@@ -29,7 +29,7 @@ from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 from cs397raytracingsp22_tpu_torch.ops import intersect as isect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor, staged_bytes
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 LAUNCHES = 0
@@ -40,7 +40,7 @@ _I = ctypes.c_int
 _ARGTYPES = [
     _P, _P, _P, _P, _P, _I, _I,  # o, d, t_min, t_max, u_vol, u_ld, n
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
-    _P, _P,  # mesh_tri, sl
+    _P, _P, _I,  # mesh_tri (kmesh_tri4), tree, tree_len
     _P, _P, _P, _P, _P, _P, _P, _P,  # t, code, idx, mat, u, v, normal, ff
     _P,  # stream
 ]
@@ -123,11 +123,12 @@ def scene_intersect_cuda(scene: SceneData, o, d, t_min, t_max, u_vol):
     if u_vol.ndim != 2 or u_vol.shape[1] < scene.n_volumes:
         raise ValueError(f"u_vol needs shape (N, >= {scene.n_volumes}), got {tuple(u_vol.shape)}")
     check_tensor("u_vol", u_vol, torch.float32, (n, u_vol.shape[1]), dev)
-    for key in ("kscene", "kmesh_tri", "ksl_bounds"):
+    for key in ("kscene", "kmesh_tri4", "ksl_tree"):
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
-    if scene.kscene.numel() * 4 > SMEM_LIMIT:
-        raise ValueError(f"the scene table ({scene.kscene.numel() * 4} B) exceeds shared memory")
+    staged = staged_bytes(scene)
+    if staged > SMEM_LIMIT:
+        raise ValueError(f"the scene table and superleaf trees ({staged} B) exceed shared memory")
     if n * max(3, u_vol.shape[1]) >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -147,7 +148,7 @@ def scene_intersect_cuda(scene: SceneData, o, d, t_min, t_max, u_vol):
             scene.kscene.data_ptr(), int(scene.kscene.numel()),
             scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
-            scene.kmesh_tri.data_ptr(), scene.ksl_bounds.data_ptr(),
+            scene.kmesh_tri4.data_ptr(), scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()),
             t.data_ptr(), code.data_ptr(), idx.data_ptr(), mat.data_ptr(), u.data_ptr(),
             v.data_ptr(), normal.data_ptr(), ff.data_ptr(), stream,
         )

@@ -32,7 +32,7 @@ from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor, scene_is_simple
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, check_tensor, scene_is_simple
 from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import threefry
@@ -50,7 +50,7 @@ _ARGTYPES = [
     _P, _P, _I, _I, _I,  # rows, alive, n, depth, last
     ctypes.c_uint, ctypes.c_uint, ctypes.c_float, ctypes.c_float,  # k0 k1 t_min t_max
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
-    _P, _P, _P, _P,  # mesh_tri, mesh_nrm, sl, stream
+    _P, _P, _P, _I, _P,  # mesh_tri (kmesh_tri4), mesh_nrm, tree, tree_len, stream
 ]
 
 
@@ -142,8 +142,8 @@ def step_cuda(scene: SceneData, rows, alive, key_pair, depth: int, last: bool, t
             float(max_trace_dist), scene.kscene.data_ptr(), int(scene.kscene.numel()),
             scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
-            scene.kmesh_tri.data_ptr(), scene.kmesh_nrm.data_ptr(),
-            scene.ksl_bounds.data_ptr(), stream,
+            scene.kmesh_tri4.data_ptr(), scene.kmesh_nrm.data_ptr(),
+            scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()), stream,
         )
     if rc != 0:
         raise RuntimeError(f"wavefront kernel launch failed with CUDA error {rc}")
@@ -226,7 +226,7 @@ def path_trace_wavefront(
     check_tensor("o", o, torch.float32, (n, 3), dev)
     check_tensor("d", d, torch.float32, (n, 3), dev)
     check_tensor("uids", uids, torch.int32, (n,), dev)
-    for key in ("kscene", "kmesh_tri", "kmesh_nrm", "ksl_bounds"):
+    for key in TABLES:
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
     if n >= 2**31:

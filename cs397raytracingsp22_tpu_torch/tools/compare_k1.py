@@ -7,11 +7,16 @@ speed as they were.
 
 Each OTHER_CSRC is a csrc/ directory, for example a parent commit's,
 unpacked with `git archive <commit> cs397raytracingsp22_tpu_torch/csrc`.
-Every build uses this checkout's nvcc flags (ops/kernels/_build.py). The
+A K1 whose rt_bounce_launch takes the flat superleaf boxes (ksl_bounds)
+where this checkout's takes the superleaf tree (ksl_tree and its length)
+is launched with that older argument list; the two lists are told apart
+by the source (`tree_len` in bounce.cu). Every build uses this checkout's
+nvcc flags (ops/kernels/_build.py). The
 bench frame (scenes/bench_scene.py, 512² × 64 spp, depth 8: one launch of
 16,777,216 rays) runs through each build. Printed: each build's
 registers and spills, the rows whose radiance differs from this
-checkout's build, bit for bit, and each build's milliseconds a frame by
+checkout's build, bit for bit (with the first few of their indices), and
+each build's milliseconds a frame by
 CUDA events, timed in turns (four runs of three frames each, after a warm
 frame), with the card's nvidia-smi name and power limit.
 """
@@ -28,8 +33,9 @@ import subprocess
 import torch
 
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce
-from cs397raytracingsp22_tpu_torch.render import driver
+from cs397raytracingsp22_tpu_torch.render import driver, integrator
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+from cs397raytracingsp22_tpu_torch.utils import threefry
 
 
 @contextlib.contextmanager
@@ -41,6 +47,27 @@ def _using(lib: ctypes.CDLL):
         yield
     finally:
         _build._libs["bounce"] = saved
+
+
+def _launch_flat(lib: ctypes.CDLL, data, o, d, uids, depth: int, max_dist: float):
+    """bounce.path_trace_cuda for a K1 of the flat superleaf scan, whose
+    rt_bounce_launch ends (..., mesh_tri, mesh_nrm, sl, stream) with sl the
+    (NSL, 6) ksl_bounds rows. Returns the radiance."""
+    lib.rt_bounce_launch.argtypes = bounce._ARGTYPES[:-2] + [ctypes.c_void_p]
+    lib.rt_bounce_launch.restype = ctypes.c_int
+    n = o.shape[0]
+    k0, k1 = threefry.key_pair(0)
+    rad = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+    segs = torch.empty((n,), dtype=torch.int32, device=o.device)
+    rc = lib.rt_bounce_launch(
+        o.data_ptr(), d.data_ptr(), uids.data_ptr(), n, rad.data_ptr(), segs.data_ptr(), k0, k1,
+        depth, integrator.PATH_T_MIN, max_dist, data.kscene.data_ptr(), int(data.kscene.numel()),
+        data.n_spheres, data.n_planes, data.n_tris, data.n_volumes, int(data.mat_type.shape[0]),
+        len(data.dense_mesh_ids), data.kmesh_tri.data_ptr(), data.kmesh_nrm.data_ptr(),
+        data.ksl_bounds.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the flat-scan K1 failed to launch with CUDA error {rc}")
+    return rad
 
 
 def main() -> int:
@@ -63,7 +90,10 @@ def main() -> int:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {"this checkout": bounce.library()}
     logs = {"this checkout": _build.BUILD_INFO["bounce"]["log"]}
+    flat = {"this checkout": False}
     for csrc, path, proc in jobs:
+        with open(os.path.join(csrc, "bounce.cu")) as f:
+            flat[csrc] = "tree_len" not in f.read()
         logs[csrc] = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {csrc}/bounce.cu:\n{logs[csrc]}")
@@ -78,31 +108,32 @@ def main() -> int:
     ids = torch.arange(512 * 512, dtype=torch.int32, device=dev)
     o, d, uids = driver._gen_chunk_rays(scene.camera, ids, 0, 0, 64, 1)
 
-    def frame():
-        return bounce.path_trace_cuda(data, o, d, uids, 0, 8, 100.0)
+    def frame(name):
+        if flat[name]:
+            return _launch_flat(libs[name], data, o, d, uids, 8, 100.0)
+        with _using(libs[name]):
+            return bounce.path_trace_cuda(data, o, d, uids, 0, 8, 100.0)[0]
 
-    rad = {}
-    for name, lib in libs.items():
-        with _using(lib):
-            rad[name] = frame()[0]
+    rad = {name: frame(name) for name in libs}
     ref = rad["this checkout"]
     for name in args.other_csrc:
         diff = (rad[name] != ref).any(dim=1)
-        print(f"{name}: {int(diff.sum())} of {ref.shape[0]} rows differ from this checkout's, "
-              f"max |diff| {float((rad[name] - ref).abs().max()):.3g}")
+        rows = diff.nonzero()[:8, 0].tolist()
+        print(f"{name}{' (flat superleaf scan)' if flat[name] else ''}: {int(diff.sum())} of "
+              f"{ref.shape[0]} rows differ from this checkout's, max |diff| "
+              f"{float((rad[name] - ref).abs().max()):.3g}; first rows {rows}")
     names = list(libs)
     order = names + names[::-1] + names + names[::-1]
     ms = {name: [] for name in names}
     for name in order:
-        with _using(libs[name]):
-            frame()
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(3):
-                frame()
-            end.record()
-            torch.cuda.synchronize()
+        frame(name)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            frame(name)
+        end.record()
+        torch.cuda.synchronize()
         ms[name].append(start.elapsed_time(end) / 3)
     for name, t in ms.items():
         print(f"{name}: {', '.join(f'{x:.3f}' for x in t)} ms a frame, median "
