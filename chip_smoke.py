@@ -12,7 +12,8 @@ nonzero):
      K1's resident blocks an SM with the bench scene's scene table and
      superleaf tree staged, and fails if K1, whose bounce body K4 shares,
      spills, has more registers than keep K1_BLOCKS blocks of 128 threads
-     on an SM (K1_MAX_REGS), or has fewer resident blocks;
+     on an SM (K1_MAX_REGS), or has fewer resident blocks, or if K3 or K5
+     spills;
   3. K1 against its plain torch version on the card, bench scene
      (teapot_6k) at 64² × 4 spp, depth 8;
   4. the goldens (tests/goldens, seed 42) rendered through K1;
@@ -33,20 +34,26 @@ nonzero):
      on the teapot's object-space rays, as the staged path calls them);
      then K3 on 4,194,304 rays aimed at the 32k teapot's box (t_max cut
      to K2's t, as the staged path does), of which at least a tenth of
-     the sample must hit the teapot (the camera rays rarely reach it);
+     the sample must hit the teapot (the camera rays rarely reach it).
+     K3 walks the child-pair rows in ray order (csrc/bvh_traverse.cu) and
+     is held to traverse, the threaded walk;
  10. the staged main path at full size: scenes/bench_teapot_32k.py at
      512² × 64 spp, depth 8, through render_to_image (4 chunks of
      4,194,304 rays), after one chunk's staged run is held to the plain
      path on a strided sample; one warm render, then timed renders; peak
      device memory;
  11. K2 and K3 timed against their plain versions on that chunk's
-     bounce-0 inputs, and K3 on the aimed rays;
+     bounce-0 inputs, and K3 on the bounce-2 and aimed rays; K3's
+     registers, spills, resident blocks, stack depth and shared memory;
  12. bounds: the work of each kernel on these inputs (the tests that the
      plain versions count with their `stats` on a strided sample, scaled
      to the launch) and the least time the card could take for it; K1's
      from the superleaf-tree walk's node tests, with the bound of the flat
      superleaf scan it replaced (every box on every segment) beside it,
-     and node and triangle tests a segment;
+     and node and triangle tests a segment; K3's from the threaded walk's
+     counts (traverse, the row's yardstick) with the bound of the ordered
+     walk's own counts (traverse_packed: slab tests, triangles, pushes)
+     beside it;
  13. a torch.profiler trace of one 32k render: device busy time, idle
      share, and the shares of K2, K3, the compaction's sorts and the
      package's "bounce_rng" and "raygen" spans.
@@ -68,7 +75,10 @@ Then this slice's paths, K4 and K5:
      "wavefront_partition");
  17. K5 through intersect_mesh on 4,194,304 camera rays (chunk 0 of 4 of
      the bench frame) against the 6k teapot, the sample held to
-     tri_scan_plain, and K5 timed against it;
+     tri_scan_plain, and K5 timed against it, with the SM clock sampled;
+     the SASS instructions of one test (`cuobjdump -sass` of the row
+     loop's body over the tests it holds) and the issue floor they set
+     (instructions over 128 lanes an SM a clock), beside the bound;
  18. the bounds of K4 (K1's counted work plus the bytes of its state) and
      K5 (rays × triangles × 53 FP32 operations).
 Then this slice's path, the roofline probes P1-P5 (csrc/vpu_peak.cu,
@@ -108,7 +118,8 @@ and the last line {"ok": true, "device": {...}}.
 
 The launch counts in the kernels line are those of the main paths only:
 K1's of the timed frames of phase 6 and the renders of phase 7, K2's and
-K3's of the timed renders of phase 10, K4's of the two wavefront runs of
+K3's of the timed renders of phase 10 (K3's counts both its kernels, the
+screen and the walk: two a call), K4's of the two wavefront runs of
 phase 14, K5's of the intersect_mesh call of phase 17, and P1-P5's of their
 tools' runs in phases 22-24. Each counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
@@ -158,6 +169,9 @@ ROW_SIDE, ROW_SPP = 128, 16
 K1_MAX_REGS, K1_BLOCKS = 96, 5
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
+# multiplies in one Möller–Trumbore test of csrc/tri_scan.cu (q 6, det 3,
+# u 4, r 6, v 4, t 4): the count that finds the tests in a loop body's SASS
+K5_FMUL = 27
 
 
 def log(phase: str, msg: str) -> None:
@@ -217,7 +231,8 @@ def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
     the first kernel's start to the last one's end, the idle share inside
     that span, and for each label of `kernels` (label → a substring of the
     kernel's name in any case, e.g. "bounce_kernel") the time of the
-    kernels so named and their share of the busy time; each must appear.
+    kernels so named (the union of their intervals: K3's walk runs beside
+    its screen) and their share of the busy time; each must appear.
 
     spans: labels of the record_function spans that the package opens
     (driver._gen_chunk_rays: "raygen"; integrator._bounce_draws:
@@ -242,19 +257,23 @@ def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
                   for e in events if e.get("cat") == "kernel" and e.get("ph") == "X")
     if not kern:
         raise AssertionError(f"trace {name}: the profiler saw no kernel on the device")
-    busy, cur_s, cur_e = 0.0, kern[0][0], kern[0][1]
-    for s, e, _, _ in kern[1:]:
-        if s > cur_e:
-            busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    busy += cur_e - cur_s
+
+    def union(intervals) -> float:  # µs covered by sorted (start, end, ...) intervals
+        total, cur_s, cur_e = 0.0, None, None
+        for s, e, *_ in intervals:
+            if cur_e is None or s > cur_e:
+                total += 0.0 if cur_e is None else cur_e - cur_s
+                cur_s, cur_e = s, e
+            else:
+                cur_e = max(cur_e, e)
+        return total + (0.0 if cur_e is None else cur_e - cur_s)
+
+    busy = union(kern)
     span = max(k[1] for k in kern) - kern[0][0]
     out = dict(kernels=len(kern), wall_ms=wall * 1e3, busy_ms=busy / 1e3, span_ms=span / 1e3,
                idle=1.0 - busy / span, parts={})
     for label, sub in kernels.items():
-        ms = sum(e - s for s, e, n, _ in kern if sub.lower() in n.lower()) / 1e3
+        ms = union(k for k in kern if sub.lower() in k[2].lower()) / 1e3
         if ms == 0.0:
             raise AssertionError(f"trace {name}: no kernel named *{sub}* in the trace")
         out["parts"][label] = ms
@@ -264,7 +283,7 @@ def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
         marks = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
                  if e.get("cat") == "user_annotation" and e.get("name") == label]
         corr = {c for ts, c in launches if any(a <= ts <= b for a, b in marks)}
-        ms = sum(e - s for s, e, _, c in kern if c in corr) / 1e3
+        ms = union(k for k in kern if k[3] in corr) / 1e3
         if ms == 0.0:
             raise AssertionError(f"trace {name}: no kernel launched inside {label}")
         out["parts"][label] = ms
@@ -364,43 +383,41 @@ def k1_bound(data, o, d, uids, key, depth, max_dist, stride):
 
 def k3_bound(mesh, ins, idx) -> tuple[float, str, dict]:
     """(bound ms, bound_by, work) of one K3 launch on ins = (o, d, t_min,
-    t_max): bytes = the rays in, hit, t, tri, u, v out, the mesh's node
-    arrays and triangles once; operations = the interior boxes and
-    triangles that the plain traversal tests on the rays idx, scaled to
-    the launch, and the three reciprocals of each ray."""
+    t_max), counted on the threaded walk (traverse, the yardstick of the
+    kernels line): bytes = the rays in, hit, t, tri, u, v out, the mesh's
+    node arrays and triangles once; operations = the interior boxes and
+    triangles that traverse tests on the rays idx, scaled to the launch,
+    and the three reciprocals of each ray. The work also holds the ordered
+    walk's own counts (traverse_packed, the kernel's walk: "*_p") and its
+    bound over the packed rows (ms_p, by_p), triangles at OPS["mt"] since
+    their edges come formed."""
     from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan_big
 
     n = ins[0].shape[0]
-    st = {}
-    tri_scan_big.tri_scan_big_plain(mesh, *[x[idx] for x in ins], stats=st)
+    scale = n / idx.numel()
+    sub = [x[idx] for x in ins]
+    st, sp = {}, {}
+    tri_scan_big.tri_scan_big_plain(mesh, *sub, stats=st)
+    tri_scan_big.tri_scan_big_packed(mesh, *sub, stats=sp)
     w = dict(boxes=int(st["boxes"].sum()), tris=int(st["tris"].sum()),
              max_boxes=int(st["boxes"].max()), max_tris=int(st["tris"].max()))
-    ops = n / idx.numel() * (w["boxes"] * OPS["box"] + w["tris"] * OPS["mt_verts"]) + n * 3
-    n_bytes = (nbytes(*ins) + n * (1 + 4 + 4 + 4 + 4)
-               + nbytes(mesh.bounds_min, mesh.bounds_max, mesh.skip, mesh.leaf_start,
-                        mesh.leaf_count, mesh.tri_verts))
+    w.update({f"{k}_p": int(sp[k].sum()) for k in ("boxes", "nodes", "tris", "pushes")})
+    w.update(max_boxes_p=int(sp["boxes"].max()), max_tris_p=int(sp["tris"].max()))
+    # divergence: a group of 32 rays costs what its busiest ray does (node
+    # or box tests plus triangles, each a step with its own loads)
+    for key, steps in (("warp", st["boxes"] + st["tris"]), ("warp_p", sp["nodes"] + sp["tris"])):
+        g = steps[:steps.numel() // 32 * 32].view(-1, 32).double()
+        w[key] = float(g.max(dim=1).values.mean() / g.mean())
+    ops = scale * (w["boxes"] * OPS["box"] + w["tris"] * OPS["mt_verts"]) + n * 3
+    io = nbytes(*ins) + n * (1 + 4 + 4 + 4 + 4)
+    n_bytes = io + nbytes(mesh.bounds_min, mesh.bounds_max, mesh.skip, mesh.leaf_start,
+                          mesh.leaf_count, mesh.tri_verts)
     ms, by = bound(n_bytes, ops)
-    w.update(ops=ops, bytes=n_bytes)
+    ops_p = scale * (w["boxes_p"] * OPS["box"] + w["tris_p"] * OPS["mt"]) + n * 3
+    bytes_p = io + nbytes(mesh.bvh_nodes, mesh.bvh_tri4)
+    ms_p, by_p = bound(bytes_p, ops_p)
+    w.update(ops=ops, bytes=n_bytes, ops_p=ops_p, bytes_p=bytes_p, ms_p=ms_p, by_p=by_p)
     return ms, by, w
-
-
-def aimed_rays(mesh, n: int, dev, seed: int = 0):
-    """n world rays of the bench scene that aim at a big mesh: from uniform
-    points of the room (the box of tests/test_torch_staged_kernels.py::
-    scene_rays) toward uniform points of the mesh's world-space root box."""
-    from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
-
-    g = torch.Generator(device=dev).manual_seed(seed)
-    sel = torch.tensor([[x, y, z] for x in (0, 1) for y in (0, 1) for z in (0, 1)],
-                       dtype=torch.float32, device=dev)
-    corners = vm.apply_mat4_point(mesh.transform,
-                                  mesh.bounds_min[0] * (1.0 - sel) + mesh.bounds_max[0] * sel)
-    lo, hi = corners.amin(dim=0), corners.amax(dim=0)
-    room_lo = torch.tensor([-2.4, 0.05, -2.4], device=dev)
-    room_hi = torch.tensor([2.4, 4.95, 3.0], device=dev)
-    o = room_lo + (room_hi - room_lo) * torch.rand((n, 3), generator=g, device=dev)
-    d = lo + (hi - lo) * torch.rand((n, 3), generator=g, device=dev) - o
-    return o.contiguous(), d.contiguous()
 
 
 def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) -> list:
@@ -412,6 +429,7 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import bench_teapot_32k
+    from cs397raytracingsp22_tpu_torch.tools.compare_k3 import aimed_rays
     from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
     from cs397raytracingsp22_tpu_torch.utils import threefry
 
@@ -432,7 +450,8 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     n32 = o32.shape[0]
     idx = torch.arange(0, n32, SAMPLE_STRIDE, device=dev)
     k2_err = k3_err = 0.0
-    k2_in = k3_in = None
+    k2_in = None
+    k3_ins = {}  # K3's inputs by bounce
 
     def k2(sd):
         return lambda *a: scene_intersect.scene_intersect_cuda(sd, *a)
@@ -480,8 +499,9 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
                         f"tri) as traverse, {n_exact}/{n} bit-identical, t/u/v max |diff| "
                         f"{err:.3g}; {int(alone3[0].sum())} "
                         f"sampled hits")
+                    k3_ins[b] = ins3
                     if b == 0:
-                        k2_in, k3_in = inputs, ins3
+                        k2_in = inputs
             if b < 2:  # on to the next bounce through the staged path (K2 + K3)
                 o, d, thr, rad, alive, _ = integrator._bounce_update(
                     sd, o, d, thr, rad, alive, uid32, key, site, max_dist,
@@ -557,13 +577,25 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     # ---- 11. K2 and K3 timing at the main path's shapes ----
     k2_ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd32, *k2_in), 10)
     k2_plain_ms = cuda_ms(lambda: scene_intersect.scene_intersect_plain(sd32, *k2_in), 2)
+    k3_in = k3_ins[0]
     k3_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *k3_in), 10)
     k3_plain_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_plain(mesh32, *k3_in), 1)
+    k3_b2_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *k3_ins[2]), 10)
     k3_aim_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *aim_in), 10)
     log("timing-staged", f"teapot_32k chunk 0 bounce 0 ({n32} rays): K2 {k2_ms:.3f} ms, plain "
         f"{k2_plain_ms:.3f} ms ({k2_plain_ms / k2_ms:.1f}x); K3 {k3_ms:.3f} ms, plain "
-        f"{k3_plain_ms:.3f} ms ({k3_plain_ms / k3_ms:.1f}x); K3 on {n32} rays aimed at the "
-        f"teapot {k3_aim_ms:.3f} ms")
+        f"{k3_plain_ms:.3f} ms ({k3_plain_ms / k3_ms:.1f}x); K3 on the bounce-2 rays "
+        f"{k3_b2_ms:.3f} ms; K3 on {n32} rays aimed at the teapot {k3_aim_ms:.3f} ms")
+    regs, spill = tri_scan_big.kernel_attrs()
+    cfg = tri_scan_big.launch_config(mesh32)
+    log("config-k3", f"teapot_32k ({mesh32.bvh_nodes.shape[0]} node rows of 64 B, stack depth "
+        f"{mesh32.bvh_depth}): {regs} registers/thread, {spill} B local; blocks of "
+        f"{cfg['threads']} threads, {cfg['threads']} x {mesh32.bvh_depth} stack entries of 8 B: "
+        f"{cfg['smem_bytes']} B of shared memory a block; "
+        f"{cfg['blocks_per_sm']} resident blocks an SM ({cfg['blocks_per_sm'] * cfg['threads'] // 32}"
+        f" warps)")
+    if spill:
+        raise AssertionError(f"K3 spills {spill} B")
 
     # ---- 12. bounds of K2 and K3 at phase 11's inputs ----
     st2 = {}
@@ -582,18 +614,26 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         f"per sampled ray; {k2_ops:.4g} ops, {k2_bytes:.4g} B -> bound {k2_bound:.4f} ms "
         f"({k2_by})")
     k3b = {}
-    for what, ins3, ms in (("chunk 0 bounce 0", k3_in, k3_ms), ("aimed at the teapot", aim_in,
-                                                                  k3_aim_ms)):
+    for what, ins3, ms in (("chunk 0 bounce 0", k3_in, k3_ms),
+                           ("chunk 0 bounce 2", k3_ins[2], k3_b2_ms),
+                           ("aimed at the teapot", aim_in, k3_aim_ms)):
         b_ms, b_by, w = k3b[what] = k3_bound(mesh32, ins3, idx)
+        m = idx.numel()
         log("bound-k3", f"teapot_32k {what} ({n32} object-space rays); every {SAMPLE_STRIDE}th "
-            f"ray ({idx.numel()}) traversed by the plain version: {w['boxes'] / idx.numel():.2f} "
-            f"interior boxes and {w['tris'] / idx.numel():.2f} triangles tested per ray (max "
+            f"ray ({m}) traversed by the plain versions: the threaded walk (traverse) tests "
+            f"{w['boxes'] / m:.2f} interior boxes and {w['tris'] / m:.2f} triangles per ray (max "
             f"{w['max_boxes']} and {w['max_tris']}); {w['ops']:.4g} ops, {w['bytes']:.4g} B -> "
-            f"bound {b_ms:.4f} ms ({b_by}); K3 {ms:.3f} ms")
+            f"bound {b_ms:.4f} ms ({b_by}); the ordered walk (traverse_packed) opens "
+            f"{w['nodes_p'] / m:.2f} nodes, takes {w['boxes_p'] / m:.2f} slab tests and "
+            f"{w['tris_p'] / m:.2f} triangles and pushes {w['pushes_p'] / m:.2f} per ray (max "
+            f"{w['max_boxes_p']} and {w['max_tris_p']}); {w['ops_p']:.4g} ops, "
+            f"{w['bytes_p']:.4g} B -> bound {w['ms_p']:.4f} ms ({w['by_p']}); the busiest of 32 "
+            f"sampled rays takes {w['warp']:.2f}x the mean steps (threaded), {w['warp_p']:.2f}x "
+            f"(ordered); K3 {ms:.3f} ms")
 
     # ---- 13. device trace of one 32k render ----
     tr = device_trace("teapot_32k", render32,
-                      {"K2": "scene_intersect_kernel", "K3": "bvh_traverse_kernel", "sort": "sort"},
+                      {"K2": "scene_intersect_kernel", "K3": "bvh_", "sort": "sort"},
                       spans=("bounce_rng", "raygen"))
     log("trace", "teapot_32k: " + f"{tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} ms in "
         f"a {tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
@@ -890,14 +930,34 @@ def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: i
         f"launch; every {SAMPLE_STRIDE}th ray ({n_s}) alone is bit-identical to the launch's rows; "
         f"{n_same}/{n_s} same (hit, tri) as tri_scan_plain, {n_exact}/{n_s} bit-identical, t/u/v "
         f"max |diff| {k5_err:.3g}; {int(alone5[0].sum())} sampled hits")
-    k5_ms = cuda_ms(lambda: tri_scan.tri_scan_cuda(mesh, *ins), 5)
+    with ClockSampler() as smi:
+        k5_ms = cuda_ms(lambda: tri_scan.tri_scan_cuda(mesh, *ins), 5)
+    clock = smi.median_clock()
     k5_plain_ms = cuda_ms(lambda: tri_scan.tri_scan_plain(mesh.tri_table, *ins, chunk=16), 1)
     k5_ops = n5 * nt * OPS["mt"]
     k5_bytes = nbytes(*ins) + n5 * (1 + 4 + 4 + 4 + 4) + nbytes(mesh.tri_table)
     k5_bound, k5_by = bound(k5_bytes, k5_ops)
-    log("timing-k5", f"{n5} rays x {nt} triangles: K5 {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms "
+    regs, spill = tri_scan.kernel_attrs()
+    log("timing-k5", f"{n5} rays x {nt} triangles: K5 {k5_ms:.3f} ms ({regs} registers/thread, "
+        f"{spill} B local; {smi.summary()}), plain {k5_plain_ms:.3f} ms "
         f"({k5_plain_ms / k5_ms:.1f}x); bound {k5_ops:.4g} FP32 ops ({OPS['mt']} a test), "
         f"{k5_bytes:.4g} B -> {k5_bound:.4f} ms ({k5_by}), K5 at {k5_bound / k5_ms:.1%} of it")
+    # the issue floor: every operation of a test is an instruction of its own
+    # (-fmad=false), and an SM issues 4 warp instructions (128 lanes) a clock
+    short, full, ops = k5_test_instructions()
+    share = k5_reject_share(mesh.tri_table, *sub5[:2])
+    per_test = share * short + (1.0 - share) * full
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor_ms = n5 * nt * per_test / (sms * 128 * clock * 1e6) * 1e3
+    log("sass-k5", f"the row loop's body: {sum(ops.values())} instructions for "
+        f"{ops['FMUL'] / K5_FMUL:g} tests ({ops['FMUL']} FMUL at {K5_FMUL} a test): "
+        + " ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1]))
+        + f"; a test {short:.2f} instructions when rejected before the division, {full:.2f} "
+        f"when divided; the sampled rays reject {share:.4f} of their tests, so {per_test:.2f} a "
+        f"test; issue floor {per_test:.2f} x {n5} x {nt} / ({sms} SMs x 128 lanes x {clock:.0f} "
+        f"MHz) = {floor_ms:.3f} ms (every test divided: {floor_ms * full / per_test:.3f} ms), "
+        f"against the {OPS['mt']}-operation bound's {k5_bound:.3f} ms; K5 at "
+        f"{floor_ms / k5_ms:.1%} of the issue floor")
 
     k4_bound, k4_by = k4b[(ROW_SIDE, ROW_SPP)]
     return [{
@@ -978,7 +1038,11 @@ class ClockSampler:
         self._thread.join(5)
         return False
 
-    def summary(self) -> str:
+    def median_clock(self) -> float:
+        """The median SM clock (MHz) of the samples inside the run."""
+        return float(np.median(self._rows()[0]))
+
+    def _rows(self) -> list:
         rows = []
         for line in self.lines[self._start:]:
             try:
@@ -987,18 +1051,32 @@ class ClockSampler:
                 continue
         if not rows:
             raise AssertionError("no clock sample fell inside the run")
-        clk, draw, limit = (np.array(c) for c in zip(*rows))
+        return [np.array(c) for c in zip(*rows)]
+
+    def summary(self) -> str:
+        clk, draw, limit = self._rows()
         return (f"SM clock {clk.min():.0f}/{np.median(clk):.0f}/{clk.max():.0f} MHz (min/median/"
                 f"max), power draw median {np.median(draw):.1f} W max {draw.max():.1f} W, limit "
-                f"{limit[0]:.2f} W ({len(rows)} samples)")
+                f"{limit[0]:.2f} W ({len(clk)} samples)")
 
 
-def sass_counts(name: str, loop: bool = False) -> dict:
+def sass_counts(name: str, loop: bool = False, key: str = "FFMA") -> dict:
     """{function name: {opcode: count}} of the built library's SASS, from
     `cuobjdump -sass` (opcodes without their modifiers). loop=True counts
-    only the body of each function's loop that holds the most FFMA (from a
-    backward branch's target to the branch), and leaves out functions
-    without one."""
+    only the body of each function's loop that holds the most `key`
+    instructions (from a backward branch's target to the branch), and
+    leaves out functions without one."""
+    counts = {}
+    for fn, ins in sass_instructions(name, loop, key).items():
+        c: dict = {}
+        for _, op, _ in ins:
+            c[op] = c.get(op, 0) + 1
+        counts[fn] = c
+    return counts
+
+
+def sass_instructions(name: str, loop: bool = False, key: str = "FFMA") -> dict:
+    """{function name: [(address, opcode, line)]}: sass_counts' instructions."""
     from cs397raytracingsp22_tpu_torch.ops.kernels import _build
 
     tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
@@ -1015,7 +1093,7 @@ def sass_counts(name: str, loop: bool = False) -> dict:
             cur.append((int(re.search(r"/\*([0-9a-f]+)\*/", line).group(1), 16), m.group(1), line))
     if not funcs:
         raise AssertionError(f"cuobjdump found no function in lib{name}")
-    counts = {}
+    out = {}
     for fn, ins in funcs.items():
         if loop:
             best = (-1, 0, -1)
@@ -1023,16 +1101,58 @@ def sass_counts(name: str, loop: bool = False) -> dict:
                 t = re.search(r"BRA\s+0x([0-9a-f]+)", line) if op == "BRA" else None
                 if t and int(t.group(1), 16) < addr:
                     lo = int(t.group(1), 16)
-                    n_ffma = sum(1 for a, o, _ in ins if lo <= a <= addr and o == "FFMA")
-                    best = max(best, (n_ffma, lo, addr))
+                    n_key = sum(1 for a, o, _ in ins if lo <= a <= addr and o == key)
+                    best = max(best, (n_key, lo, addr))
             if best[0] <= 0:
-                continue  # no loop holds an FFMA
+                continue  # no loop holds a `key` instruction
             ins = [x for x in ins if best[1] <= x[0] <= best[2]]
-        c: dict = {}
-        for _, op, _ in ins:
-            c[op] = c.get(op, 0) + 1
-        counts[fn] = c
-    return counts
+        out[fn] = ins
+    return out
+
+
+def k5_test_instructions() -> tuple[float, float, dict]:
+    """(SASS instructions a test issues when its early reject holds, when it
+    runs the division, the row loop's opcode counts): K5's row loop body
+    over the tests it holds (its FMUL over K5_FMUL). The instructions a
+    rejected test skips are those that a forward branch inside the body
+    jumps over where the jumped-over span holds the division's MUFU
+    (outermost spans only)."""
+    ins = next(iter(sass_instructions("tri_scan", loop=True, key="FMUL").values()))
+    ops = {}
+    for _, op, _ in ins:
+        ops[op] = ops.get(op, 0) + 1
+    tests = ops["FMUL"] / K5_FMUL
+    spans = []
+    for addr, op, line in ins:
+        t = re.search(r"BRA\s+0x([0-9a-f]+)", line) if op == "BRA" else None
+        if t and addr < int(t.group(1), 16) <= ins[-1][0]:
+            end = int(t.group(1), 16)
+            if any(o == "MUFU" and addr < a < end for a, o, _ in ins):
+                spans.append((addr, end))
+    skipped = sum(1 for a, _, _ in ins if any(lo < a < hi for lo, hi in spans))
+    return (len(ins) - skipped) / tests, len(ins) / tests, ops
+
+
+def k5_reject_share(tri_table, o, d) -> float:
+    """The share of (ray, row) tests that csrc/tri_scan.cu rejects before
+    the division (|det| < 1e-4, or u or v surely negative), counted in its
+    operation order on these rays against every row."""
+    rejected = 0
+    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
+    for c0 in range(0, tri_table.shape[0], 512):
+        ax, ay, az, e1x, e1y, e1z, e2x, e2y, e2z = tri_table[c0:c0 + 512].T
+        qx, qy, qz = dy * e2z - dz * e2y, dz * e2x - dx * e2z, dx * e2y - dy * e2x
+        det = e1x * qx + e1y * qy + e1z * qz
+        sx, sy, sz = o[:, 0:1] - ax, o[:, 1:2] - ay, o[:, 2:3] - az
+        su = sx * qx + sy * qy + sz * qz
+        sv = dx * (sy * e1z - sz * e1y) + dy * (sz * e1x - sx * e1z) + dz * (sx * e1y - sy * e1x)
+
+        def surely_negative(x):
+            return ((torch.signbit(x) != torch.signbit(det)) & (x.abs() >= 2.0**-20)
+                    & (det.abs() < float("inf")))
+
+        rejected += int((~(det.abs() >= 1e-4) | surely_negative(su) | surely_negative(sv)).sum())
+    return rejected / (o.shape[0] * tri_table.shape[0])
 
 
 def ptxas_summary(name: str) -> str:
@@ -1466,8 +1586,8 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if kid == "K1 no mesh" and spill:
-            raise AssertionError(f"K1 without the mesh walk spills {spill} B")
+        if kid in ("K1 no mesh", "K3", "K5") and spill:
+            raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
                       ("the Cornell box (no dense mesh)", cornell.build(64, 64, spp=4))):
         tables = sc_.compile(device=dev)

@@ -55,7 +55,8 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass
 class MeshBlock:
     """One compiled StaticMesh, triangles in BVH order, with its threaded
-    BVH (ops/bvh.py::FlatBVH node arrays; leaves index tri_verts rows)."""
+    BVH (ops/bvh.py::FlatBVH node arrays; leaves index tri_verts rows) and
+    the kernels' packed copies of both (mesh_kernel_tables)."""
 
     tri_verts: torch.Tensor  # (NT, 3, 3) object-space corners
     tri_table: torch.Tensor  # (NT, 9) [a, b-a, c-a]
@@ -68,8 +69,12 @@ class MeshBlock:
     skip: torch.Tensor  # (NN,) int32 next node on an AABB miss (NN = done)
     leaf_start: torch.Tensor  # (NN,) int32 first row of a leaf; -1 interior
     leaf_count: torch.Tensor  # (NN,) int32
+    bvh_nodes: torch.Tensor  # (NI + 1, 16) child-pair rows (ops/bvh.py::pack_bvh)
+    bvh_tri4: torch.Tensor  # (NT, 12) tri_verts as [a, e1, e2, 0, 0, 0]
+    tri_table4: torch.Tensor  # (NT, 12) tri_table rows and three zeros
     mat_id: int
     leaf_size: int
+    bvh_depth: int  # bvh_nodes' deepest leaf: the ordered walk's stack
 
     def to(self, device) -> "MeshBlock":
         return dataclasses.replace(
@@ -565,6 +570,26 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     return kscene, kmesh_nrm, superleaf_trees(a["ksl_bounds"], meta["ksl_ranges"]), kmesh_tri4
 
 
+def mesh_kernel_tables(m: dict) -> dict:
+    """The per-mesh tables of the big-mesh kernel (csrc/bvh_traverse.cu)
+    and the dense-mesh scan (csrc/tri_scan.cu), from the host arrays of one
+    mesh (_MESH_ARRAYS): bvh_nodes and bvh_depth (ops/bvh.py::pack_bvh),
+    bvh_tri4, tri_verts' rows as [a, e1, e2, 0, 0, 0] with the edges formed
+    in float32 as traverse forms them (tri_table's edges were formed before
+    the cast and may differ in the last bit), and tri_table4, tri_table's
+    rows padded the same way. A 48-byte row is three 16-byte loads."""
+    tv = np.asarray(m["tri_verts"], np.float32)
+    zero = np.zeros((tv.shape[0], 3), np.float32)
+    nodes, depth = bvhlib.pack_bvh(*(np.asarray(m[k]) for k in (
+        "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")))
+    return dict(
+        bvh_nodes=nodes,
+        bvh_tri4=np.concatenate([tv[:, 0], tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0], zero], 1),
+        tri_table4=np.concatenate([np.asarray(m["tri_table"], np.float32), zero], 1),
+        bvh_depth=depth,
+    )
+
+
 def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
     """Build a SceneData from host arrays — `compile_scene`'s own, or the
     leaves of the JAX package's compiled SceneData as numpy, so that both
@@ -572,7 +597,8 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
 
     arrays: every tensor field of SceneData except `meshes` and the
       kernel's packed tables (PACKED, built here), plus "meshes": a list of
-      dicts holding the MeshBlock array fields and "leaf_size".
+      dicts holding the MeshBlock array fields and "leaf_size" (the
+      kernels' per-mesh tables are built here, by mesh_kernel_tables).
     meta: the static counts (n_spheres, n_planes, n_tris, n_volumes,
       kmesh_ranges, ksl_ranges, dense_mesh_ids, mat_types_present) and
       "mesh_mat_ids", one material id per mesh.
@@ -587,11 +613,14 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
     def t(x):
         return torch.from_numpy(np.array(x)).to(device)  # a writable copy
 
-    meshes = tuple(
-        MeshBlock(**{k: t(m[k]) for k in _MESH_ARRAYS}, mat_id=int(mid),
-                  leaf_size=int(m["leaf_size"]))
-        for m, mid in zip(arrays["meshes"], mesh_mat_ids)
-    )
+    meshes = []
+    for m, mid in zip(arrays["meshes"], mesh_mat_ids):
+        packed = mesh_kernel_tables(m)
+        depth = packed.pop("bvh_depth")
+        meshes.append(MeshBlock(**{k: t(m[k]) for k in _MESH_ARRAYS},
+                                **{k: t(x) for k, x in packed.items()}, mat_id=int(mid),
+                                leaf_size=int(m["leaf_size"]), bvh_depth=depth))
+    meshes = tuple(meshes)
     fields = {"meshes": meshes, **{k: t(x) for k, x in zip(PACKED, pack_kernel_tables(arrays, meta))}}
     for f in dataclasses.fields(SceneData):
         if f.name in fields:

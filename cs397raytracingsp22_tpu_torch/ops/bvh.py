@@ -9,7 +9,10 @@ scene keeps that order, and the superleaf boxes over 16 consecutive rows
 intersected by the Möller–Trumbore scan (`intersect_tris_scan`), the spec
 of the mega-bounce and scene-intersection kernels; meshes beyond the dense
 budget by the stackless traversal of the threaded BVH (`traverse`), the
-plain version of the big-mesh traversal kernel (ops/kernels/tri_scan_big.py).
+spec that the big-mesh traversal kernel (ops/kernels/tri_scan_big.py) is
+held to. That kernel walks the same tree packed into child-pair rows
+(`pack_bvh`) in ray order, nearer child first, with a stack; its plain
+version is `traverse_packed`.
 """
 
 from __future__ import annotations
@@ -118,16 +121,7 @@ def slab_test(o, d, bmin, bmax, t_min, t_max):
     A NaN lane (0·inf where a direction component is zero on a face) must
     not constrain the interval, as Rust's f32::max/min ignore NaN: lo is
     washed to -inf and hi to +inf with fmax/fmin."""
-    inv_d = 1.0 / d
-    t0 = (bmin - o) * inv_d
-    t1 = (bmax - o) * inv_d
-    neg = inv_d < 0.0
-    lo = torch.where(neg, t1, t0)
-    hi = torch.where(neg, t0, t1)
-    inf = torch.tensor(float("inf"), dtype=lo.dtype, device=lo.device)
-    tmin = torch.maximum(torch.amax(torch.fmax(lo, -inf), dim=-1), vm.as_f32(t_min, lo))
-    tmax = torch.minimum(torch.amin(torch.fmin(hi, inf), dim=-1), vm.as_f32(t_max, lo))
-    return tmax > tmin
+    return _slab_entry(o, 1.0 / d, bmin, bmax, vm.as_f32(t_min, o), vm.as_f32(t_max, o))[0]
 
 
 def traverse(o, d, t_min, t_max, bounds_min, bounds_max, skip, leaf_start, leaf_count,
@@ -193,6 +187,188 @@ def traverse(o, d, t_min, t_max, bounds_min, bounds_max, skip, leaf_start, leaf_
     return best_tri >= 0, best_t, best_tri, best_u, best_v
 
 
+# The child-pair node table of the big-mesh kernel (csrc/bvh_traverse.cu).
+# A row holds two child slots of 8 floats, [lo.xyz, ref, hi.xyz, 0]: ref is
+# an interior child's row (>= 1) or a leaf's ~(first row << 4 | count), and
+# row 0 holds the root in its first slot. Interior rows are numbered
+# breadth first, so the top levels of the tree are the first rows.
+NODE_ROW = 16
+LEAF_COUNT_BITS = 4  # a leaf reference carries at most 15 triangles
+
+
+def pack_bvh(bounds_min, bounds_max, skip, leaf_start, leaf_count) -> tuple[np.ndarray, int]:
+    """(table (NI + 1, NODE_ROW) float32, depth) of a threaded BVH
+    (FlatBVH's numpy arrays) for the ordered walk: the same boxes and rows,
+    each interior node's two children in one 64-byte row, the int32
+    references stored bit for bit. depth is the deepest leaf's count of
+    interior ancestors, which bounds the walk's stack.
+
+    Raises ValueError unless the tree is binary (interior node i has
+    children i + 1 and skip[i + 1]), its leaves hold 1 to 15 triangles and
+    meet the rows in increasing order in preorder, each leaf starting where
+    the one before ended: the ordered walk returns the threaded walk's
+    winner only then (its tie rule stands in for preorder)."""
+    nn = int(skip.shape[0])
+    sk = np.asarray(skip, np.int64)
+    ls = np.asarray(leaf_start, np.int64)
+    lc = np.asarray(leaf_count, np.int64)
+    leaf = ls >= 0
+    leaves = np.flatnonzero(leaf)
+    starts, counts = ls[leaves], lc[leaves]
+    if (counts < 1).any() or (counts >= 1 << LEAF_COUNT_BITS).any():
+        raise ValueError(f"a leaf holds {counts.min()}..{counts.max()} triangles, not 1..15")
+    if starts[0] != 0 or (starts[1:] != starts[:-1] + counts[:-1]).any():
+        raise ValueError("the leaves do not meet the rows in increasing order in preorder")
+    if int(starts[-1] + counts[-1]) >= 1 << (31 - LEAF_COUNT_BITS):
+        raise ValueError(f"{int(starts[-1] + counts[-1])} triangles exceed the leaf references")
+    inner = np.flatnonzero(~leaf)
+    left = inner + 1
+    if sk[0] != nn or (left >= nn).any():
+        raise ValueError("the BVH's skip links do not thread one tree")
+    right = sk[left]
+    if ((right <= left) | (right >= sk[inner]) | (sk[np.minimum(right, nn - 1)] != sk[inner])).any():
+        raise ValueError("the BVH is not binary")
+    depth = np.zeros(nn, np.int64)
+    for i, a, b in zip(inner.tolist(), left.tolist(), right.tolist()):  # parents come first
+        depth[a] = depth[b] = depth[i] + 1
+    bfs = [0] if not leaf[0] else []
+    for i in bfs:  # grows while it is walked
+        bfs.extend(c for c in (i + 1, int(sk[i + 1])) if not leaf[c])
+    row = np.zeros(nn, np.int64)
+    row[bfs] = np.arange(1, len(bfs) + 1)
+    ref = np.where(leaf, ~((ls << LEAF_COUNT_BITS) | lc), row)
+    table = np.zeros((len(bfs) + 1, NODE_ROW), np.float32)
+    refs = table.view(np.int32)
+
+    def put(rows, slot, nodes):
+        c = 8 * slot
+        table[rows, c:c + 3] = bounds_min[nodes]
+        refs[rows, c + 3] = ref[nodes]
+        table[rows, c + 4:c + 7] = bounds_max[nodes]
+
+    put(0, 0, 0)
+    b = np.asarray(bfs, np.int64)
+    put(row[b], 0, b + 1)
+    put(row[b], 1, sk[b + 1])
+    return table, int(depth[leaves].max())
+
+
+def _slab_entry(o, inv_d, lo, hi, t_min, best):
+    """slab_test from the reciprocal direction: (hit, entry), entry the
+    interval's start max(near, t_min)."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    neg = inv_d < 0.0
+    inf = torch.tensor(float("inf"), dtype=o.dtype, device=o.device)
+    near = torch.amax(torch.fmax(torch.where(neg, t1, t0), -inf), dim=-1)
+    far = torch.amin(torch.fmin(torch.where(neg, t0, t1), inf), dim=-1)
+    entry = torch.maximum(near, t_min)
+    return torch.minimum(far, best) > entry, entry
+
+
+def traverse_packed(o, d, t_min, t_max, nodes, tri4, depth: int, stats: dict | None = None):
+    """The ordered walk of the child-pair table (pack_bvh), step for step
+    as the big-mesh kernel walks it: the plain version that the CPU tests
+    and the kernel's bound count.
+
+    o, d: (N, 3) object-space rays; t_min, t_max: scalars or (N,); nodes
+    and depth from pack_bvh; tri4 (NT, 12) rows [a, e1, e2, 0, 0, 0] in
+    BVH order. Returns traverse's (hit, t, tri, u, v).
+
+    An interior root must pass its slab test. At an interior node both
+    children take the slab test against [t_min, best t]; a leaf child is
+    visited whatever its box says (geometry.rs:95-97), its box only orders
+    the two. When both are visited, the nearer entry goes first (child 0
+    on a tie) and the other is pushed with its entry (-inf for a leaf); a
+    pushed interior node is dropped when popped unless best t > its entry,
+    which is the slab test against the best t of that moment. A triangle
+    is accepted at t < best t, or at t = best t from a larger row: among
+    equal t the threaded walk's winner, the last row in preorder.
+
+    stats: when a dict, receives per-ray int64 counts "boxes" (slab tests,
+    the root's included), "nodes" (interior nodes opened), "tris"
+    (triangles tested) and "pushes"."""
+    n = o.shape[0]
+    dev = o.device
+    inv_d = 1.0 / d
+    t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,))
+    best = torch.broadcast_to(vm.as_f32(t_max, o), (n,)).clone()
+    brow = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    bu = torch.zeros((n,), dtype=torch.float32, device=dev)
+    bv = torch.zeros((n,), dtype=torch.float32, device=dev)
+    refs = nodes.view(torch.int32)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    root = int(refs[0, 3])
+    ref = torch.full((n,), root, dtype=torch.int64, device=dev)
+    counts = {k: torch.zeros((n,), dtype=torch.int64, device=dev)
+              for k in ("boxes", "nodes", "tris", "pushes")}
+    if root > 0:
+        hit, _ = _slab_entry(o, inv_d, nodes[0, 0:3], nodes[0, 4:7], t_min, best)
+        ref = torch.where(hit, ref, 0)
+        counts["boxes"] += 1
+    slots = max(depth, 1)
+    stack_ref = torch.zeros((n, slots), dtype=torch.int64, device=dev)
+    stack_lo = torch.zeros((n, slots), dtype=torch.float32, device=dev)
+    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    lanes = torch.arange(n, device=dev)
+    nt = tri4.shape[0]
+    live = ref != 0
+    while bool(live.any()):
+        inner = live & (ref > 0)
+        leaf = live & (ref < 0)
+        nxt = torch.zeros_like(ref)
+        if bool(inner.any()):
+            row = nodes[torch.where(inner, ref, 0)]
+            rr = refs[torch.where(inner, ref, 0)].long()
+            h0, e0 = _slab_entry(o, inv_d, row[:, 0:3], row[:, 4:7], t_min, best)
+            h1, e1 = _slab_entry(o, inv_d, row[:, 8:11], row[:, 12:15], t_min, best)
+            r0, r1 = rr[:, 3], rr[:, 11]
+            go0, go1 = h0 | (r0 < 0), h1 | (r1 < 0)
+            swap = torch.where(h1, e1, inf) < torch.where(h0, e0, inf)
+            both = inner & go0 & go1
+            far = torch.where(swap, r0, r1)
+            far_lo = torch.where(far < 0, -inf, torch.where(swap, e0, e1))
+            if bool((sp[both] >= depth).any()):
+                raise AssertionError(f"the walk outgrew its stack of depth {depth}")
+            stack_ref[lanes[both], sp[both]] = far[both]
+            stack_lo[lanes[both], sp[both]] = far_lo[both]
+            sp = sp + both.long()
+            nxt = torch.where(both, torch.where(swap, r1, r0),
+                              torch.where(go0, r0, torch.where(go1, r1, 0)))
+            nxt = torch.where(inner, nxt, 0)
+            counts["boxes"] += 2 * inner.long()
+            counts["nodes"] += inner.long()
+            counts["pushes"] += both.long()
+        if bool(leaf.any()):
+            code = torch.where(leaf, ~ref, 0)
+            first, cnt = code >> LEAF_COUNT_BITS, code & ((1 << LEAF_COUNT_BITS) - 1)
+            for k in range(int(cnt.max())):
+                row_k = first + k
+                tri = tri4[torch.clamp(row_k, 0, nt - 1)]
+                det_ok, t, u, v = moller_trumbore_edges(o, d, tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+                acc = (leaf & (k < cnt) & det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                       & (t >= t_min) & ((t < best) | ((t == best) & (row_k > brow))))
+                best = torch.where(acc, t, best)
+                brow = torch.where(acc, row_k, brow)
+                bu = torch.where(acc, u, bu)
+                bv = torch.where(acc, v, bv)
+            counts["tris"] += torch.where(leaf, cnt, 0)
+        ref = nxt
+        pop = live & (ref == 0)
+        while bool(pop.any()):
+            live = live & ~(pop & (sp == 0))
+            pop = pop & (sp > 0)
+            sp = sp - pop.long()
+            top = torch.clamp(sp, max=slots - 1)
+            take = pop & (best > stack_lo[lanes, top])
+            ref = torch.where(take, stack_ref[lanes, top], ref)
+            pop = pop & ~take
+    if stats is not None:
+        stats.update(counts)
+    hit = brow >= 0
+    return hit, best, brow.to(torch.int32), bu, bv
+
+
 def moller_trumbore(o, d, va, vb, vc, t_min, t_max, eps=MT_EPSILON):
     """Batched Möller–Trumbore (geometry.rs:331-349 semantics).
 
@@ -200,8 +376,15 @@ def moller_trumbore(o, d, va, vb, vc, t_min, t_max, eps=MT_EPSILON):
     Rejects |det| < eps, u < 0, v < 0, u+v > 1 and t outside
     [t_min, t_max], exactly as the reference.
     """
-    e1 = vb - va
-    e2 = vc - va
+    det_ok, t, u, v = moller_trumbore_edges(o, d, va, vb - va, vc - va, eps)
+    valid = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min) & (t <= t_max)
+    return valid, t, u, v
+
+
+def moller_trumbore_edges(o, d, va, e1, e2, eps=MT_EPSILON):
+    """Möller–Trumbore from a corner and the two edges, in the kernels'
+    operation order. Returns (|det| >= eps, t, u, v) without the
+    barycentric and window tests."""
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
     e2x, e2y, e2z = e2[..., 0], e2[..., 1], e2[..., 2]
@@ -219,8 +402,7 @@ def moller_trumbore(o, d, va, vb, vc, t_min, t_max, eps=MT_EPSILON):
     rz = sx * e1y - sy * e1x
     v = f * (dx * rx + dy * ry + dz * rz)
     t = f * (e2x * rx + e2y * ry + e2z * rz)
-    valid = det_ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= t_min) & (t <= t_max)
-    return valid, t, u, v
+    return det_ok, t, u, v
 
 
 def intersect_tris_scan(o, d, tri_verts, t_min, t_max, chunk: int = 256):

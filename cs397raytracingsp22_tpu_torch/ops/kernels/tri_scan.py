@@ -11,7 +11,8 @@ here ops/intersect.py::intersect_mesh).
 
 Both read the mesh's tri_table rows [a, e1, e2], whose edges the scene
 compile forms before the cast to float32 (models/scene.py::_compile_mesh),
-so they may differ in the last bit from edges taken from tri_verts.
+so they may differ in the last bit from edges taken from tri_verts; the
+kernel reads them padded to 48 bytes (mesh.tri_table4).
 
 `LAUNCHES` counts the kernel's launches (and nothing else).
 """
@@ -34,7 +35,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [
     _P, _P, _P, _P, _I,  # o, d, t_min, t_max, n
-    _P, _I,  # tri_table, nt
+    _P, _I,  # tri_table4, nt
     _P, _P, _P, _P, _P,  # hit, t, tri, u, v
     _P,  # stream
 ]
@@ -137,12 +138,12 @@ def tri_scan_cuda(mesh: MeshBlock, o, d, t_min, t_max):
         raise ValueError(f"tri_scan_cuda takes CPU or CUDA tensors, got {o.device}")
     dev = o.device
     n = o.shape[0]
-    nt = mesh.tri_table.shape[0]
+    nt = mesh.tri_table4.shape[0]
     check_tensor("o", o, torch.float32, (n, 3), dev)
     check_tensor("d", d, torch.float32, (n, 3), dev)
-    check_tensor("mesh.tri_table", mesh.tri_table, torch.float32, (nt, 9), dev)
+    check_tensor("mesh.tri_table4", mesh.tri_table4, torch.float32, (nt, 12), dev)
     t_min, t_max = _per_ray("t_min", t_min, o), _per_ray("t_max", t_max, o)
-    if n >= 2**31 // 3 or nt >= 2**31 // 9:
+    if n >= 2**31 // 3 or nt >= 2**31 // 12:
         raise ValueError(f"{n} rays or {nt} triangles exceed the kernel's int32 indexing")
     hit = torch.empty((n,), dtype=torch.bool, device=dev)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -153,7 +154,7 @@ def tri_scan_cuda(mesh: MeshBlock, o, d, t_min, t_max):
     with torch.cuda.device(dev):
         rc = library().rt_tri_scan_launch(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), n,
-            mesh.tri_table.data_ptr(), nt, hit.data_ptr(), t.data_ptr(), tri.data_ptr(),
+            mesh.tri_table4.data_ptr(), nt, hit.data_ptr(), t.data_ptr(), tri.data_ptr(),
             u.data_ptr(), v.data_ptr(), stream,
         )
     if rc != 0:

@@ -16,9 +16,11 @@ Tolerances:
 - the port's intersect_mesh against the JAX intersect_mesh on the CPU: the
   same hits on at least 99.9% of rays, t within rtol 1e-5 and point and
   normal within rtol 1e-4 / atol 1e-5 where both hit.
-The `gpu`-marked tests hold K5 to tri_scan_plain on the card (K2's
-contract: the same winner on >= 99.9% of rays, t, u, v within rtol 1e-4 /
-atol 1e-5) and skip without one.
+tri_table4, the padded rows K5 reads, equals tri_table bit for bit. The
+`gpu`-marked tests hold K5 to tri_scan_plain on the card (K2's contract:
+the same winner on >= 99.9% of rays, t, u, v within rtol 1e-4 / atol
+1e-5), also on ray and row counts that fill no whole block or tile, and
+skip without one.
 """
 
 import jax
@@ -200,18 +202,46 @@ def _same_winner(out, ref):
             np.testing.assert_allclose(a[hit].numpy(), b[hit].numpy(), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.gpu
-def test_k5_matches_plain_on_card(cuda):
-    table, o, d = random_table(n_tris=2500, n=4096, seed=6)
-    mesh = tscene.MeshBlock(
-        tri_verts=torch.zeros((2500, 3, 3)), tri_table=torch.from_numpy(table),
-        tri_normals=torch.zeros((2500, 3, 3)), transform=torch.eye(4), inv_transform=torch.eye(4),
+def table_mesh(table: np.ndarray) -> tscene.MeshBlock:
+    """A MeshBlock holding only tri_table rows (T, 9) and their padded copy,
+    what K5 reads; its BVH fields are inert."""
+    nt = table.shape[0]
+    return tscene.MeshBlock(
+        tri_verts=torch.zeros((nt, 3, 3)), tri_table=torch.from_numpy(table),
+        tri_normals=torch.zeros((nt, 3, 3)), transform=torch.eye(4), inv_transform=torch.eye(4),
         normal_mat=torch.eye(3), bounds_min=torch.zeros((1, 3)), bounds_max=torch.zeros((1, 3)),
         skip=torch.ones((1,), dtype=torch.int32), leaf_start=torch.zeros((1,), dtype=torch.int32),
-        leaf_count=torch.zeros((1,), dtype=torch.int32), mat_id=0, leaf_size=4,
-    ).to(cuda)
+        leaf_count=torch.zeros((1,), dtype=torch.int32), bvh_nodes=torch.zeros((1, 16)),
+        bvh_tri4=torch.zeros((nt, 12)),
+        tri_table4=torch.from_numpy(np.concatenate([table, np.zeros((nt, 3), np.float32)], 1)),
+        mat_id=0, leaf_size=4, bvh_depth=0,
+    )
+
+
+def test_padded_rows_equal_tri_table(bench_scenes):
+    """K5 reads tri_table4: tri_table's rows and three zeros, bit for bit,
+    for the compiled teapot and for the JAX package's tables."""
+    from test_torch_scene import port_data_from_jax
+
+    jsd, tsd = bench_scenes
+    for mesh in (tsd.meshes[0], port_data_from_jax(jsd).meshes[0]):
+        t4 = mesh.tri_table4
+        assert t4.shape == (6144, 12) and t4.dtype == torch.float32 and t4.is_contiguous()
+        assert torch.equal(t4[:, :9], mesh.tri_table) and not bool(t4[:, 9:].any())
+    assert torch.equal(tsd.meshes[0].tri_table4, port_data_from_jax(jsd).meshes[0].tri_table4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_tris, n, min_hits", [(2500, 4096, 500), (2500, 4097, 500),
+                                                 (129, 4097, 50)],
+                         ids=["2500x4096", "ragged_rays", "ragged_tiles"])
+def test_k5_matches_plain_on_card(cuda, n_tris, n, min_hits):
+    """K5 against tri_scan_plain, also where the rays fill no whole block
+    (rays a thread, threads a block) and the rows no whole tile."""
+    table, o, d = random_table(n_tris=n_tris, n=n, seed=6)
+    mesh = table_mesh(table).to(cuda)
     o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
-    t_max = torch.full((4096,), T_MAX, device=cuda)
+    t_max = torch.full((n,), T_MAX, device=cuda)
     t_max[::16] = 0.0  # dead rays
     before = tri_scan.LAUNCHES
     out = tri_scan.tri_scan_cuda(mesh, o, d, T_MIN, t_max)
@@ -219,7 +249,7 @@ def test_k5_matches_plain_on_card(cuda):
     assert tri_scan.LAUNCHES == before + 1
     ref = tri_scan.tri_scan_plain(mesh.tri_table, o, d, T_MIN, t_max)
     _same_winner(out, ref)
-    assert int(out[0].sum()) > 500 and not bool(out[0][::16].any())
+    assert int(out[0].sum()) > min_hits and not bool(out[0][::16].any())
     assert bool(torch.isinf(out[1][~out[0]]).all())
 
 
