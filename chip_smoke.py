@@ -8,12 +8,13 @@ nonzero):
   2. build: nvcc builds the mega-bounce kernel (K1), the wavefront kernel
      (K4), the scene-intersection kernel (K2), the big-mesh BVH traversal
      kernel (K3) and the dense-mesh scan (K5) from csrc/, one nvcc each, all
-     started together; prints registers and spills (K4's two variants) and
-     K1's resident blocks an SM with the bench scene's scene table and
-     superleaf tree staged, and fails if K1, whose bounce body K4 shares,
-     spills, has more registers than keep K1_BLOCKS blocks of 128 threads
-     on an SM (K1_MAX_REGS), or has fewer resident blocks, or if K3 or K5
-     spills;
+     started together; prints registers and spills (K4's four
+     instantiations: with and without the dense-mesh walk, each with the
+     emission-only last bounce) and K1's and K4's resident blocks an SM with
+     the bench scene's and the Cornell box's tables staged, and fails if K1,
+     whose bounce body K4 shares, spills, has more registers than keep
+     K1_BLOCKS blocks of 128 threads on an SM (K1_MAX_REGS), or has fewer
+     resident blocks, or if any K4 instantiation, K3 or K5 spills;
   3. K1 against its plain torch version on the card, bench scene
      (teapot_6k) at 64² × 4 spp, depth 8;
   4. the goldens (tests/goldens, seed 42) rendered through K1;
@@ -60,27 +61,36 @@ nonzero):
 Then this slice's paths, K4 and K5:
  14. K4 against K1 on the same rays at full width, through
      path_trace_wavefront: the bench frame (16,777,216 rays, depth 8, one
-     K4 launch per bounce) and chunk 0 of the Cornell time-to-64spp render
-     (the rays render_chunk makes, depth 10): rows bit-identical to K1's,
-     K1's contract, segment totals, and the live share entering each
-     bounce; compact=False gives the same bits; a strided sample of each
-     traced alone and held to integrator.path_trace;
+     K4 launch per bounce, compacting inside the launch) and chunk 0 of the
+     Cornell time-to-64spp render (the rays render_chunk makes, depth 10,
+     K4 without the dense-mesh walk): rows bit-identical to K1's on >= 99.6%
+     (K4_MIN_SAME), K1's contract, segment totals, the live share entering
+     each bounce, and the tiles each launch walked (the device counter)
+     against ceil(live / 128); compact=False gives the same bits; a strided
+     sample of each traced alone and held to integrator.path_trace;
+ 14b. the open teapot frame (scenes/teapot.py under the path tracer,
+     512² × 64 spp, depth 6, 16,777,216 rays; most rays escape by bounce
+     2): K4 against K1, segments and the live rays entering each bounce
+     (K1's from its per-ray segment counts), the rays whose path length
+     differs counted (winner flips), and both timed in turns;
  15. K4 timing by CUDA events against K1 on the bench frame, in turns, and
-     one frame step by step (pack, each launch, each partition,
-     un-permute), and the same on the Cornell chunk; K4, K1 and the plain
-     wavefront at 128² × 16 spp (the
-     launch of K1's row in the kernels line);
+     one frame launch by launch (the workspace, each launch), and the same
+     on the Cornell chunk; K4, K1 and the plain wavefront at 128² × 16 spp
+     (the launch of K1's row in the kernels line);
  16. a torch.profiler trace of one K4 frame: busy, idle share, and the
-     shares of K4 and of the partition (the package's span
-     "wavefront_partition");
+     share of K4; no kernel runs inside the package's partition span
+     "wavefront_partition" (the CUDA path has no host partition);
  17. K5 through intersect_mesh on 4,194,304 camera rays (chunk 0 of 4 of
      the bench frame) against the 6k teapot, the sample held to
      tri_scan_plain, and K5 timed against it, with the SM clock sampled;
      the SASS instructions of one test (`cuobjdump -sass` of the row
      loop's body over the tests it holds) and the issue floor they set
      (instructions over 128 lanes an SM a clock), beside the bound;
- 18. the bounds of K4 (K1's counted work plus the bytes of its state) and
-     K5 (rays × triangles × 53 FP32 operations).
+ 18. the bounds of K4 (K1's counted work plus the least state: each ray's
+     64-byte row written and read once for every bounce it enters after the
+     first, the live counts; printed beside the count of the design before
+     compaction moved into the kernel) and K5 (rays × triangles × 53 FP32
+     operations).
 Then this slice's path, the roofline probes P1-P5 (csrc/vpu_peak.cu,
 csrc/dtype_rate.cu, csrc/bw_scan.cu), which no render path runs; their
 path is the port's tools:
@@ -161,6 +171,10 @@ PEAK_FP32, PEAK_BYTES = 67e12, 3.35e12
 # the shading, the RNG or integer work, so they are lower bounds.
 # the launch of K1's (and K4's) row in the kernels line: 128² x 16 spp
 ROW_SIDE, ROW_SPP = 128, 16
+# K4's rows bit-identical to K1's on at least this share (the design before
+# compaction moved into the kernel: 99.86% on the bench frame, 99.66% on the
+# Cornell chunk)
+K4_MIN_SAME = 0.996
 # K1 (and K4, which shares its bounce body csrc/bounce.cuh) runs 128-thread
 # blocks, each staging the scene table and the superleaf tree (24,544 B for
 # the bench scene's teapot). nvcc 12.9 allots it 87 registers with no
@@ -225,7 +239,7 @@ def check_full_launch(bounce, integrator, data, o, d, uids, key, depth, max_dist
     return int(idx.numel()), compare(rad_s, segs_s, ref_rad, ref_segs, depth)
 
 
-def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
+def device_trace(name: str, fn, kernels: dict, spans: tuple = (), absent: tuple = ()) -> dict:
     """Run fn() once under torch.profiler and read the device's kernels
     from the trace: busy time (union of kernel intervals), the span from
     the first kernel's start to the last one's end, the idle share inside
@@ -238,7 +252,9 @@ def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
     (driver._gen_chunk_rays: "raygen"; integrator._bounce_draws:
     "bounce_rng"); the kernels launched inside them (matched to their
     launch calls by the trace's correlation ids) are reported under the
-    label the same way."""
+    label the same way. absent: span labels inside which no kernel may run
+    (each is reported as "<label> spans" and "<label> kernels", both
+    counted)."""
     from torch.profiler import ProfilerActivity, profile
 
     path = os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")
@@ -288,6 +304,14 @@ def device_trace(name: str, fn, kernels: dict, spans: tuple = ()) -> dict:
             raise AssertionError(f"trace {name}: no kernel launched inside {label}")
         out["parts"][label] = ms
     out["shares"] = {k: v / (busy / 1e3) for k, v in out["parts"].items()}
+    for label in absent:
+        marks = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") == "user_annotation" and e.get("name") == label]
+        corr = {c for ts, c in launches if any(a <= ts <= b for a, b in marks)}
+        inside = sum(1 for k in kern if k[3] in corr)
+        if inside:
+            raise AssertionError(f"trace {name}: {inside} kernels ran inside {label}")
+        out[f"{label} spans"], out[f"{label} kernels"] = len(marks), inside
     return out
 
 
@@ -696,49 +720,132 @@ def compare_k1(what: str, rad, segs, k1_rad, k1_segs, depth: int) -> tuple[int, 
     |diff|)."""
     n_bad, err, seg_diff = compare(rad, segs, k1_rad, k1_segs, depth)
     same = int((rad == k1_rad).all(dim=1).sum())
+    if same < K4_MIN_SAME * rad.shape[0]:
+        raise AssertionError(f"{what}: {same}/{rad.shape[0]} rows bit-identical to K1's")
     log("k4-vs-k1", f"{what}: {same}/{rad.shape[0]} rows bit-identical to K1's, "
         f"{rad.shape[0] - n_bad} within rtol {RTOL} atol {ATOL}, max |diff| {err:.3g}; segments "
         f"K4 {int(segs)}, K1 {int(k1_segs)} (diff {seg_diff} <= {depth}x{n_bad})")
     return same, n_bad, err
 
 
-def wavefront_split(wavefront, data, o, d, uids, key, depth: int, max_dist: float) -> dict:
-    """One wavefront frame run step by step as path_trace_wavefront runs it,
-    with CUDA events around each part: ms of packing the state, of each K4
-    launch, of each partition and of the un-permute."""
+def k4_tiles(wavefront, data, st: dict) -> str:
+    """The tiles each K4 launch walked (its device counter) against
+    ceil(live / the scene's tile); raises if they differ."""
+    tiles, live, tile = st["tiles"].tolist(), st["live"].tolist(), wavefront.tile_rays(data)
+    want = [-(-m // tile) for m in live]
+    if tiles != want:
+        raise AssertionError(f"K4 walked tiles {tiles}, not ceil(live / {tile}) {want}")
+    return f"tiles walked a launch {tiles} = ceil(live / {tile})"
+
+
+def k4_steps(wavefront, data, o, d, uids, key, depth: int, max_dist: float,
+             rows_out: bool = False) -> dict:
+    """One K4 frame run launch by launch as path_trace_wavefront runs it,
+    with CUDA events around the set-up (workspace and buffers) and each
+    launch: {"setup": ms, "k4": [ms a launch]}. With rows_out, instead of
+    times, "alive": for each launch but the last, the caller indices of the
+    rays it kept (read from its output rows)."""
     from cs397raytracingsp22_tpu_torch.render import integrator
     from cs397raytracingsp22_tpu_torch.utils import threefry
 
-    # ev[1 + 2b] -> ev[2 + 2b]: launch b; ev[2 + 2b] -> ev[3 + 2b]: partition b
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * depth + 3)]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(depth + 2)]
     key_pair = threefry.key_pair(key)
+    n = o.shape[0]
     torch.cuda.synchronize()
     ev[0].record()
-    rows, alive = wavefront.pack_state(o, d, uids)
+    rad = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+    ws = wavefront.Workspace(n, depth, o.device)
+    bufs = [torch.empty((n, wavefront.ROW), dtype=torch.float32, device=o.device)
+            for _ in range(2)]
     ev[1].record()
+    alive = []
     for b in range(depth):
-        wavefront.step_cuda(data, rows, alive, key_pair, b, b == depth - 1,
-                            integrator.PATH_T_MIN, max_dist)
-        ev[2 + 2 * b].record()
-        if b < depth - 1:
-            rows, alive = wavefront.stable_partition(alive, rows)
-        ev[3 + 2 * b].record()
-    wavefront.radiance_in_caller_order(rows)
-    ev[-1].record()
+        last = b == depth - 1
+        wavefront.step_cuda(data, bufs[(b - 1) % 2] if b else None, None if last else bufs[b % 2],
+                            rad, ws, key_pair, b, last, integrator.PATH_T_MIN, max_dist,
+                            camera=None if b else (o, d, uids))
+        ev[2 + b].record()
+        if rows_out and not last:
+            m = int(ws.live[b + 1])
+            alive.append(bufs[b % 2][:m].view(torch.int32)[:, wavefront.STATE_IDX].long())
     torch.cuda.synchronize()
-    return dict(pack=ev[0].elapsed_time(ev[1]),
-                k4=[ev[1 + 2 * b].elapsed_time(ev[2 + 2 * b]) for b in range(depth)],
-                partition=[ev[2 + 2 * b].elapsed_time(ev[3 + 2 * b]) for b in range(depth - 1)],
-                unpermute=ev[2 * depth + 1].elapsed_time(ev[-1]))
+    if rows_out:
+        return {"alive": alive, "live": ws.live[:depth].tolist()}
+    return dict(setup=ev[0].elapsed_time(ev[1]),
+                k4=[ev[1 + b].elapsed_time(ev[2 + b]) for b in range(depth)])
 
 
-def k4_state_bytes(n: int, live: list) -> int:
-    """The bytes K4's state adds on top of K1's: per launch the 4-byte alive
-    flag of every ray and, for each live ray, its 64-byte row read, 48 bytes
-    written (16 on the emission-only last launch) and its alive written; per
-    partition alive, every row read and written and the new alive."""
+def k4_state_bytes(n: int, live: list) -> tuple[int, int]:
+    """(the least state K4 moves beside K1's bytes, what the design before
+    compaction moved into the kernel moved). The least: each ray entering a
+    bounce after the first has its 64-byte row written once by the bounce
+    before and read once, and the live counts (4 bytes each). The earlier
+    design: per launch the 4-byte alive flag of every ray and, for each live
+    ray, its 64-byte row read, 48 bytes written (16 on the emission-only
+    last launch) and its alive written; per partition alive, every row read
+    and written and the new alive."""
+    least = sum(m * (64 + 64) for m in live[1:]) + 4 * (len(live) + 1)
     launches = sum(n * 4 + m * (64 + 48 + 4) for m in live[:-1]) + n * 4 + live[-1] * (64 + 16 + 4)
-    return launches + (len(live) - 1) * n * (4 + 64 + 64 + 4)
+    return least, launches + (len(live) - 1) * n * (4 + 64 + 64 + 4)
+
+
+def k4_ray_segments(wavefront, data, o, d, uids, key, depth: int, max_dist: float):
+    """Each ray's segments in one K4 frame (1 + the launches that kept it),
+    int64 (N,), and the live counts entering each bounce."""
+    run = k4_steps(wavefront, data, o, d, uids, key, depth, max_dist, rows_out=True)
+    segs = torch.ones((o.shape[0],), dtype=torch.int64, device=o.device)
+    for idx in run["alive"]:
+        segs[idx] += 1
+    return segs, run["live"]
+
+
+def open_frame_phase(dev, wavefront, bounce) -> None:
+    """Phase 14b (see the module docstring): K4 against K1 on the open
+    teapot frame. Its K4 launches do not count toward the kernels line."""
+    from cs397raytracingsp22_tpu_torch import ShadingMode
+    from cs397raytracingsp22_tpu_torch.render import driver
+    from cs397raytracingsp22_tpu_torch.scenes import teapot
+
+    side, spp = 512, 64
+    sc = teapot.build(side, side, spp=spp, shading=ShadingMode.PATH_TRACE)
+    data = sc.compile(device=dev)
+    cam = sc.camera
+    o, d, uids = driver._gen_chunk_rays(
+        cam, torch.arange(side * side, dtype=torch.int32, device=dev), 0, 0, spp, 1)
+    n, depth, max_dist = o.shape[0], cam.path_depth, cam.max_trace_dist
+    st, k1_st = {}, {}
+    rad, segs = wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist, stats=st)
+    k1_rad, k1_segs = bounce.path_trace_cuda(data, o, d, uids, 0, depth, max_dist, stats=k1_st)
+    live = st["live"].tolist()
+    k1_live = [int((k1_st["segs"] > b).sum()) for b in range(depth)]
+    ray_segs, step_live = k4_ray_segments(wavefront, data, o, d, uids, 0, depth, max_dist)
+    flips = int((ray_segs != k1_st["segs"]).sum())
+    if step_live != live:
+        raise AssertionError(f"open teapot frame: live {live}, launch by launch {step_live}")
+    if flips > (1.0 - MIN_FRAC) * n or abs(int(segs) - int(k1_segs)) > depth * flips or any(
+            abs(a - b) > flips for a, b in zip(live, k1_live)):
+        raise AssertionError(f"open teapot frame: K4 segments {int(segs)} live {live}, K1 "
+                             f"{int(k1_segs)} live {k1_live}, {flips} rays' paths differ")
+    if not (bool(torch.isfinite(rad).all()) and torch.equal(rad, k1_rad)):
+        raise AssertionError("open teapot frame: K4's radiance is not K1's")
+    log("k4-open", f"open teapot {side}²x{spp}spp depth {depth} ({n} rays): K4 {int(segs)} "
+        f"segments, K1 {int(k1_segs)}; live share entering each bounce " + ", ".join(
+            f"{m / n:.6f}" for m in live)
+        + f" (K1: {', '.join(f'{m / n:.6f}' for m in k1_live)}); "
+        f"{flips} rays whose path length differs from K1's; {k4_tiles(wavefront, data, st)}; "
+        "radiance equal to K1's (a black image: the scene's only light is Phong's)")
+    run_k1 = lambda: bounce.path_trace_cuda(data, o, d, uids, 0, depth, max_dist)  # noqa: E731
+    run_k4 = lambda: wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist)  # noqa: E731
+    times = {"K1": [], "K4": []}
+    for name, fn in (("K1", run_k1), ("K4", run_k4), ("K4", run_k4), ("K1", run_k1)):
+        times[name].append(cuda_ms(fn, 3))
+    split = k4_steps(wavefront, data, o, d, uids, 0, depth, max_dist)
+    log("timing-k4", f"open teapot frame ({n} rays, depth {depth}), CUDA events, mean of 3 after "
+        f"a warm run, in turns K1, K4, K4, K1: K1 {', '.join(f'{t:.3f}' for t in times['K1'])} "
+        f"ms; K4 path {', '.join(f'{t:.3f}' for t in times['K4'])} ms "
+        f"({sum(times['K4']) / sum(times['K1']):.3f}x K1); launch by launch: set-up "
+        f"{split['setup']:.3f} ms, K4 launches {sum(split['k4']):.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in split["k4"]) + ")")
 
 
 def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: int) -> list:
@@ -771,7 +878,8 @@ def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: i
     compare_k1(f"bench teapot_6k {width}²x{spp}spp depth {depth}, one chunk of {n} rays, "
                f"{k4_launches} K4 launches", rad, segs, k1_rad, k1_segs, depth)
     log("k4-live", "bench teapot_6k: live share entering each bounce " + ", ".join(
-        f"{m / n:.6f}" for m in live6k) + f" ({live6k[-1]} of {n} rays reach bounce {depth - 1})")
+        f"{m / n:.6f}" for m in live6k) + f" ({live6k[-1]} of {n} rays reach bounce {depth - 1}); "
+        + k4_tiles(wavefront, data, st))
     rad_nc, segs_nc = wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist,
                                                      compact=False)
     if not torch.equal(rad_nc, rad) or int(segs_nc) != int(segs):
@@ -810,7 +918,7 @@ def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: i
                w_rad, w_segs, c_rad, c_segs, cam.path_depth)
     live64 = [int(x) for x in st64["live"]]
     log("k4-live", "Cornell: live share entering each bounce " + ", ".join(
-        f"{m / n64:.6f}" for m in live64))
+        f"{m / n64:.6f}" for m in live64) + "; " + k4_tiles(wavefront, d64, st64))
     sub, (rad_s, segs_s) = sample_alone(
         "K4 Cornell", lambda o_, d_, u_: wavefront.path_trace_wavefront(
             d64, o_, d_, u_, key, cam.path_depth, cam.max_trace_dist),
@@ -830,35 +938,33 @@ def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: i
     c_times = {"K1": [], "K4": []}
     for name, fn in (("K1", c_k1), ("K4", c_k4), ("K4", c_k4), ("K1", c_k1)):
         c_times[name].append(cuda_ms(fn, 3))
-    c_split = wavefront_split(wavefront, d64, o64, d64r, u64, key, cam.path_depth,
-                              cam.max_trace_dist)
+    c_split = k4_steps(wavefront, d64, o64, d64r, u64, key, cam.path_depth, cam.max_trace_dist)
     log("timing-k4", f"Cornell chunk ({n64} rays, depth {cam.path_depth}), CUDA events, mean of 3 "
         f"after a warm run, in turns K1, K4, K4, K1: K1 "
         f"{', '.join(f'{t:.3f}' for t in c_times['K1'])} ms; K4 path "
         f"{', '.join(f'{t:.3f}' for t in c_times['K4'])} ms "
-        f"({sum(c_times['K4']) / sum(c_times['K1']):.2f}x K1); step by step: pack "
-        f"{c_split['pack']:.3f} ms, K4 launches {sum(c_split['k4']):.3f} ms, partitions "
-        f"{sum(c_split['partition']):.3f} ms, un-permute {c_split['unpermute']:.3f} ms")
+        f"({sum(c_times['K4']) / sum(c_times['K1']):.3f}x K1); launch by launch: set-up "
+        f"{c_split['setup']:.3f} ms, K4 launches {sum(c_split['k4']):.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in c_split["k4"]) + ")")
     del o64, d64r, u64
+    open_frame_phase(dev, wavefront, bounce)
 
-    # ---- 15. K4 timing against K1 on the same rays, the partition apart ----
+    # ---- 15. K4 timing against K1 on the same rays, launch by launch ----
     run_k1 = lambda: bounce.path_trace_cuda(data, o, d, uids, 0, depth, max_dist)  # noqa: E731
     run_k4 = lambda: wavefront.path_trace_wavefront(data, o, d, uids, 0, depth, max_dist)  # noqa: E731
     turns = [("K1", run_k1), ("K4", run_k4), ("K4", run_k4), ("K1", run_k1)]
     times = {"K1": [], "K4": []}
     for name, fn in turns:
         times[name].append(cuda_ms(fn, 3))
-    split = wavefront_split(wavefront, data, o, d, uids, 0, depth, max_dist)
-    k4_sum, part_sum = sum(split["k4"]), sum(split["partition"])
+    split = k4_steps(wavefront, data, o, d, uids, 0, depth, max_dist)
     k4_frame = sum(times["K4"]) / 2
     log("timing-k4", f"bench teapot_6k frame ({n} rays, depth {depth}), CUDA events, mean of 3 "
         f"after a warm run, in turns K1, K4, K4, K1: K1 {', '.join(f'{t:.3f}' for t in times['K1'])}"
         f" ms; K4 path {', '.join(f'{t:.3f}' for t in times['K4'])} ms "
-        f"({k4_frame / (sum(times['K1']) / 2):.3f}x K1); one frame step by step: pack "
-        f"{split['pack']:.3f} ms, K4 launches {k4_sum:.3f} ms ("
-        + ", ".join(f"{t:.3f}" for t in split["k4"]) + f"), partitions {part_sum:.3f} ms ("
-        + ", ".join(f"{t:.3f}" for t in split["partition"]) + f"), un-permute "
-        f"{split['unpermute']:.3f} ms; partition share {part_sum / k4_frame:.1%} of the K4 path")
+        f"({k4_frame / (sum(times['K1']) / 2):.3f}x K1); one frame launch by launch: set-up "
+        f"{split['setup']:.3f} ms, K4 launches {sum(split['k4']):.3f} ms ("
+        + ", ".join(f"{t:.3f}" for t in split["k4"]) + f"), launches "
+        f"{sum(split['k4']) / k4_frame:.1%} of the K4 path")
 
     # at the shape of K1's row in the kernels line
     sc_s = bench_scene.build(ROW_SIDE, ROW_SIDE, spp=ROW_SPP, path_depth=depth)
@@ -875,25 +981,31 @@ def wavefront_phases(dev, k1b: dict, width: int, height: int, spp: int, depth: i
     log("timing-k4", f"bench teapot_6k {ROW_SIDE}²x{ROW_SPP}spp depth {depth} ({o_s.shape[0]} rays): K4 path "
         f"{k4_ms:.3f} ms, K1 {k1_ms:.3f} ms, plain wavefront {k4_plain_ms:.3f} ms")
 
-    # ---- 18. K4's bound: K1's counted work plus the state's bytes ----
+    # ---- 18. K4's bound: K1's counted work plus the least state ----
     k4b = {}
     for (w_, spp_), nr, live in (((ROW_SIDE, ROW_SPP), o_s.shape[0],
                                   [int(x) for x in st_s["live"]]),
                                  ((width, spp), n, live6k)):
         _, _, w = k1b[(w_, spp_)]
-        extra = k4_state_bytes(nr, live)
+        extra, old = k4_state_bytes(nr, live)
         k4b[(w_, spp_)] = bound(w["bytes"] + extra, w["ops"])
+        old_ms, old_by = bound(w["bytes"] + old, w["ops"])
         log("bound-k4", f"bench teapot_6k {w_}²x{spp_}spp depth {depth} ({nr} rays): K1's "
-            f"{w['ops']:.4g} FP32 ops and {w['bytes']:.4g} B plus {extra:.4g} B of state -> bound "
-            f"{k4b[(w_, spp_)][0]:.4f} ms ({k4b[(w_, spp_)][1]})")
+            f"{w['ops']:.4g} FP32 ops and {w['bytes']:.4g} B plus {extra:.4g} B of state (each "
+            f"row written and read once a bounce, the counts) -> bound "
+            f"{k4b[(w_, spp_)][0]:.4f} ms ({k4b[(w_, spp_)][1]}); the count before compaction "
+            f"moved into the kernel, {old:.4g} B of state (partitions included) -> "
+            f"{old_ms:.4f} ms ({old_by})")
 
     # ---- 16. device trace of one K4 frame ----
     tr = device_trace("wavefront_frame", run_k4, {"K4": "wavefront_kernel"},
-                      spans=("wavefront_partition",))
+                      absent=("wavefront_partition",))
     log("trace", "wavefront_frame: " + f"{tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} "
         f"ms in a {tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
         f"{tr['wall_ms']:.3f} ms wall under the profiler; " + ", ".join(
-            f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items()))
+            f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items())
+        + f"; wavefront_partition: {tr['wavefront_partition spans']} spans, "
+        f"{tr['wavefront_partition kernels']} kernels")
     del o, d, uids, k1_rad, rad
 
     # ---- 17. K5 at 4,194,304 rays, through intersect_mesh ----
@@ -1572,8 +1684,11 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for kid, name, mod, kw in (("K1", "bounce", bounce, {}),
                                ("K1 no mesh", "bounce", bounce, {"dense": False}),
-                               ("K4", "wavefront", wavefront, {"last": False}),
+                               ("K4", "wavefront", wavefront, {}),
                                ("K4 last", "wavefront", wavefront, {"last": True}),
+                               ("K4 no mesh", "wavefront", wavefront, {"dense": False}),
+                               ("K4 no mesh last", "wavefront", wavefront,
+                                {"dense": False, "last": True}),
                                ("K2", "scene_intersect", scene_intersect, {}),
                                ("K3", "bvh_traverse", tri_scan_big, {}),
                                ("K5", "tri_scan", tri_scan, {})):
@@ -1586,16 +1701,18 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if kid in ("K1 no mesh", "K3", "K5") and spill:
+        if (kid.startswith("K4") or kid in ("K1 no mesh", "K3", "K5")) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
                       ("the Cornell box (no dense mesh)", cornell.build(64, 64, spp=4))):
         tables = sc_.compile(device=dev)
         blocks = bounce.resident_blocks(tables)
         staged = bounce.staged_bytes(tables)
+        k4_blocks = [wavefront.resident_blocks(tables, last) for last in (False, True)]
         log("build", f"K1 with {what}'s tables staged ({tables.kscene.numel() * 4} B scene table, "
             f"{tables.ksl_tree.numel() * 4} B superleaf tree, {staged} B a block): {blocks} "
-            f"resident blocks of 128 threads an SM ({blocks * 4} warps)")
+            f"resident blocks of 128 threads an SM ({blocks * 4} warps); K4 (the persistent "
+            f"grid's blocks an SM) {k4_blocks[0]}, its last bounce {k4_blocks[1]}")
         if tables.dense_mesh_ids and blocks < K1_BLOCKS:
             raise AssertionError(f"K1 keeps {blocks} blocks an SM resident, not {K1_BLOCKS}")
     # ---- 19-20. the probes' registers and spills; the SASS check ----

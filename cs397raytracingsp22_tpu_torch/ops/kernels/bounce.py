@@ -110,6 +110,7 @@ def path_trace_cuda(
     path_depth: int,
     max_trace_dist: float,
     t_min: float = integrator.PATH_T_MIN,
+    stats: dict | None = None,
 ):
     """Trace N ray chains with K1.
 
@@ -117,6 +118,8 @@ def path_trace_cuda(
     words. The kernel reads the scene's packed tables (TABLES:
     models/scene.py::pack_kernel_tables).
     Returns (radiance (N, 3) float32, segments int64 scalar tensor).
+    stats: when a dict, receives "segs", the (N,) int64 segments of each
+    chain (and on the CPU the plain version's other counts).
 
     CPU tensors run the plain version (integrator.path_trace). CUDA
     tensors launch the kernel on the current stream; anything the kernel
@@ -124,7 +127,8 @@ def path_trace_cuda(
     """
     global LAUNCHES
     if o.device.type == "cpu":
-        return integrator.path_trace(scene, o, d, uids, rng_key, path_depth, max_trace_dist)
+        return integrator.path_trace(scene, o, d, uids, rng_key, path_depth, max_trace_dist,
+                                     stats=stats)
     if o.device.type != "cuda":
         raise ValueError(f"path_trace_cuda takes CPU or CUDA tensors, got {o.device}")
     if not scene_is_simple(scene):
@@ -159,4 +163,6 @@ def path_trace_cuda(
     if rc != 0:
         raise RuntimeError(f"mega-bounce kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
+    if stats is not None:
+        stats["segs"] = segs.to(torch.int64)
     return rad, segs.sum(dtype=torch.int64)

@@ -113,7 +113,8 @@ def path_trace(
     loses count past 2^24 segments).
 
     stats: when a dict, receives per-chain int64 counts of the dense-mesh
-    tests summed over the bounces (intersect_scene_plain's stats).
+    tests summed over the bounces (intersect_scene_plain's stats) and
+    "segs", the per-chain segment counts.
     """
     n = o.shape[0]
     dev = o.device
@@ -123,6 +124,8 @@ def path_trace(
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     intersect = functools.partial(intersect_scene_plain, stats=stats)
     for depth in range(path_depth):
+        if stats is not None:
+            stats["segs"] = stats.get("segs", 0) + alive.to(torch.int64)
         o, d, thr, rad, alive, segs = _bounce_update(
             scene, o, d, thr, rad, alive, uids, rng_key,
             rnglib.SITE_BOUNCE0 + depth, max_trace_dist, intersect=intersect,

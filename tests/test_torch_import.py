@@ -16,8 +16,8 @@ from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_inte
 from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, wavefront
 from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_peak
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
-from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell
-from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, compare_k1, profile_split
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell, teapot
+from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, compare_k1, compare_k4, profile_split
 from cs397raytracingsp22_tpu_torch.tools import vpu_peak as vpu_peak_tool
 from cs397raytracingsp22_tpu_torch.tools import vpu_peak_shape, vpu_peak_smem, walk_counts
 from cs397raytracingsp22_tpu_torch.utils import subdivide
