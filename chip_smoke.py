@@ -116,22 +116,48 @@ path is the port's tools:
      sections) the same way;
  24. P5 (tools/bench_mxu_scan.py): its parity line and both rates, a
      strided sample traced alone and held to bw_scan_plain, the bounds.
-Phases 6, 7, 9, 10, 14 and 17 first hold a full-size launch (all of the chunk's
+Then the paths of next-event estimation (render/nee.py) and Phong shading,
+whose camera, bounce and shadow rays K2 intersects (and K3 on a big mesh):
+ 25. the NEE frame: the bench scene with teapot_6k at 512² × 64 spp,
+     depth 8, Camera(nee=True), through render_to_image: chunk 0 through
+     the NEE executor (integrator.path_trace_nee) held to the plain one
+     (intersect_scene_plain on the card) on a strided sample; a warm render
+     that writes a checkpoint and a resume from it that traces nothing and
+     gives the same image; two timed renders (seconds, segments with the
+     shadow rays, Mrays/s, peak memory); K2 launched chunks × (2·depth − 1)
+     times an image, or the phase fails; a torch.profiler trace (busy, idle
+     share, the shares of K2 and of the spans raygen, bounce_rng and
+     nee_rng, the NEE draws); the frame's mean HDR radiance of a sample
+     beside the K1 frame's of phase 6, which has the same expectation: it
+     fails beyond 5% apart;
+ 26. NEE on chunk 0 of scenes/bench_teapot_32k.py (4,194,304 rays): K2 on
+     every bounce and shadow bounce (2·depth − 1 launches) and K3 on the
+     same rays (two launches a call), timed, peak memory, and the strided
+     sample held to the plain NEE executor;
+ 27. the Phong frame: config 2 (scenes/teapot.py, Phong shading) at 512² ×
+     64 spp through render_to_image: chunk 0 through phong_trace held to
+     the plain phong_trace on a strided sample; two timed renders (seconds,
+     Mrays/s of camera rays); K2 launched 2 × chunks times an image; an
+     image that is not all zero; a trace with K2's share.
+Phases 6, 7, 9, 10, 14, 17 and 25-27 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
 traced alone must give the same rows, bit for bit, and those rows must
 match the plain version within the kernel's tolerance (K1 and the staged
-path and K4: phase 3's; K2, K3 and K5: the same winner on >= 99.9% of
-rays, t, u, v within rtol 1e-4 / atol 1e-5 where it agrees).
+path and K4, the NEE executor and Phong: phase 3's; K2, K3 and K5: the
+same winner on >= 99.9% of rays, t, u, v within rtol 1e-4 / atol 1e-5
+where it agrees).
 Then one JSON line describing the kernels, the card's nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
 
 The launch counts in the kernels line are those of the main paths only:
-K1's of the timed frames of phase 6 and the renders of phase 7, K2's and
-K3's of the timed renders of phase 10 (K3's counts both its kernels, the
-screen and the walk: two a call), K4's of the two wavefront runs of
-phase 14, K5's of the intersect_mesh call of phase 17, and P1-P5's of their
-tools' runs in phases 22-24. Each counter is reset just before its path
+K1's of the timed frames of phase 6 and the renders of phase 7; K2's the
+sum of the timed renders of phase 10, the timed NEE renders of phase 25,
+the NEE chunk of phase 26 and the timed Phong renders of phase 27; K3's
+of phases 10 and 26 (K3's counts both its kernels, the screen and the
+walk: two a call); K4's of the two wavefront runs of phase 14, K5's of
+the intersect_mesh call of phase 17, and P1-P5's of their tools' runs in
+phases 22-24. Each counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
 plain version fall outside.
 """
@@ -405,6 +431,29 @@ def k1_bound(data, o, d, uids, key, depth, max_dist, stride):
     return ms, by, w
 
 
+def k2_bound_of(sd, ins, idx) -> tuple[float, str, dict]:
+    """(bound ms, bound_by, work) of one K2 launch on ins = (o, d, t_min,
+    t_max, u_vol): operations = every analytic test on every ray and the
+    dense-mesh walk's node and triangle tests that the plain version counts
+    on the rays idx, scaled to the launch; bytes = o, d, t_min, t_max and
+    one u_vol column per volume in (it reads no padding column), 37 B of
+    outputs out, the scene table and any dense-mesh rows and superleaf tree
+    once. The work holds ops, bytes and the dense-mesh triangles a sampled
+    ray ("tris")."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect
+
+    n = ins[0].shape[0]
+    st = {}
+    scene_intersect.scene_intersect_plain(sd, *[x[idx] for x in ins], stats=st)
+    scale = n / idx.numel()
+    ops = n * analytic_ops(sd) + scale * (int(st["nodes"].sum()) * OPS["box"]
+                                          + int(st["tris"].sum()) * OPS["mt"])
+    n_bytes = (n * (12 + 12 + 4 + 4 + 4 * sd.n_volumes + 37) + nbytes(sd.kscene)
+               + (nbytes(sd.kmesh_tri, sd.ksl_tree) if sd.dense_mesh_ids else 0))
+    ms, by = bound(n_bytes, ops)
+    return ms, by, dict(ops=ops, bytes=n_bytes, tris=int(st["tris"].sum()) / idx.numel())
+
+
 def k3_bound(mesh, ins, idx) -> tuple[float, str, dict]:
     """(bound ms, bound_by, work) of one K3 launch on ins = (o, d, t_min,
     t_max), counted on the threaded walk (traverse, the yardstick of the
@@ -622,21 +671,10 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         raise AssertionError(f"K3 spills {spill} B")
 
     # ---- 12. bounds of K2 and K3 at phase 11's inputs ----
-    st2 = {}
-    scene_intersect.scene_intersect_plain(sd32, *[x[idx] for x in k2_in], stats=st2)
-    scale = n32 / idx.numel()
-    k2_ops = n32 * analytic_ops(sd32) + scale * (int(st2["nodes"].sum()) * OPS["box"]
-                                                 + int(st2["tris"].sum()) * OPS["mt"])
-    # what the kernel moves: o, d, t_min, t_max and one u_vol column per
-    # volume in (it reads no padding column), 37 B of outputs out, the
-    # scene table and any dense-mesh rows and superleaf tree once
-    k2_bytes = (n32 * (12 + 12 + 4 + 4 + 4 * sd32.n_volumes + 37) + nbytes(sd32.kscene)
-                + (nbytes(sd32.kmesh_tri, sd32.ksl_tree) if sd32.dense_mesh_ids else 0))
-    k2_bound, k2_by = bound(k2_bytes, k2_ops)
+    k2_bound, k2_by, w2 = k2_bound_of(sd32, k2_in, idx)
     log("bound-k2", f"teapot_32k chunk 0 bounce 0 ({n32} rays): {analytic_ops(sd32)} FP32 ops of "
-        f"analytic tests per ray, {int(st2['tris'].sum()) / idx.numel():.2f} dense-mesh triangles "
-        f"per sampled ray; {k2_ops:.4g} ops, {k2_bytes:.4g} B -> bound {k2_bound:.4f} ms "
-        f"({k2_by})")
+        f"analytic tests per ray, {w2['tris']:.2f} dense-mesh triangles per sampled ray; "
+        f"{w2['ops']:.4g} ops, {w2['bytes']:.4g} B -> bound {k2_bound:.4f} ms ({k2_by})")
     k3b = {}
     for what, ins3, ms in (("chunk 0 bounce 0", k3_in, k3_ms),
                            ("chunk 0 bounce 2", k3_ins[2], k3_b2_ms),
@@ -1660,6 +1698,215 @@ def probe_phases(dev, err: dict, k5_gtests: float) -> list:
                           p5_launches, err["P5"], ts * 1e3, p5_plain, (b_ms, b_by)))
     return rows
 
+def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, depth: int) -> dict:
+    """Phases 25-27 (see the module docstring): next-event estimation on the
+    bench frame and on one chunk of the 32k bench scene, and the Phong frame
+    of config 2. k1_mean: phase 6's mean HDR radiance of a sample. Returns
+    the launches of K2 and K3 on these paths (reset just before each path
+    runs and read just after)."""
+    import dataclasses
+
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, teapot
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    key = threefry.key_words(0)
+    n_px = width * height
+    shadow_depth = 2 * depth - 1  # K2 launches an NEE chunk: every bounce and every shadow bounce
+
+    def with_nee(sc):
+        return dataclasses.replace(sc, camera=dataclasses.replace(sc.camera, nee=True))
+
+    def chunk0(sd, cam):
+        px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
+        nch = (n_px + px - 1) // px
+        ids = torch.arange(px, dtype=torch.int32, device=dev) * nch
+        return nch, driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
+
+    def nee_sample_check(what, sd, cam, o, d, uids, rad_full):
+        """The strided sample traced alone, bit for bit; then against the
+        plain executor (intersect_scene_plain on the card)."""
+        idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
+        run = lambda o_, d_, u_: integrator.path_trace_nee(  # noqa: E731
+            sd, o_, d_, u_, key, cam.path_depth, cam.max_trace_dist)
+        sub, (rad_s, segs_s) = sample_alone(what, run, (rad_full,), (o, d, uids), idx)
+        ref, ref_segs = integrator.path_trace_nee(sd, *sub, key, cam.path_depth,
+                                                  cam.max_trace_dist,
+                                                  intersect=isect.intersect_scene_plain)
+        n_bad, err, seg_diff = compare(rad_s, segs_s, ref, ref_segs, shadow_depth)
+        return (f"every {SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone is bit-identical to "
+                f"the run's rows; {idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol "
+                f"{ATOL} of the plain NEE executor (intersect_scene_plain on the card), max |diff| "
+                f"{err:.3g}, segments {int(segs_s)} vs {int(ref_segs)} (diff {seg_diff} <= "
+                f"{shadow_depth}x{n_bad})")
+
+    # ---- 25. the NEE frame: bench teapot_6k with Camera(nee=True) ----
+    sc = with_nee(bench_scene.build(width, height, spp=spp, path_depth=depth))
+    sd = sc.compile(device=dev)
+    cam = sc.camera
+    if not sd.nee_ok or sd.n_lt_tri != 2:
+        raise AssertionError("the bench scene's two light triangles must make it NEE-able")
+    nch, (o, d, uids) = chunk0(sd, cam)
+    rad_full, _ = integrator.path_trace_nee(sd, o, d, uids, key, depth, cam.max_trace_dist)
+    msg = nee_sample_check("NEE chunk", sd, cam, o, d, uids, rad_full)
+    log("parity-nee", f"bench teapot_6k {width}²x{spp}spp depth {depth} with NEE, chunk 0 of "
+        f"{nch}: one run of the NEE executor on {o.shape[0]} rays (K2 on every bounce and "
+        f"shadow bounce); {msg}")
+    # K2 on this chunk's bounce-0 rays and their shadow rays, as the fused
+    # intersection passes them: timed and bounded
+    calls = []
+
+    def record(*a):
+        if len(calls) < 2:
+            calls.append(a)
+        return isect.intersect_scene(*a)
+
+    integrator.path_trace_nee(sd, o, d, uids, key, depth, cam.max_trace_dist, intersect=record)
+    n = o.shape[0]
+    idx = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+    parts = []
+    for what, (_, o_, d_, t0_, t1_, u_) in zip(("bounce 0", "its shadow rays"), calls):
+        ins = (o_.contiguous(), d_.contiguous(),
+               torch.broadcast_to(torch.as_tensor(t0_, dtype=torch.float32, device=dev), (n,))
+               .contiguous(),
+               torch.broadcast_to(torch.as_tensor(t1_, dtype=torch.float32, device=dev), (n,))
+               .contiguous(),
+               u_[:, :sd.vol_center.shape[0]].contiguous())
+        ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd, *ins), 10)
+        b_ms, b_by, w = k2_bound_of(sd, ins, idx)
+        parts.append(f"{what} {ms:.4f} ms ({int((ins[3] > 0).sum())} rays with a window, "
+                     f"{w['tris']:.2f} dense-mesh triangles a sampled ray; bound {b_ms:.4f} ms, "
+                     f"{b_by}; K2 at {b_ms / ms:.1%} of it)")
+    log("timing-k2-nee", f"bench teapot_6k with NEE, chunk 0 ({n} rays): K2 on " + "; on "
+        .join(parts))
+    del o, d, uids, rad_full, calls
+
+    def render_nee(**kw):
+        return driver.render_to_image(sc, device=dev, seed=0, verbose=False, scene_data=sd, **kw)
+
+    # the warm render writes a checkpoint; a resume from it traces nothing
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "nee_frame.npz")
+    os.makedirs(os.path.dirname(ckpt), exist_ok=True)
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    img_w, st_w = render_nee(checkpoint_path=ckpt)
+    img_r, st_r = render_nee(checkpoint_path=ckpt)
+    if st_r.primary_rays != 0 or not np.array_equal(img_r, img_w):
+        raise AssertionError("the NEE frame resumed from its checkpoint differs or traced rays")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the NEE frame's counts start here
+    runs = [render_nee() for _ in range(2)]
+    k2_nee, k3_nee = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    img, st = runs[0]
+    if k2_nee != len(runs) * st.chunks * shadow_depth or k3_nee:
+        raise AssertionError(f"the NEE frame launched K2 {k2_nee} and K3 {k3_nee} times, not "
+                             f"{len(runs)} x {st.chunks} chunks x {shadow_depth} and 0")
+    if img.max() == 0 or any(not np.array_equal(im, img) for im, _ in runs + [(img_w, 0)]):
+        raise AssertionError("the NEE frames are all zero or differ from each other")
+    ratio = st.mean_radiance / k1_mean
+    if abs(ratio - 1.0) > 0.05:
+        raise AssertionError(f"the NEE frame's mean radiance {st.mean_radiance:.5f} is not the "
+                             f"K1 frame's {k1_mean:.5f} (the same expectation)")
+    walls = [s.wall_seconds for _, s in runs]
+    wall = sum(walls) / len(walls)
+    log("nee-frame", f"bench teapot_6k {width}²x{spp}spp depth {depth} with NEE via "
+        f"render_to_image: {st.chunks} chunks of {st.primary_rays // st.chunks} rays, "
+        f"{st.path_segments} segments (shadow rays included); {wall:.4f} s per image (mean of "
+        f"{len(walls)}: {', '.join(f'{w:.4f}' for w in walls)}) = "
+        f"{st.path_segments / wall / 1e6:.2f} Mrays/s of segments; K2 launches per image "
+        f"{k2_nee // len(runs)} = {st.chunks} x {shadow_depth}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; mean HDR radiance of a sample {st.mean_radiance:.5f}, the K1 "
+        f"frame's (phase 6, no NEE, the same expectation) {k1_mean:.5f} (ratio {ratio:.4f}); "
+        f"image u8 max {img.max()}, mean {img.mean():.2f}; a resume from the warm render's "
+        f"checkpoint traced 0 rays and gave the same image")
+    tr = device_trace("nee_frame", render_nee, {"K2": "scene_intersect_kernel"},
+                      spans=("raygen", "bounce_rng", "nee_rng"))
+    log("trace", "nee_frame: " + f"{tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} ms in "
+        f"a {tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
+        f"{tr['wall_ms']:.3f} ms wall under the profiler; " + ", ".join(
+            f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items()))
+    del sc, sd
+
+    # ---- 26. NEE on one chunk of the 32k bench scene: K2 and K3 on shadow rays ----
+    sc32 = with_nee(bench_teapot_32k.build(width, height, spp=spp, path_depth=depth))
+    sd32 = sc32.compile(device=dev)
+    cam32 = sc32.camera
+    nch32, (o, d, uids) = chunk0(sd32, cam32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the 32k NEE chunk's counts start here
+    t0 = time.perf_counter()
+    rad_full, segs = integrator.path_trace_nee(sd32, o, d, uids, key, depth, cam32.max_trace_dist)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k2_32, k3_32 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    if k2_32 != shadow_depth or k3_32 != 2 * shadow_depth:  # K3: its screen and its walk a call
+        raise AssertionError(f"the 32k NEE chunk launched K2 {k2_32} and K3 {k3_32} times, not "
+                             f"{shadow_depth} and {2 * shadow_depth}")
+    msg = nee_sample_check("NEE 32k chunk", sd32, cam32, o, d, uids, rad_full)
+    log("nee-32k", f"teapot_32k {width}²x{spp}spp depth {depth} with NEE, chunk 0 of {nch32}: "
+        f"{o.shape[0]} rays, {int(segs)} segments (shadow rays included) in {secs:.4f} s "
+        f"(= {int(segs) / secs / 1e6:.2f} Mrays/s); K2 launches {k2_32}, K3 launches {k3_32} "
+        f"({k3_32 // 2} calls: the screen and the walk); peak device memory "
+        f"{peak / 2**30:.2f} GiB; {msg}")
+    del o, d, uids, rad_full, sc32, sd32
+
+    # ---- 27. the Phong frame: config 2, scenes/teapot.py ----
+    scp = teapot.build(width, height, spp=spp)
+    sdp = scp.compile(device=dev)
+    camp = scp.camera
+    nchp, (o, d, uids) = chunk0(sdp, camp)
+    shade = lambda o_, d_, u_, **kw: (integrator.phong_trace(  # noqa: E731
+        sdp, o_, d_, u_, key, camp.eyepoint, camp.max_trace_dist, **kw),)
+    col_full = shade(o, d, uids)
+    idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
+    sub, (col_s,) = sample_alone("Phong chunk", shade, col_full, (o, d, uids), idx)
+    (ref,) = shade(*sub, intersect=isect.intersect_scene_plain)
+    n_s = idx.numel()
+    n_bad, err, _ = compare(col_s, n_s, ref, n_s, 1)
+    log("parity-phong", f"teapot (config 2, Phong) {width}²x{spp}spp, chunk 0 of {nchp}: one "
+        f"phong_trace of {o.shape[0]} rays (K2 on the camera and the shadow rays); every "
+        f"{SAMPLE_STRIDE}th ray ({n_s}) traced alone is bit-identical to the run's rows; "
+        f"{n_s - n_bad}/{n_s} within rtol {RTOL} atol {ATOL} of the plain phong_trace "
+        f"(intersect_scene_plain on the card), max |diff| {err:.3g}")
+    del o, d, uids, col_full
+
+    def render_phong():
+        return driver.render_to_image(scp, device=dev, seed=0, verbose=False, scene_data=sdp)
+
+    render_phong()  # warm
+    torch.cuda.synchronize()
+    scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the Phong frame's counts start here
+    runs = [render_phong() for _ in range(2)]
+    k2_ph, k3_ph = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    img, st = runs[0]
+    if k2_ph != len(runs) * 2 * st.chunks or k3_ph:
+        raise AssertionError(f"the Phong frame launched K2 {k2_ph} and K3 {k3_ph} times, not "
+                             f"{len(runs)} x 2 x {st.chunks} chunks and 0")
+    if img.max() == 0 or any(not np.array_equal(im, img) for im, _ in runs):
+        raise AssertionError("the Phong frames are all zero or differ from each other")
+    walls = [s.wall_seconds for _, s in runs]
+    wall = sum(walls) / len(walls)
+    log("phong-frame", f"teapot (config 2, Phong) {width}²x{spp}spp via render_to_image: "
+        f"{st.chunks} chunks of {st.primary_rays // st.chunks} camera rays; {wall:.4f} s per "
+        f"image (mean of {len(walls)}: {', '.join(f'{w:.4f}' for w in walls)}) = "
+        f"{st.primary_rays / wall / 1e6:.2f} Mrays/s of camera rays (each with its shadow ray); "
+        f"K2 launches per image {k2_ph // len(runs)} = 2 x {st.chunks}; image u8 max {img.max()}, "
+        f"mean {img.mean():.2f}, {float((img.max(axis=2) > 0).mean()):.1%} of pixels lit")
+    tr = device_trace("phong_frame", render_phong, {"K2": "scene_intersect_kernel"},
+                      spans=("raygen", "bounce_rng"))
+    log("trace", "phong_frame: " + f"{tr['kernels']} kernels, device busy {tr['busy_ms']:.3f} ms "
+        f"in a {tr['span_ms']:.3f} ms first-to-last span (idle share {tr['idle']:.2%}), "
+        f"{tr['wall_ms']:.3f} ms wall under the profiler; " + ", ".join(
+            f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)" for k, v in tr["parts"].items()))
+    return {"k2": k2_nee + k2_32 + k2_ph, "k3": k3_nee + k3_32 + k3_ph}
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -1807,6 +2054,7 @@ def main() -> int:
     launches = bounce.LAUNCHES  # the main path's count, read just after
     segments = int(seg)
     full = torch.cat(sums)
+    k1_mean = full.mean().item() / spp  # mean HDR radiance of a sample, for phase 25
     img = driver._finalize_image([full], n_px, spp, scene.camera.gamma).cpu().numpy()
     if not bool(torch.isfinite(full).all()) or img.max() == 0:
         raise AssertionError("full-size image is not finite or all zero")
@@ -1873,6 +2121,10 @@ def main() -> int:
     k45, k5_gtests = wavefront_phases(dev, k1b, width, height, spp, depth)
     # ---- 21-24: the roofline probes P1-P5 ----
     probes = probe_phases(dev, probe_parity(dev), k5_gtests)
+    # ---- 25-27: NEE and Phong, whose rays K2 (and K3) intersect ----
+    nee_phong = nee_phong_phases(dev, k1_mean, width, height, spp, depth)
+    staged[0]["launches"] += nee_phong["k2"]
+    staged[1]["launches"] += nee_phong["k3"]
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",

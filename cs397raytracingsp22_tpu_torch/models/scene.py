@@ -9,6 +9,11 @@ of meshes beyond that budget. The tables are built with the same numpy
 arithmetic, so they equal the JAX package's bit for bit. Textured meshes
 and general-boundary volumes raise NotImplementedError: they are a later
 slice of the staged path.
+
+The compile also extracts the lights that next-event estimation samples
+(render/nee.py): every emissive standalone Triangle and Sphere, with
+`nee_ok` False where another object emits (a plane, a mesh, a medium) or
+nothing does. Phong shading's point light and ambient term ride along.
 """
 
 from __future__ import annotations
@@ -128,6 +133,13 @@ class SceneData:
     kmesh_nrm: torch.Tensor
     ksl_tree: torch.Tensor
     kmesh_tri4: torch.Tensor
+    # Phong's point light and ambient term, (3,) each
+    point_light_pos: torch.Tensor
+    ambient: torch.Tensor
+    # NEE's sampled lights: triangles (L, 13) = [a, e1, e2, emission,
+    # area], spheres (L, 7) = [c, r, emission]
+    lt_tri: torch.Tensor
+    lt_sph: torch.Tensor
     n_spheres: int
     n_planes: int
     n_tris: int
@@ -136,6 +148,10 @@ class SceneData:
     ksl_ranges: Tuple[Tuple[int, int], ...]  # per dense mesh: (first superleaf, count)
     dense_mesh_ids: Tuple[int, ...]
     mat_types_present: Tuple[int, ...] = (0, 1, 2, 3, 4)
+    n_lt_tri: int = 0
+    n_lt_sph: int = 0
+    # every emitter is a sampled light (and there is one): NEE is exact
+    nee_ok: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -279,34 +295,63 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
     tri_a, tri_b, tri_c, tri_mat = [], [], [], []
     vol_center, vol_radius, vol_density, vol_mat = [], [], [], []
     mesh_blocks: list[dict] = []
+    # NEE's lights: emissive standalone Triangles and Spheres; any other
+    # emitter voids nee_ok, because NEE suppresses the emission a scatter
+    # ray finds next, which is right only where the sampled lights are
+    # every emitter of the scene
+    lt_tri_rows: list = []
+    lt_sph_rows: list = []
+    nee_ok = True
+
+    def emission_of(m):
+        e = np.asarray(getattr(m, "emission", (0.0, 0.0, 0.0)), np.float32)
+        return e if float(np.abs(e).max()) > 0.0 else None
 
     for obj in scene.objects:
         if isinstance(obj, Sphere):
             sph_center.append(obj.center)
             sph_radius.append(obj.radius)
             sph_mat.append(mats.add(obj.material))
+            e = emission_of(obj.material)
+            if e is not None:
+                lt_sph_rows.append(tuple(obj.center) + (obj.radius,) + tuple(e))
         elif isinstance(obj, Plane):
             pln_point.append(obj.point)
             pln_normal.append(obj.normal)
             pln_mat.append(mats.add(obj.material))
+            if emission_of(obj.material) is not None:
+                nee_ok = False  # an infinite plane has no area to sample
         elif isinstance(obj, Triangle):
             tri_a.append(obj.a)
             tri_b.append(obj.b)
             tri_c.append(obj.c)
             tri_mat.append(mats.add(obj.material))
+            e = emission_of(obj.material)
+            if e is not None:
+                a = np.asarray(obj.a, np.float32)
+                e1 = np.asarray(obj.b, np.float32) - a
+                e2 = np.asarray(obj.c, np.float32) - a
+                area = 0.5 * float(np.linalg.norm(np.cross(e1, e2)))
+                lt_tri_rows.append(tuple(a) + tuple(e1) + tuple(e2) + tuple(e) + (area,))
         elif isinstance(obj, ConvexVolume):
             if not isinstance(obj.boundary, Sphere):
                 raise NotImplementedError(
                     f"ConvexVolume with a {type(obj.boundary).__name__} boundary: {_STAGED}"
                 )
+            if emission_of(obj.phase_function) is not None:
+                nee_ok = False  # an emissive medium is not a sampled light
             vol_center.append(obj.boundary.center)
             vol_radius.append(obj.boundary.radius)
             vol_density.append(obj.density)
             vol_mat.append(mats.add(obj.phase_function))
         elif isinstance(obj, StaticMesh):
             mesh_blocks.append(_compile_mesh(obj, mats, leaf_size))
+            if emission_of(obj.material) is not None:
+                nee_ok = False  # mesh faces are not sampled lights
         else:
             raise TypeError(f"unsupported scene object {type(obj)!r}")
+    if not (lt_tri_rows or lt_sph_rows):
+        nee_ok = False  # nothing to sample
 
     table = mats.build()
 
@@ -433,6 +478,10 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
         kvol_m=i32(vol_mat),
         kmesh_tri=kmesh_tri,
         ksl_bounds=ksl_bounds,
+        point_light_pos=np.asarray(scene.point_light_pos, np.float32),
+        ambient=np.asarray(scene.ambient, np.float32),
+        lt_tri=np_pad(lt_tri_rows, 13, 0.0),
+        lt_sph=np_pad(lt_sph_rows, 7, 0.0),
     )
     meta = dict(
         n_spheres=len(sph_center),
@@ -444,6 +493,9 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
         dense_mesh_ids=dense_ids,
         mat_types_present=tuple(sorted({int(x) for x in table["mat_type"]})),
         mesh_mat_ids=[m["mat_id"] for m in mesh_blocks],
+        n_lt_tri=len(lt_tri_rows),
+        n_lt_sph=len(lt_sph_rows),
+        nee_ok=nee_ok,
     )
     return scene_data_from_numpy(arrays, meta, device=device)
 
@@ -451,7 +503,8 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
 _MESH_ARRAYS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_transform",
                 "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
 _STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
-           "ksl_ranges", "dense_mesh_ids", "mat_types_present")
+           "ksl_ranges", "dense_mesh_ids", "mat_types_present", "n_lt_tri", "n_lt_sph",
+           "nee_ok")
 # built by pack_kernel_tables, never passed in
 PACKED = ("kscene", "kmesh_nrm", "ksl_tree", "kmesh_tri4")
 
@@ -599,9 +652,9 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
       kernel's packed tables (PACKED, built here), plus "meshes": a list of
       dicts holding the MeshBlock array fields and "leaf_size" (the
       kernels' per-mesh tables are built here, by mesh_kernel_tables).
-    meta: the static counts (n_spheres, n_planes, n_tris, n_volumes,
-      kmesh_ranges, ksl_ranges, dense_mesh_ids, mat_types_present) and
-      "mesh_mat_ids", one material id per mesh.
+    meta: the static fields (_STATIC: the counts, ranges and mesh ids,
+      mat_types_present, the light counts n_lt_tri and n_lt_sph, nee_ok)
+      and "mesh_mat_ids", one material id per mesh.
     `device` is the card unless the caller asks for the CPU.
     Raises NotImplementedError for what `compile_scene` also refuses.
     """
@@ -627,9 +680,12 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
             continue
         if f.name in _STATIC:
             v = meta[f.name]
-            fields[f.name] = tuple(tuple(x) for x in v) if f.name.endswith("ranges") else (
-                tuple(v) if isinstance(v, (tuple, list)) else int(v)
-            )
+            if f.name == "nee_ok":
+                fields[f.name] = bool(v)
+            elif f.name.endswith("ranges"):
+                fields[f.name] = tuple(tuple(x) for x in v)
+            else:
+                fields[f.name] = tuple(v) if isinstance(v, (tuple, list)) else int(v)
         else:
             fields[f.name] = t(arrays[f.name])
     return SceneData(**fields)

@@ -6,19 +6,32 @@ per pixel); the per-chunk sums accumulate on the device in float32 and
 only the tonemapped u8 image comes back to the host. The RNG follows ray
 content, so chunk sizes never change the image.
 
-`render_chunk` sends a scene that passes `scene_is_simple` to the
-mega-bounce kernel (ops/kernels/bounce.py; its plain version for CPU
-tensors) and any other scene — today, one with a mesh beyond the dense
-budget — to `render_chunk_staged`: the staged executor
-(integrator.path_trace_shrink), whose intersection runs the
-scene-intersection and big-mesh kernels for CUDA tensors and their plain
+`render_chunk` routes as the JAX package's render_chunk_core does:
+- Phong shading to integrator.phong_trace (two scene intersections a ray:
+  the camera ray and the shadow ray);
+- `Camera(nee=True)` to integrator.path_trace_nee, the next-event
+  estimator (render/nee.py), on any scene: the mega-bounce kernel computes
+  the reference estimator only;
+- a scene that passes `scene_is_simple` to the mega-bounce kernel
+  (ops/kernels/bounce.py; its plain version for CPU tensors);
+- any other scene (today, one with a mesh beyond the dense budget) to
+  the staged executor (integrator.path_trace_shrink).
+Phong, NEE and the staged executor intersect through
+ops/intersect.py::intersect_scene: the scene-intersection kernel K2 (and
+the big-mesh kernel K3 per big mesh) for CUDA tensors, their plain
 versions for CPU tensors. Nothing on the GPU path falls back to the CPU
 or to a plain version.
+
+`render_to_image(checkpoint_path=...)` persists the HDR accumulator after
+every spp chunk and resumes from it: a `.npz` with `accum` (the per-pixel
+sum in raster order, float64), `spp_done`, `seed` and `nee`, the layout
+the JAX package writes and reads, so either package resumes the other's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -53,6 +66,10 @@ class RenderStats:
     path_segments: int = 0
     chunks: int = 0
     device: str = ""
+    # mean HDR radiance of one sample over the image and channels (the
+    # accumulator's mean over spp; a resumed render's includes the
+    # checkpoint's samples)
+    mean_radiance: float = 0.0
 
     @property
     def primary_mrays_per_sec(self) -> float:
@@ -102,52 +119,38 @@ def render_chunk(
     """Render one pixel chunk at `spp` samples on pixel_ids' device.
 
     Returns (radiance_sum (n_px, 3) — per-pixel SUM over this chunk's
-    samples — and the int64 count of traced segments)."""
+    samples — and the int64 count of traced segments: under Phong the
+    camera rays, under NEE the path segments and the shadow rays shot).
+    Every executor gives the image the others would on the same estimator:
+    the RNG counters are shared."""
+    n_px = pixel_ids.shape[0]
+    o, d, uids = _gen_chunk_rays(camera, pixel_ids, rng_key, sample_offset, spp, n_chains)
+    args = (scene, o, d, uids, rng_key, camera.path_depth, camera.max_trace_dist)
     if camera.shading_mode is ShadingMode.PHONG:
-        raise NotImplementedError("Phong shading is not ported yet")
-    if camera.nee:
-        raise NotImplementedError("next-event estimation (--nee) is not ported yet")
-    if not bounce_kernel.scene_is_simple(scene):
-        return render_chunk_staged(scene, camera, pixel_ids, rng_key, sample_offset, spp,
-                                   n_chains)
-    n_px = pixel_ids.shape[0]
-    o, d, uids = _gen_chunk_rays(camera, pixel_ids, rng_key, sample_offset, spp, n_chains)
-    # K1 for CUDA tensors, its plain version for CPU tensors
-    radiance, segments = bounce_kernel.path_trace_cuda(
-        scene, o, d, uids, rng_key, camera.path_depth, camera.max_trace_dist
-    )
+        radiance = integrator.phong_trace(scene, o, d, uids, rng_key, camera.eyepoint,
+                                          camera.max_trace_dist)
+        segments = torch.tensor(o.shape[0], dtype=torch.int64, device=o.device)
+    elif camera.nee:
+        radiance, segments = integrator.path_trace_nee(*args)
+    elif bounce_kernel.scene_is_simple(scene):
+        # K1 for CUDA tensors, its plain version for CPU tensors
+        radiance, segments = bounce_kernel.path_trace_cuda(*args)
+    else:
+        radiance, segments = integrator.path_trace_shrink(*args)
     radiance = radiance.reshape(n_px, spp * n_chains, 3)
     return radiance.sum(dim=1) / n_chains, segments
 
 
-def render_chunk_staged(
-    scene: SceneData,
-    camera: Camera,
-    pixel_ids: torch.Tensor,
-    rng_key,
-    sample_offset: int,
-    spp: int,
-    n_chains: int = 1,
-):
-    """render_chunk through the staged executor (integrator.path_trace_shrink).
-    The same image as render_chunk's kernel path would give: the estimator
-    and RNG counters are shared."""
-    n_px = pixel_ids.shape[0]
-    o, d, uids = _gen_chunk_rays(camera, pixel_ids, rng_key, sample_offset, spp, n_chains)
-    radiance, segments = integrator.path_trace_shrink(
-        scene, o, d, uids, rng_key, camera.path_depth, camera.max_trace_dist,
-    )
-    radiance = radiance.reshape(n_px, spp * n_chains, 3)
-    return radiance.sum(dim=1) / n_chains, segments
+def _raster(pieces, n_px: int) -> torch.Tensor:
+    """The interleaved chunks' sums in raster order: pieces[ci][j] holds
+    pixel ci + nc·j, so de-interleaving is a transpose, and the padding of
+    a ragged tail lands past n_px, where the slice drops it."""
+    return torch.stack(pieces).transpose(0, 1).reshape(-1, 3)[:n_px]
 
 
 def _finalize_image(pieces, n_px: int, spp: int, gamma: float) -> torch.Tensor:
-    """Mean, channel bleed, gamma, u8. pieces[ci][j] holds pixel ci + nc·j
-    (interleaved chunks): de-interleaving is a transpose, and the padding
-    of a ragged tail lands past n_px, where the slice drops it."""
-    full = torch.stack(pieces).transpose(0, 1).reshape(-1, 3)
-    mean = full[:n_px] / float(max(spp, 1))
-    return tonemap_ops.tonemap(mean, gamma)
+    """Mean, channel bleed, gamma, u8, of the interleaved chunks' sums."""
+    return tonemap_ops.tonemap(_raster(pieces, n_px) / float(max(spp, 1)), gamma)
 
 
 def chunk_pixels(scene_data: SceneData, camera: Camera, spp_chunk: int) -> int:
@@ -175,6 +178,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _load_checkpoint(path: str, n_px: int, seed: int):
+    """(accum (n_px, 3) float32 raster order, spp_done, nee flag or -1 when
+    the file has none), or None when there is no file or it belongs to
+    another image size or seed (driver.py:727-747 in the JAX package)."""
+    if not os.path.exists(path):
+        return None
+    with np.load(path, allow_pickle=False) as ckpt:
+        if ckpt["accum"].shape != (n_px, 3) or int(ckpt["seed"]) != seed:
+            return None
+        nee = int(ckpt["nee"]) if "nee" in ckpt.files else -1
+        return ckpt["accum"].astype(np.float32), int(ckpt["spp_done"]), nee
+
+
 def render_to_image(
     scene: Scene,
     *,
@@ -182,6 +198,7 @@ def render_to_image(
     seed: int = 0,
     pixel_chunk: Optional[int] = None,
     spp_chunk: Optional[int] = None,
+    checkpoint_path: Optional[str] = None,
     verbose: bool = True,
     scene_data: Optional[SceneData] = None,
 ) -> tuple[np.ndarray, RenderStats]:
@@ -189,9 +206,16 @@ def render_to_image(
     CPU): ((H, W, 3) uint8 image, RenderStats).
 
     The Scene::render_to_image of tracing.rs:221-263: AA rays per pixel,
-    path trace, average, channel bleed + gamma + quantize. Pixel chunks
-    are interleaved (chunk ci holds pixels ci, ci+nc, …), so every chunk
-    is a statistical clone of the image.
+    shade by the camera's mode, average, channel bleed + gamma + quantize.
+    Pixel chunks are interleaved (chunk ci holds pixels ci, ci+nc, …), so
+    every chunk is a statistical clone of the image.
+
+    checkpoint_path: the HDR accumulator is written there (".npz" added
+    when missing) after every spp chunk, and a render that finds the file
+    (same image size and seed) resumes at its spp_done. A checkpoint that
+    holds more samples than `spp`, or was rendered with the other `nee`
+    setting, raises ValueError. Raises ValueError for NEE under Phong and
+    for NEE on a scene whose emitters are not all sampled lights.
     """
     device = resolve_device(device)
     cam = scene.camera
@@ -208,20 +232,60 @@ def render_to_image(
         scene_data = scene.compile(device=device)
     elif scene_data.device != device:
         scene_data = scene_data.to(device)
+    if cam.nee and cam.shading_mode is ShadingMode.PHONG:
+        raise ValueError(
+            "Camera(nee=True) has no effect under ShadingMode.PHONG: NEE is a path-tracer "
+            "estimator and Phong shading ignores it. Drop --nee or shade by path tracing."
+        )
+    if cam.nee and not scene_data.nee_ok:
+        raise ValueError(
+            "Camera(nee=True) needs every emissive object to be a standalone Triangle or "
+            "Sphere (the sampled lights, render/nee.py); this scene has emissive planes, "
+            "meshes or media, or no light, so NEE's emission suppression would be wrong. "
+            "Render without --nee."
+        )
     spp_chunk = min(spp_chunk or spp, spp)
     if pixel_chunk is None:
         pixel_chunk = chunk_pixels(scene_data, cam, spp_chunk)
     n_chunks = (n_px_total + pixel_chunk - 1) // pixel_chunk
     rng_key = threefry.key_words(seed)
 
+    if checkpoint_path and not checkpoint_path.endswith(".npz"):
+        checkpoint_path += ".npz"
+    pieces: list = [None] * n_chunks
+    spp_done = 0
+    resume = _load_checkpoint(checkpoint_path, n_px_total, seed) if checkpoint_path else None
+    if resume is not None:
+        accum, spp_done, ckpt_nee = resume
+        # an accumulator of more samples than asked for cannot be finished
+        # (the mean would divide by too few), and two estimators must not
+        # share one
+        if spp_done > spp:
+            raise ValueError(
+                f"checkpoint holds {spp_done} spp but this render asks for {spp}: raise "
+                "--spp (a resume can only extend a render) or delete the checkpoint"
+            )
+        if ckpt_nee >= 0 and bool(ckpt_nee) != bool(cam.nee):
+            raise ValueError(
+                f"checkpoint was rendered with nee={bool(ckpt_nee)} but this render has "
+                f"nee={bool(cam.nee)}: the accumulator would blend two estimators; match "
+                "--nee or delete the checkpoint"
+            )
+        # raster order re-split into this render's interleaved chunks
+        padded = np.zeros((n_chunks * pixel_chunk, 3), np.float32)
+        padded[:n_px_total] = accum
+        parts = torch.from_numpy(padded).to(device).reshape(pixel_chunk, n_chunks, 3)
+        pieces = [parts[:, ci].contiguous() for ci in range(n_chunks)]
+        if verbose:
+            print(f"[render] resuming from {checkpoint_path} at {spp_done} spp")
+
     stats = RenderStats(width=w, height=h, spp=spp, path_depth=cam.path_depth,
                         device=str(device))
     _sync(device)
     t_start = time.perf_counter()
-    pieces: list = [None] * n_chunks
     seg_total = torch.zeros((), dtype=torch.int64, device=device)
     lane = torch.arange(pixel_chunk, dtype=torch.int32, device=device) * n_chunks
-    for s0 in range(0, spp, spp_chunk):
+    for s0 in range(spp_done, spp, spp_chunk):
         s_count = min(spp_chunk, spp - s0)
         for ci in range(n_chunks):
             ids = lane + ci
@@ -231,10 +295,20 @@ def render_to_image(
             pieces[ci] = rad if pieces[ci] is None else pieces[ci] + rad
             seg_total = seg_total + segs
             stats.chunks += 1
+        if checkpoint_path:
+            np.savez(
+                checkpoint_path,
+                accum=_raster(pieces, n_px_total).cpu().numpy().astype(np.float64),
+                spp_done=np.int64(s0 + s_count),
+                seed=np.int64(seed),
+                # the estimator: a resume with the other --nee would blend two
+                nee=np.int64(int(bool(cam.nee))),
+            )
+    stats.mean_radiance = float(_raster(pieces, n_px_total).mean()) / max(spp, 1)
     img = _finalize_image(pieces, n_px_total, spp, cam.gamma).cpu().numpy().reshape(h, w, 3)
     stats.path_segments = int(seg_total)
     stats.wall_seconds = time.perf_counter() - t_start
-    stats.primary_rays = n_px_total * spp * n_chains
+    stats.primary_rays = n_px_total * (spp - spp_done) * n_chains
     if verbose:
         print("[render] " + stats.summary())
     return img, stats
@@ -245,3 +319,10 @@ def save_png(img: np.ndarray, path: str) -> None:
     from PIL import Image
 
     Image.fromarray(img, mode="RGB").save(path, format="PNG")
+
+
+def render_and_save(scene: Scene, path: str = "render.png", **kw):
+    """render_to_image, then save_png; returns what render_to_image does."""
+    img, stats = render_to_image(scene, **kw)
+    save_png(img, path)
+    return img, stats

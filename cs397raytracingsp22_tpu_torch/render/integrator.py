@@ -16,6 +16,12 @@ runs it for CPU tensors, and the kernel is held against it on the card.
 kernel's gates): the same estimator one bounce at a time through
 `intersect_scene` (the scene-intersection and big-mesh kernels for CUDA
 tensors), compacting the wavefront to its live rays after every bounce.
+
+`path_trace_nee` is the next-event estimator (render/nee.py) under the
+same compaction, and `phong_trace` the reference's Phong shading with hard
+shadows. Both take `intersect=`: `intersect_scene` (K2, and K3 per big
+mesh, for CUDA tensors; the plain version for CPU tensors) by default,
+`intersect_scene_plain` for their plain versions on the card.
 """
 
 from __future__ import annotations
@@ -28,13 +34,16 @@ from torch.profiler import record_function
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bsdf
 from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene, intersect_scene_plain
+from cs397raytracingsp22_tpu_torch.render import nee
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import sampling
 from cs397raytracingsp22_tpu_torch.utils import threefry
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
-# path-trace ray epsilon (tracing.rs:305)
+# path-trace ray epsilon (tracing.rs:305) and Phong's shadow-ray offset
+# (tracing.rs:289)
 PATH_T_MIN = 0.001
+PHONG_SHADOW_OFFSET = 0.01
 
 
 def background_color(d: torch.Tensor) -> torch.Tensor:
@@ -134,6 +143,17 @@ def path_trace(
     return rad, segments
 
 
+def _compact(alive: torch.Tensor, pos: torch.Tensor, rad: torch.Tensor, out: torch.Tensor):
+    """Retire the dead rows: a stable partition puts them last, their
+    radiance goes to `out` at their caller positions, and the live rows'
+    indices come back (with the live count, the one host read)."""
+    perm = torch.argsort((~alive).to(torch.int32), stable=True)
+    n_alive = int(alive.sum())  # the one host sync of the bounce
+    gone = perm[n_alive:]
+    out[pos[gone]] = rad[gone]
+    return perm[:n_alive], n_alive
+
+
 def has_big_mesh(scene: SceneData) -> bool:
     return len(scene.dense_mesh_ids) < len(scene.meshes)
 
@@ -176,14 +196,169 @@ def path_trace_shrink(
         segments = segments + segs
         if depth == path_depth - 1:
             break
-        perm = torch.argsort((~alive).to(torch.int32), stable=True)
-        n_alive = int(alive.sum())  # the one host sync of the bounce
-        gone = perm[n_alive:]
-        out[pos[gone]] = rad[gone]
-        keep = perm[:n_alive]
+        keep, n_alive = _compact(alive, pos, rad, out)
         o, d, thr, rad, uids, pos = o[keep], d[keep], thr[keep], rad[keep], uids[keep], pos[keep]
         alive = alive[keep]
         if n_alive == 0:
             break
     out[pos] = rad
     return out, segments
+
+
+def _nee_bounce_update(scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, depth,
+                       max_trace_dist, do_nee: bool, intersect=intersect_scene):
+    """One bounce of the NEE estimator (integrator.py:420 in the JAX
+    package). It draws at the sites of _bounce_update, so turning NEE on
+    changes the estimator, not the sampled paths; it suppresses the
+    emission found after a vertex that did NEE (prev_nee), and adds the
+    direct-light term where do_nee (False on the last bounce, which keeps
+    the expectation of the depth-limited plain estimator).
+
+    Returns (o, d, thr, rad, live_hit, prev_nee, segments this bounce:
+    the live rays and the shadow rays shot)."""
+    ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, rnglib.SITE_BOUNCE0 + depth)
+    t_max = torch.where(
+        alive,
+        torch.full_like(alive, max_trace_dist, dtype=torch.float32),
+        torch.zeros_like(alive, dtype=torch.float32),
+    )
+    hit = intersect(scene, o, d, PATH_T_MIN, t_max, u_vol)
+
+    live_hit = alive & hit.valid
+    live_miss = alive & ~hit.valid
+    rad = rad + torch.where(live_miss[:, None], thr * background_color(d), 0.0)
+    # emission, less what the previous vertex's NEE sample already covered
+    emit_ok = live_hit & ~prev_nee
+    rad = rad + torch.where(emit_ok[:, None], thr * hit.emission, 0.0)
+
+    new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
+    has_normal = vm.magnitude2(hit.normal) > 0.0
+    dot_term = torch.where(
+        has_normal,
+        torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
+        torch.ones_like(inv_pdf),
+    )
+    factor = (dot_term * inv_pdf)[:, None] * att
+
+    segs = alive.sum()
+    if do_nee:
+        contrib, did, shadow = nee.direct_light(
+            scene, hit, d, u_choice, live_hit, uids, rng_key, depth, PATH_T_MIN,
+            max_trace_dist, intersect=intersect,
+        )
+        rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
+        prev_nee = live_hit & did
+        segs = segs + shadow
+    else:
+        prev_nee = torch.zeros_like(alive)
+
+    thr = torch.where(live_hit[:, None], thr * factor, thr)
+    o = torch.where(live_hit[:, None], hit.point, o)
+    d = torch.where(live_hit[:, None], new_dir, d)
+    return o, d, thr, rad, live_hit, prev_nee, segs
+
+
+def path_trace_nee(
+    scene: SceneData,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    uids: torch.Tensor,
+    rng_key,
+    path_depth: int,
+    max_trace_dist: float,
+    intersect=intersect_scene,
+):
+    """path_trace with next-event estimation (render/nee.py), one bounce at
+    a time with the compaction of path_trace_shrink: after each bounce the
+    dead rows retire and the next bounce, its shadow rays included, runs
+    on the live rows only. The suppression flag prev_nee rides the
+    compaction with the rest of the state. One executor for what the JAX
+    package splits in two (path_trace_nee and path_trace_nee_shrink);
+    both give these rays' radiance, in whatever order the rays come.
+
+    intersect: intersect_scene (K2 and K3 for CUDA tensors, the plain
+    version for CPU tensors) or intersect_scene_plain (the plain version
+    on any device).
+
+    Returns (radiance (N, 3) float32 in the caller's order, segments: an
+    int64 scalar tensor counting the path segments and the shadow rays
+    shot)."""
+    if not scene.nee_ok:
+        raise ValueError("NEE needs every emissive object to be a standalone Triangle or "
+                         "Sphere, and at least one (the scene compiled with nee_ok False)")
+    n = o.shape[0]
+    dev = o.device
+    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    prev_nee = torch.zeros((n,), dtype=torch.bool, device=dev)
+    pos = torch.arange(n, device=dev)
+    out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    segments = torch.zeros((), dtype=torch.int64, device=dev)
+    for depth in range(path_depth):
+        o, d, thr, rad, alive, prev_nee, segs = _nee_bounce_update(
+            scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, depth, max_trace_dist,
+            do_nee=depth < path_depth - 1, intersect=intersect,
+        )
+        segments = segments + segs
+        if depth == path_depth - 1:
+            break
+        keep, n_alive = _compact(alive, pos, rad, out)
+        o, d, thr, rad, uids, pos = o[keep], d[keep], thr[keep], rad[keep], uids[keep], pos[keep]
+        alive, prev_nee = alive[keep], prev_nee[keep]
+        if n_alive == 0:
+            break
+    out[pos] = rad
+    return out, segments
+
+
+def phong_trace(
+    scene: SceneData,
+    o: torch.Tensor,
+    d: torch.Tensor,
+    uids: torch.Tensor,
+    rng_key,
+    eyepoint,
+    max_trace_dist: float,
+    intersect=intersect_scene,
+):
+    """Phong shading with hard shadows (tracing.rs:277-297; integrator.py:894
+    in the JAX package): ambient + diffuse·albedo + 0.4·(r·v)^40 under one
+    point light, the shadow ray offset 0.01·n along the normal, 0.3 where
+    it is occluded. The "albedo" is the attenuation the material's scatter
+    returns, stochastic for a parameterized material, as the reference's
+    call (tracing.rs:294). Both rays start at t_min 0; the shadow ray's
+    volume draws come from site SITE_BOUNCE0 + 1.
+
+    The occlusion test keeps the reference's rebinding (it shadows `hit` in
+    the inner match): the shadow hit counts as far enough when its t² is
+    beyond |light − shadow hit point|², the light's distance from the
+    shadow hit, not from the shaded point. Camera rays that miss get an
+    empty shadow window; their colour is the background either way.
+
+    Returns (N, 3) float32 colours."""
+    ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, rnglib.SITE_BOUNCE0)
+    hit = intersect(scene, o, d, 0.0, max_trace_dist, u_vol)
+
+    light = scene.point_light_pos
+    to_light = vm.normalize(light - hit.point, eps=1e-30)
+    to_camera = vm.normalize(vm.as_f32(eyepoint, o) - hit.point, eps=1e-30)
+    n = hit.normal
+    reflected = -to_light + 2.0 * vm.vdot(to_light, n) * n
+    diffuse_w = torch.clamp(vm.dot(n, to_light), 0.0, 1.0)
+    specular_w = torch.clamp(vm.dot(to_camera, reflected), 0.0, 1.0) ** 40.0
+
+    valid = hit.valid
+    shadow_o = torch.where(valid[:, None], hit.point + PHONG_SHADOW_OFFSET * n, 0.0)
+    shadow_d = torch.where(valid[:, None], to_light, 1.0)
+    light_dist = torch.where(valid, vm.magnitude(light - hit.point), 0.0)
+    _, _, u_vol2 = _bounce_draws(scene, rng_key, uids, rnglib.SITE_BOUNCE0 + 1)
+    sh = intersect(scene, shadow_o, shadow_d, 0.0, light_dist, u_vol2.contiguous())
+    far_enough = sh.t * sh.t > vm.magnitude2(light - sh.point)
+    shadow_w = torch.where(~sh.valid | far_enough, 1.0, 0.3)
+
+    _, att, _ = bsdf.scatter(hit, d, ball, u_choice)
+    color = shadow_w[:, None] * (
+        scene.ambient + diffuse_w[:, None] * att + specular_w[:, None] * 0.4
+    )
+    return torch.where(valid[:, None], color, background_color(d))

@@ -3,13 +3,14 @@ teapot with smooth vertex normals on one floor plane under a black sky,
 depth 6.
 
 The mesh is pinned to the in-repo assets/teapot_6k.obj (6,144 triangles, a
-dense mesh) unless obj_path names another; a missing mesh raises. The
-scene's only light is Phong's point light, so under the path tracer
-(shading=ShadingMode.PATH_TRACE) its image is black. It is an open scene:
-camera rays above the floor escape at bounce 0 and most floor bounces at
-bounce 1, so the path tracer's live rays fall fast, which is what the
-wavefront kernel's compaction is for. Phong shading is not ported yet: the
-driver raises on ShadingMode.PHONG.
+dense mesh) unless obj_path names another; a missing mesh raises. It
+shades by Phong with hard shadows (the default: integrator.phong_trace,
+two scene intersections a camera ray). The scene's only light is Phong's
+point light, so under the path tracer (shading=ShadingMode.PATH_TRACE)
+its image is black, and NEE is refused (no emitter: nee_ok is False). It
+is an open scene: camera rays above the floor escape at bounce 0 and most
+floor bounces at bounce 1, so the path tracer's live rays fall fast, which
+is what the wavefront kernel's compaction is for.
 """
 
 from __future__ import annotations

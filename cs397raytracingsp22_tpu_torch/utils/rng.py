@@ -10,3 +10,9 @@ generator is utils/threefry.py.
 # Draw-site tags. Bounces use SITE_BOUNCE0 + bounce index.
 SITE_CAMERA = 0
 SITE_BOUNCE0 = 1
+# Next-event estimation draws (render/nee.py): SITE_NEE0 + bounce index, a
+# range apart from the bounce sites, so turning NEE on leaves the path's
+# own draws as they were. A site lives in the counter's upper 16 bits
+# (threefry._site_base: site << 16), so the base stays below 2^16: a
+# larger one would wrap onto the camera site and share its draws.
+SITE_NEE0 = 1 << 12

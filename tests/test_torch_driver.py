@@ -81,19 +81,46 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 def test_cli_renders_and_refuses_unported_flags(tmp_path):
+    """The CLI renders; --nee and --checkpoint render (NEE's shadow rays
+    add segments beyond the path's, a checkpoint is written); --mesh and
+    --distributed (multi-device) are refused."""
     import json
 
     from cs397raytracingsp22_tpu_torch import cli
 
     scene = os.path.join(os.path.dirname(cornell.__file__), "cornell.py")
     out, stats = tmp_path / "o.png", tmp_path / "s.json"
-    assert cli.main([scene, "-o", str(out), "--width", "8", "--height", "8", "--spp", "2",
-                     "--depth", "2", "--device", "cpu", "--stats-json", str(stats), "-q"]) == 0
+    base = [scene, "-o", str(out), "--width", "8", "--height", "8", "--spp", "2", "--depth", "2",
+            "--device", "cpu", "--stats-json", str(stats), "-q"]
+    assert cli.main(base) == 0
     assert np.asarray(Image.open(out)).shape == (8, 8, 3)
-    assert json.loads(stats.read_text())["path_depth"] == 2
-    for flag in (["--nee"], ["--checkpoint", "c.npz"], ["--mesh", "2x1"], ["--distributed"]):
-        with pytest.raises(SystemExit, match="not ported"):
-            cli.main([scene, "--device", "cpu", *flag])
+    plain = json.loads(stats.read_text())
+    assert plain["path_depth"] == 2
+    for flag in (["--nee"], ["--checkpoint", str(tmp_path / "c.npz")], ["--mesh", "2x1"],
+                 ["--distributed"]):
+        if flag[0] in ("--mesh", "--distributed"):
+            with pytest.raises(SystemExit, match="not ported"):
+                cli.main([scene, "--device", "cpu", *flag])
+            continue
+        assert cli.main(base + flag) == 0
+        assert np.asarray(Image.open(out)).shape == (8, 8, 3)
+        got = json.loads(stats.read_text())
+        if flag[0] == "--nee":
+            assert got["path_segments"] > plain["path_segments"]
+        else:
+            assert (tmp_path / "c.npz").exists()
+            assert got["path_segments"] == plain["path_segments"]
+
+
+def test_cli_renders_a_phong_scene(tmp_path):
+    """The teapot scene shades by Phong (its camera's mode): a lit image."""
+    from cs397raytracingsp22_tpu_torch import cli
+    from cs397raytracingsp22_tpu_torch.scenes import teapot
+
+    out = tmp_path / "t.png"
+    assert cli.main([teapot.__file__, "-o", str(out), "--width", "8", "--height", "8", "--spp",
+                     "1", "--device", "cpu", "-q"]) == 0
+    assert np.asarray(Image.open(out)).mean() > 5
 
 
 def test_cli_renders_the_32k_bench_scene_by_default(tmp_path):

@@ -27,7 +27,8 @@ TEAPOT_6K = tbench.TEAPOT_6K
 _MESH_FIELDS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_transform",
                 "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
 _STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
-           "ksl_ranges", "dense_mesh_ids", "mat_types_present")
+           "ksl_ranges", "dense_mesh_ids", "mat_types_present", "n_lt_tri", "n_lt_sph",
+           "nee_ok")
 
 
 def jax_bench_scene(width=16, height=16, spp=4, path_depth=4, obj_path=TEAPOT_6K):
@@ -63,7 +64,10 @@ def port_data_from_jax(jsd) -> SceneData:
 
 
 def assert_scene_data_equal(port: SceneData, jsd) -> None:
-    """Every table the JAX package also compiles (it has no PACKED ones)."""
+    """Every table the JAX package also compiles (it has no PACKED ones),
+    the light tables lt_tri and lt_sph, Phong's point_light_pos and
+    ambient, and the static fields, n_lt_tri, n_lt_sph and nee_ok among
+    them."""
     for f in dataclasses.fields(SceneData):
         name = f.name
         if name in PACKED:
@@ -78,6 +82,7 @@ def assert_scene_data_equal(port: SceneData, jsd) -> None:
                     np.testing.assert_array_equal(a, b, err_msg=f"mesh.{k}")
         elif name in _STATIC:
             assert getattr(port, name) == getattr(jsd, name), name
+            assert type(getattr(port, name)) is type(getattr(jsd, name)), name
         else:
             a, b = getattr(port, name).numpy(), np.asarray(getattr(jsd, name))
             assert a.dtype == b.dtype, name
