@@ -139,7 +139,37 @@ whose camera, bounce and shadow rays K2 intersects (and K3 on a big mesh):
      the plain phong_trace on a strided sample; two timed renders (seconds,
      Mrays/s of camera rays); K2 launched 2 × chunks times an image; an
      image that is not all zero; a trace with K2's share.
-Phases 6, 7, 9, 10, 14, 17 and 25-27 first hold a full-size launch (all of the chunk's
+Then textures, normal maps and general-boundary volumes on the staged
+path, whose rays K2 and K3 intersect and whose mesh winners one merged
+resolve shades (ops/intersect.py::resolve_mesh_winners, span
+"mesh_resolve"):
+ 28. textured-parity: the kitchen sink (scenes/kitchen_sink.py) at 256² ×
+     16 spp, depth 5, one chunk of 1,048,576 rays: K2 and K3 (its
+     8,450-triangle textured, normal-mapped grid) against their plain
+     versions on the bounce-0 and bounce-2 rays, and the texels that the
+     resolve samples for their mesh winners (every 16th ray) against the
+     plain versions' (identical on >= 99.9% of mesh hits); K2 and K3 timed
+     on the bounce-0 rays by CUDA events, beside their bounds; the staged
+     executor against integrator.path_trace on the strided sample; one
+     render through render_to_image (K2 and K3 launches, time);
+ 29. config4-frame: BASELINE config 4 (scenes/textured_spheres.py) on its
+     stand-in assets at 512² × 32 spp, depth 8, lens radius 0.08 through
+     render_to_image: chunk 0's staged run held to the plain path on the
+     strided sample, and K2 timed on its bounce-0 rays beside its bound;
+     every texture slot bound to its map's pixels; a warm
+     render, then two timed (seconds per image, Mrays/s of segments, peak
+     memory, K2 launches; K3 none); a trace (kernels an image, idle share,
+     the shares of K2 and the spans bounce_rng, raygen and mesh_resolve);
+     non-finite tangents and pixels counted; a lit image (mean HDR
+     radiance > 0); then one NEE chunk of the scene (2·depth − 1 K2
+     launches) held to the plain NEE executor;
+ 30. gvol: a scene with a 12-triangle cube boundary and a cube scaled by
+     0.002 (the per-volume epsilon 1e-4·|det M|), built in code, at 256² ×
+     16 spp: intersect_scene_fused (K2, then the general volumes' merge)
+     against intersect_scene_plain on one chunk's camera rays (the same
+     valid flag and material type on >= 99.9%), and the staged executor
+     against the plain path on the strided sample.
+Phases 6, 7, 9, 10, 14, 17, 25-27 and 28-30 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
 traced alone must give the same rows, bit for bit, and those rows must
@@ -153,9 +183,10 @@ and the last line {"ok": true, "device": {...}}.
 The launch counts in the kernels line are those of the main paths only:
 K1's of the timed frames of phase 6 and the renders of phase 7; K2's the
 sum of the timed renders of phase 10, the timed NEE renders of phase 25,
-the NEE chunk of phase 26 and the timed Phong renders of phase 27; K3's
-of phases 10 and 26 (K3's counts both its kernels, the screen and the
-walk: two a call); K4's of the two wavefront runs of phase 14, K5's of
+the NEE chunk of phase 26, the timed Phong renders of phase 27, the
+kitchen-sink render of phase 28, the timed config-4 renders and its NEE
+chunk of phase 29; K3's of phases 10, 26 and 28 (K3's counts both its
+kernels, the screen and the walk: two a call); K4's of the two wavefront runs of phase 14, K5's of
 the intersect_mesh call of phase 17, and P1-P5's of their tools' runs in
 phases 22-24. Each counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
@@ -1907,6 +1938,316 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     return {"k2": k2_nee + k2_32 + k2_ph, "k3": k3_nee + k3_32 + k3_ph}
 
 
+def texel_parity(what: str, sd, out, ref) -> str:
+    """The texel that the merged resolve samples (slot 0, the albedo) for
+    each mesh winner of a kernel's rows `out` against the plain version's
+    `ref` on the same rays; each a tuple (code, idx, u, v). Fails unless at
+    least HIT_MIN_SAME of the rays that a mesh wins in either get the same
+    texel."""
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+
+    tk, tp = (isect.mesh_texels(sd, *rows) for rows in (out, ref))
+    mesh = (tk >= 0) | (tp >= 0)
+    n, n_same = int(mesh.sum()), int((mesh & (tk == tp)).sum())
+    if n == 0 or n_same < HIT_MIN_SAME * n:
+        raise AssertionError(f"{what}: {n - n_same} of {n} mesh hits sample another texel")
+    return f"texels {n_same}/{n} of the mesh hits identical"
+
+
+def textured_phases(dev) -> dict:
+    """Phases 28-30 (see the module docstring): the kitchen sink, the
+    stand-in config 4 and general-boundary volumes on the staged path.
+    Returns the launches of K2 and K3 on these paths (reset just before
+    each path runs and read just after)."""
+    import dataclasses
+
+    from cs397raytracingsp22_tpu_torch import ConvexVolume, Isotropic, Lambertian, Plane, Scene
+    from cs397raytracingsp22_tpu_torch import Sphere
+    from cs397raytracingsp22_tpu_torch.models import materials
+    from cs397raytracingsp22_tpu_torch.models import transform as tf
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import kitchen_sink, textured_spheres
+    from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+    from cs397raytracingsp22_tpu_torch.utils.texture import load_image
+
+    key = threefry.key_words(0)
+
+    def chunk0(sd, cam):
+        px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
+        n_px = cam.screen_width * cam.screen_height
+        nch = (n_px + px - 1) // px
+        ids = torch.arange(px, dtype=torch.int32, device=dev) * nch
+        return nch, driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
+
+    def staged_check(what, sd, cam, o, d, uids):
+        """One staged run of the chunk; its strided sample alone, bit for
+        bit, then against the plain path (integrator.path_trace)."""
+        depth, max_dist = cam.path_depth, cam.max_trace_dist
+        rad_full, segs = integrator.path_trace_shrink(sd, o, d, uids, key, depth, max_dist)
+        idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
+        stage = lambda o_, d_, u_: integrator.path_trace_shrink(  # noqa: E731
+            sd, o_, d_, u_, key, depth, max_dist)
+        sub, (rad_s, segs_s) = sample_alone(what, stage, (rad_full,), (o, d, uids), idx)
+        ref_rad, ref_segs = integrator.path_trace(sd, *sub, key, depth, max_dist)
+        n_bad, err, _ = compare(rad_s, segs_s, ref_rad, ref_segs, depth)
+        return (f"one staged run of {o.shape[0]} rays ({int(segs)} segments); every "
+                f"{SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone is bit-identical to the run's "
+                f"rows; {idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol {ATOL} of the "
+                f"plain path (integrator.path_trace on the card), max |diff| {err:.3g}, segments "
+                f"{int(segs_s)} vs {int(ref_segs)}")
+
+    # ---- 28. the kitchen sink: K2 and K3 on textured meshes, the staged path ----
+    sck = kitchen_sink.build(256, 256, spp=16, path_depth=5)
+    sdk = sck.compile(device=dev)
+    camk = sck.camera
+    nchk, (o, d, uids) = chunk0(sdk, camk)
+    if nchk != 1:
+        raise AssertionError(f"the kitchen sink at 256² x 16 spp takes {nchk} chunks, not 1")
+    big = [i for i in range(len(sdk.meshes)) if i not in sdk.dense_mesh_ids]
+    if len(big) != 1 or len(sdk.dense_mesh_ids) != 1 or sdk.n_gvols != 1:
+        raise AssertionError("the kitchen sink must hold a dense mesh, a big mesh and a gvol")
+    mesh_big = sdk.meshes[big[0]]
+    code_big = isect.CODE_MESH0 + len(sdk.dense_mesh_ids)
+    n = o.shape[0]
+    idx = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+    texel_rows = torch.arange(0, n, 16, device=dev)
+    k2f = lambda *a: scene_intersect.scene_intersect_cuda(sdk, *a)  # noqa: E731
+    k3f = lambda *a: tri_scan_big.tri_scan_big_cuda(mesh_big, *a)  # noqa: E731
+    k2_err = k3_err = 0.0
+    thr, rad = torch.ones_like(o), torch.zeros_like(o)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    for b in range(3):
+        site = rnglib.SITE_BOUNCE0 + b
+        if b in (0, 2):
+            u_vol = integrator._bounce_draws(sdk, key, uids, site)[2]
+            t_min = torch.full((n,), integrator.PATH_T_MIN, device=dev)
+            t_max = torch.where(alive, torch.full_like(t_min, camk.max_trace_dist),
+                                torch.zeros_like(t_min))
+            ins = (o.contiguous(), d.contiguous(), t_min, t_max,
+                   u_vol[:, :sdk.vol_center.shape[0]].contiguous())
+            full = k2f(*ins)
+            sub, alone = sample_alone(f"K2 kitchen sink bounce {b}", k2f, full, ins, idx)
+            ref = scene_intersect.scene_intersect_plain(sdk, *sub)
+            m2, s2, e2, err = compare_hits(
+                f"K2 kitchen sink bounce {b}", alone[1:4], ref[1:4],
+                *(dict(t=x[0], u=x[4], v=x[5], normal=x[6]) for x in (alone, ref)))
+            k2_err = max(k2_err, err)
+            ref_t = scene_intersect.scene_intersect_plain(sdk, *[x[texel_rows] for x in ins])
+            tx2 = texel_parity(f"K2 kitchen sink bounce {b}", sdk,
+                               tuple(full[i][texel_rows] for i in (1, 2, 4, 5)),
+                               tuple(ref_t[i] for i in (1, 2, 4, 5)))
+            o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh_big, o, d))
+            ins3 = (o_obj, d_obj, t_min, torch.minimum(t_max, full[0]))
+            full3 = k3f(*ins3)
+            sub3, alone3 = sample_alone(f"K3 kitchen sink bounce {b}", k3f, full3, ins3, idx)
+            ref3 = tri_scan_big.tri_scan_big_plain(mesh_big, *sub3)
+            m3, s3, e3, err = compare_hits(
+                f"K3 kitchen sink bounce {b}", (alone3[0], alone3[2]), (ref3[0], ref3[2]),
+                *(dict(t=x[1], u=x[3], v=x[4]) for x in (alone3, ref3)))
+            k3_err = max(k3_err, err)
+            ref3_t = tri_scan_big.tri_scan_big_plain(mesh_big, *[x[texel_rows] for x in ins3])
+
+            def big_rows(hit, tri, u, v):
+                return (torch.where(hit, code_big, -1).to(torch.int32), tri, u, v)
+
+            tx3 = texel_parity(f"K3 kitchen sink bounce {b}", sdk,
+                               big_rows(*[full3[i][texel_rows] for i in (0, 2, 3, 4)]),
+                               big_rows(*[ref3_t[i] for i in (0, 2, 3, 4)]))
+            if b == 0:
+                k2_in, k3_in = ins, ins3
+            log("textured-parity", f"kitchen sink 256²x16spp depth 5 bounce {b} ({n} rays, "
+                f"{int(alive.sum())} live): K2 and K3 ({mesh_big.tri_verts.shape[0]} triangles, "
+                f"textured and normal-mapped) each one launch; every {SAMPLE_STRIDE}th ray alone "
+                f"is bit-identical to the launch's rows; K2 {s2}/{m2} same (code, idx, mat) as "
+                f"the plain version, {e2}/{m2} bit-identical, max |diff| {k2_err:.3g}; K3 "
+                f"{s3}/{m3} same (hit, tri) as traverse, {e3}/{m3} bit-identical; on every 16th ray "
+                f"({texel_rows.numel()}): K2 {tx2}, K3 {tx3}; sampled winners: "
+                f"{int((alone[1] == 4).sum())} dense mesh, {int(alone3[0].sum())} big mesh")
+        if b < 2:
+            o, d, thr, rad, alive, _ = integrator._bounce_update(
+                sdk, o, d, thr, rad, alive, uids, key, site, camk.max_trace_dist,
+                intersect=isect.intersect_scene)
+    k2_ms, k3_ms = cuda_ms(lambda: k2f(*k2_in), 10), cuda_ms(lambda: k3f(*k3_in), 10)
+    k2_b, k2_by, w2 = k2_bound_of(sdk, k2_in, idx)
+    k3_b, k3_by, _ = k3_bound(mesh_big, k3_in, idx)
+    log("timing-textured", f"kitchen sink bounce 0 ({n} rays): K2 {k2_ms:.4f} ms ({w2['tris']:.2f} "
+        f"dense-mesh triangles a sampled ray; bound {k2_b:.4f} ms, {k2_by}; K2 at "
+        f"{k2_b / k2_ms:.1%} of it); K3 on the {mesh_big.tri_verts.shape[0]}-triangle grid "
+        f"{k3_ms:.4f} ms (bound {k3_b:.4f} ms, {k3_by}; {k3_b / k3_ms:.1%})")
+    nchk, (o, d, uids) = chunk0(sdk, camk)
+    log("textured-parity", f"kitchen sink chunk 0 of {nchk}: "
+        + staged_check("kitchen sink chunk", sdk, camk, o, d, uids))
+    del o, d, uids, thr, rad, alive
+    render_k = lambda: driver.render_to_image(sck, device=dev, seed=0, verbose=False,  # noqa: E731
+                                              scene_data=sdk)
+    render_k()  # warm
+    scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the kitchen sink's counts start here
+    img_k, st_k = render_k()
+    k2_k, k3_k = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    if k2_k < 1 or k3_k < 1 or img_k.max() == 0:
+        raise AssertionError(f"the kitchen-sink render launched K2 {k2_k} and K3 {k3_k} times, "
+                             f"image max {img_k.max()}")
+    log("textured-parity", f"kitchen sink 256²x16spp depth 5 via render_to_image: "
+        f"{st_k.wall_seconds:.4f} s, {st_k.path_segments} segments "
+        f"({st_k.path_segments / st_k.wall_seconds / 1e6:.2f} Mrays/s); K2 launches {k2_k}, K3 "
+        f"launches {k3_k}; mean HDR radiance {st_k.mean_radiance:.5f}, non-finite pixels "
+        f"{st_k.nonfinite_pixels}, image u8 max {img_k.max()}, mean {img_k.mean():.2f}")
+    del sck, sdk
+
+    # ---- 29. config 4 on its stand-in assets at full size ----
+    assets = textured_spheres.stand_in_dir()
+    sc4 = textured_spheres.build(512, 512, spp=32, lens_radius=0.08, asset_dir=assets)
+    sd4 = sc4.compile(device=dev)
+    cam4 = sc4.camera
+    maps = [("earthmap.jpg", "normal_test.png"), ("magenta.jpg", "normal_test.jpg")]
+    bound = []
+    for m, names in zip(sd4.meshes, maps):
+        for slot, name in zip((0, 4), names):
+            img = load_image(os.path.join(assets, "texture", name))
+            tid = m.tex_ids[slot]
+            if img is None or tid < 0 or int(sd4.tex_width[tid]) * int(sd4.tex_height[tid]) != \
+                    img.shape[0] * img.shape[1]:
+                raise AssertionError(f"config 4: texture slot {slot} ({name}) is not bound to its "
+                                     "map's pixels")
+            bound.append(f"{name} {img.shape[1]}x{img.shape[0]}")
+    n_tan = sum(int((~torch.isfinite(m.tri_tangent)).any(dim=1).sum()) for m in sd4.meshes)
+    nch4, (o, d, uids) = chunk0(sd4, cam4)
+    log("config4-frame", f"stand-in config 4 chunk 0 of {nch4}: "
+        + staged_check("config 4 chunk", sd4, cam4, o, d, uids))
+    n = o.shape[0]
+    u_vol = integrator._bounce_draws(sd4, key, uids, rnglib.SITE_BOUNCE0)[2]
+    ins = (o, d, torch.full((n,), integrator.PATH_T_MIN, device=dev),
+           torch.full((n,), cam4.max_trace_dist, device=dev),
+           u_vol[:, :sd4.vol_center.shape[0]].contiguous())
+    ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd4, *ins), 10)
+    b_ms, b_by, w = k2_bound_of(sd4, ins, torch.arange(0, n, SAMPLE_STRIDE, device=dev))
+    log("timing-textured", f"stand-in config 4 chunk 0 bounce 0 ({n} rays): K2 {ms:.4f} ms "
+        f"({w['tris']:.2f} dense-mesh triangles a sampled ray over the two spheres' "
+        f"{sum(m.tri_verts.shape[0] for m in sd4.meshes)}; bound {b_ms:.4f} ms, {b_by}; K2 at "
+        f"{b_ms / ms:.1%} of it)")
+    del o, d, uids, ins
+
+    def render4(**kw):
+        return driver.render_to_image(sc4, device=dev, seed=0, verbose=False, scene_data=sd4, **kw)
+
+    render4()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # config 4's counts start here
+    runs = [render4() for _ in range(2)]
+    k2_4, k3_4 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    peak = torch.cuda.max_memory_allocated()
+    img4, st4 = runs[0]
+    if k2_4 < 1 or k3_4:
+        raise AssertionError(f"config 4 launched K2 {k2_4} and K3 {k3_4} times, not >= 1 and 0")
+    if st4.mean_radiance <= 0.0 or any(not np.array_equal(im, img4) for im, _ in runs):
+        raise AssertionError("the config-4 frames are unlit or differ from each other")
+    walls = [s.wall_seconds for _, s in runs]
+    wall = sum(walls) / len(walls)
+    tr = device_trace("config4", render4, {"K2": "scene_intersect_kernel"},
+                      spans=("bounce_rng", "raygen", "mesh_resolve"))
+    log("config4-frame", f"stand-in config 4 512²x32spp depth 8 lens 0.08 via render_to_image: "
+        f"{st4.chunks} chunks of {st4.primary_rays // st4.chunks} rays, {st4.path_segments} "
+        f"segments; {wall:.4f} s per image (mean of {len(walls)}: "
+        f"{', '.join(f'{w:.4f}' for w in walls)}) = {st4.path_segments / wall / 1e6:.2f} Mrays/s "
+        f"of segments; K2 launches per image {k2_4 // len(runs)}, K3 {k3_4}; peak device memory "
+        f"{peak / 2**30:.2f} GiB; {tr['kernels']} kernels an image, device busy "
+        f"{tr['busy_ms']:.3f} ms in a {tr['span_ms']:.3f} ms span (idle share {tr['idle']:.2%}); "
+        + ", ".join(f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)"
+                    for k, v in tr["parts"].items())
+        + f"; slots bound: {', '.join(bound)} (atlas {sd4.tex_pixels.shape[0]} pixels); "
+        f"non-finite tangents {n_tan} of {sum(m.tri_verts.shape[0] for m in sd4.meshes)}, "
+        f"non-finite pixels {st4.nonfinite_pixels}; mean HDR radiance of a sample "
+        f"{st4.mean_radiance:.5f}; image u8 max {img4.max()}, mean {img4.mean():.2f}")
+    sc4n = dataclasses.replace(sc4, camera=dataclasses.replace(cam4, nee=True))
+    if not sd4.nee_ok:
+        raise AssertionError("config 4's two light triangles must make it NEE-able")
+    _, (o, d, uids) = chunk0(sd4, sc4n.camera)
+    shadow_depth = 2 * cam4.path_depth - 1
+    torch.cuda.synchronize()
+    scene_intersect.LAUNCHES = 0  # config 4's NEE chunk's count starts here
+    t0 = time.perf_counter()
+    rad_n, segs_n = integrator.path_trace_nee(sd4, o, d, uids, key, cam4.path_depth,
+                                              cam4.max_trace_dist)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    k2_n = scene_intersect.LAUNCHES  # read just after
+    if k2_n != shadow_depth:
+        raise AssertionError(f"config 4's NEE chunk launched K2 {k2_n} times, not {shadow_depth}")
+    idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
+    run = lambda o_, d_, u_: integrator.path_trace_nee(  # noqa: E731
+        sd4, o_, d_, u_, key, cam4.path_depth, cam4.max_trace_dist)
+    sub, (rad_s, segs_s) = sample_alone("config 4 NEE chunk", run, (rad_n,), (o, d, uids), idx)
+    ref, ref_segs = integrator.path_trace_nee(sd4, *sub, key, cam4.path_depth,
+                                              cam4.max_trace_dist,
+                                              intersect=isect.intersect_scene_plain)
+    n_bad, err, _ = compare(rad_s, segs_s, ref, ref_segs, shadow_depth)
+    log("config4-frame", f"stand-in config 4 with NEE, chunk 0 of {nch4}: {o.shape[0]} rays, "
+        f"{int(segs_n)} segments (shadow rays included) in {secs:.4f} s "
+        f"(= {int(segs_n) / secs / 1e6:.2f} Mrays/s); K2 launches {k2_n}; every "
+        f"{SAMPLE_STRIDE}th ray ({idx.numel()}) alone is bit-identical to the run's rows; "
+        f"{idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol {ATOL} of the plain NEE "
+        f"executor, max |diff| {err:.3g}; mean HDR radiance {float(rad_n.mean()):.5f}")
+    del o, d, uids, rad_n, sc4, sd4
+
+    # ---- 30. general-boundary volumes: a cube and a small-scaled cube ----
+    cube = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)], np.float32)
+    faces = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5], [0, 5, 1],
+                      [2, 3, 7], [2, 7, 6], [0, 2, 6], [0, 6, 4], [1, 5, 7], [1, 7, 3]], np.int32)
+
+    def cube_volume(density, xf):
+        mesh = kitchen_sink.mesh_from_arrays(cube, faces, np.zeros((8, 2), np.float32),
+                                             (None,) * 5, Lambertian(), xf)
+        return ConvexVolume(boundary=mesh, phase_function=Isotropic(albedo=(0.8, 0.8, 0.9)),
+                            density=density)
+
+    scg = Scene(camera=dataclasses.replace(kitchen_sink.build(256, 256, spp=16, path_depth=6)
+                                           .camera, eyepoint=(0.0, 0.0, 3.0),
+                                           view_dir=(0.0, 0.0, -1.0)),
+                objects=[
+                    cube_volume(1.2, tf.translate(0.2, 0.0, -0.5) @ tf.scale(0.9)),
+                    cube_volume(1e6, tf.translate(0.0, 0.0, 2.5) @ tf.scale(0.002)),
+                    Sphere(center=(0.0, 0.0, -3.0), radius=1.0,
+                           material=Lambertian(albedo=(0.6, 0.3, 0.2))),
+                    Plane(point=(0.0, -1.5, 0.0), normal=(0.0, 1.0, 0.0),
+                          material=Lambertian(albedo=(0.5, 0.5, 0.5))),
+                    Sphere(center=(0.0, 6.0, 0.0), radius=2.0,
+                           material=Lambertian(albedo=(0, 0, 0), emission=(6.0, 6.0, 6.0))),
+                ])
+    sdg = scg.compile(device=dev)
+    camg = scg.camera
+    if sdg.n_gvols != 2 or sdg.gvol_tri[0].shape[0] != 12:
+        raise AssertionError("the gvol scene must hold two 12-triangle boundaries")
+    nchg, (o, d, uids) = chunk0(sdg, camg)
+    n = o.shape[0]
+    u_vol = integrator._bounce_draws(sdg, key, uids, rnglib.SITE_BOUNCE0)[2]
+    before = scene_intersect.LAUNCHES
+    fused = isect.intersect_scene_fused(sdg, o, d, integrator.PATH_T_MIN, camg.max_trace_dist,
+                                        u_vol)
+    if scene_intersect.LAUNCHES != before + 1:
+        raise AssertionError("the fused path did not launch K2 once")
+    plain = isect.intersect_scene_plain(sdg, o, d, integrator.PATH_T_MIN, camg.max_trace_dist,
+                                        u_vol)
+    iso = materials.ISOTROPIC
+    ng, nv = int((fused.valid & (fused.mtype == iso)).sum()), int(fused.valid.sum())
+    small = int(((fused.point - torch.tensor([0.0, 0.0, 2.5], device=dev)).abs().max(dim=1)
+                 .values < 0.003).sum())
+    mg, sg, eg, errg = compare_hits(
+        "gvol chunk", *(((h.valid, torch.where(h.valid, h.mtype, -1)) for h in (fused, plain))),
+        *(dict(t=torch.where(h.valid, h.t, 0.0), point=torch.where(h.valid[:, None], h.point, 0.0),
+               normal=torch.where(h.valid[:, None], h.normal, 0.0)) for h in (fused, plain)))
+    log("gvol", f"cube (12 triangles) and 0.002-scaled cube boundaries, 256²x16spp, chunk 0 of "
+        f"{nchg} ({n} camera rays): intersect_scene_fused (K2, then the general volumes' merge) "
+        f"against intersect_scene_plain on the card: {sg}/{mg} same (valid, material type), "
+        f"{eg}/{mg} bit-identical, max |diff| {errg:.3g}; {nv} hits, {ng} volume scatter events, "
+        f"{small} in the small cube (eps {sdg.gvol_eps[1]:.3g})")
+    log("gvol", f"chunk 0 of {nchg}: " + staged_check("gvol chunk", sdg, camg, o, d, uids))
+    return {"k2": k2_k + k2_4 + k2_n, "k3": k3_k}
+
+
 def main() -> int:
     # ---- 1. device ----
     if not torch.cuda.is_available():
@@ -2123,8 +2464,10 @@ def main() -> int:
     probes = probe_phases(dev, probe_parity(dev), k5_gtests)
     # ---- 25-27: NEE and Phong, whose rays K2 (and K3) intersect ----
     nee_phong = nee_phong_phases(dev, k1_mean, width, height, spp, depth)
-    staged[0]["launches"] += nee_phong["k2"]
-    staged[1]["launches"] += nee_phong["k3"]
+    # ---- 28-30: textures, normal maps and general volumes on the staged path ----
+    textured = textured_phases(dev)
+    staged[0]["launches"] += nee_phong["k2"] + textured["k2"]
+    staged[1]["launches"] += nee_phong["k3"] + textured["k3"]
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",

@@ -84,10 +84,6 @@ class StaticMesh:
     (texture.rs:16-25). The reference panics when a mesh has neither an
     explicit material nor texcoords (geometry.rs:253-257 unwrap); here
     that is a load-time ValueError (SURVEY.md §3.5.5).
-
-    Texture slots are accepted here, but `Scene.compile` in this port
-    refuses a mesh with textures or without an explicit material: those
-    render through the staged path, which is not ported yet.
     """
 
     def __init__(

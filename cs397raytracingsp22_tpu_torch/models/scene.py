@@ -1,19 +1,22 @@
 """Scene description → flat tables on a torch device.
 
-Mirrors `cs397raytracingsp22_tpu/models/scene.py` for spheres, planes,
-standalone triangles, sphere-bounded volumes and meshes with an explicit
-material. Meshes within the dense budget feed the dense scans of the
+Mirrors `cs397raytracingsp22_tpu/models/scene.py`: spheres, planes,
+standalone triangles, sphere-bounded volumes, general-boundary volumes
+(a Triangle or StaticMesh boundary lowered to world-space triangle rows),
+and meshes with an explicit material or one synthesized from their
+textures, with texcoords, per-triangle tangents and the scene's packed
+texture atlas. Meshes within the dense budget feed the dense scans of the
 mega-bounce and scene-intersection kernels; every mesh also carries its
 threaded BVH (the node arrays of ops/bvh.py::FlatBVH) for the traversal
 of meshes beyond that budget. The tables are built with the same numpy
-arithmetic, so they equal the JAX package's bit for bit. Textured meshes
-and general-boundary volumes raise NotImplementedError: they are a later
-slice of the staged path.
+arithmetic, so they equal the JAX package's bit for bit (a triangle whose
+uv determinant is 0 gets the reference's non-finite tangent in both).
 
 The compile also extracts the lights that next-event estimation samples
 (render/nee.py): every emissive standalone Triangle and Sphere, with
-`nee_ok` False where another object emits (a plane, a mesh, a medium) or
-nothing does. Phong shading's point light and ambient term ride along.
+`nee_ok` False where another object emits (a plane, a mesh, a mesh with
+an emission texture, a medium) or nothing does. Phong shading's point
+light and ambient term ride along.
 """
 
 from __future__ import annotations
@@ -34,11 +37,9 @@ from cs397raytracingsp22_tpu_torch.models.geometry import (
 )
 from cs397raytracingsp22_tpu_torch.models.materials import MaterialTableBuilder
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
+from cs397raytracingsp22_tpu_torch.utils.texture import TextureAtlasBuilder
 
 SceneObject = Union[Sphere, Triangle, Plane, ConvexVolume, StaticMesh]
-
-_STAGED = ("not ported yet (a later slice of the staged path: textures and "
-           "general-boundary volumes)")
 
 
 def _to(x, device):
@@ -66,6 +67,8 @@ class MeshBlock:
     tri_verts: torch.Tensor  # (NT, 3, 3) object-space corners
     tri_table: torch.Tensor  # (NT, 9) [a, b-a, c-a]
     tri_normals: torch.Tensor  # (NT, 3, 3) corner normals, oct-quantized
+    tri_uvs: torch.Tensor  # (NT, 3, 2) corner texcoords
+    tri_tangent: torch.Tensor  # (NT, 3) per-triangle tangent (non-finite where the uv det is 0)
     transform: torch.Tensor  # (4, 4)
     inv_transform: torch.Tensor  # (4, 4)
     normal_mat: torch.Tensor  # (3, 3) = inv_transform[:3,:3].T
@@ -77,7 +80,10 @@ class MeshBlock:
     bvh_nodes: torch.Tensor  # (NI + 1, 16) child-pair rows (ops/bvh.py::pack_bvh)
     bvh_tri4: torch.Tensor  # (NT, 12) tri_verts as [a, e1, e2, 0, 0, 0]
     tri_table4: torch.Tensor  # (NT, 12) tri_table rows and three zeros
-    mat_id: int
+    mat_id: int  # -1: the material is synthesized from the textures
+    # atlas ids of [albedo, emission, metallic, roughness, normal], -1 unbound
+    tex_ids: Tuple[int, ...]
+    has_uv: bool
     leaf_size: int
     bvh_depth: int  # bvh_nodes' deepest leaf: the ordered walk's stack
 
@@ -113,7 +119,17 @@ class SceneData:
     vol_radius: torch.Tensor
     vol_density: torch.Tensor
     vol_mat: torch.Tensor
+    # general-boundary volumes: per volume its world-space boundary rows
+    # (T, 9) = [a, e1, e2]
+    gvol_tri: Tuple[torch.Tensor, ...]
+    gvol_density: torch.Tensor
+    gvol_mat: torch.Tensor
     meshes: Tuple[MeshBlock, ...]
+    # texture atlas (utils/texture.py): (P, 3) uint8 pixels, (T,) int32 each
+    tex_pixels: torch.Tensor
+    tex_offset: torch.Tensor
+    tex_width: torch.Tensor
+    tex_height: torch.Tensor
     # kernel tables: spheres (S,4)=[c,r], planes (P,6)=[p,n], standalone
     # tris (T,12)=[a,e1,e2,geo_n], volumes (V,5)=[c,r,-1/rho],
     # concatenated dense triangles (TT,9)=[a,e1,e2], superleaf AABBs
@@ -133,6 +149,13 @@ class SceneData:
     kmesh_nrm: torch.Tensor
     ksl_tree: torch.Tensor
     kmesh_tri4: torch.Tensor
+    # the staged path's merged mesh resolve (pack_kernel_tables): per
+    # triangle of every mesh in resolve order [corner normals, corner uvs,
+    # tangent] (ΣT, 18), per mesh [normal matrix, R, t] (M, 21) and the
+    # int32 atlas [offset, width, height] of each texture slot (M, 15)
+    kmesh_res: torch.Tensor
+    kmesh_xfm: torch.Tensor
+    kmesh_tex: torch.Tensor
     # Phong's point light and ambient term, (3,) each
     point_light_pos: torch.Tensor
     ambient: torch.Tensor
@@ -144,6 +167,8 @@ class SceneData:
     n_planes: int
     n_tris: int
     n_volumes: int
+    n_gvols: int
+    gvol_eps: Tuple[float, ...]  # per general volume: 1e-4·|det M|, its world-space MT epsilon
     kmesh_ranges: Tuple[Tuple[int, int], ...]  # per dense mesh: (first row, padded count)
     ksl_ranges: Tuple[Tuple[int, int], ...]  # per dense mesh: (first superleaf, count)
     dense_mesh_ids: Tuple[int, ...]
@@ -163,6 +188,8 @@ class SceneData:
             v = getattr(self, f.name)
             if f.name == "meshes":
                 v = tuple(m.to(device) for m in v)
+            elif f.name == "gvol_tri":
+                v = tuple(x.to(device) for x in v)
             out[f.name] = _to(v, device)
         return SceneData(**out)
 
@@ -255,15 +282,51 @@ def baldwin_weber_rows(verts: np.ndarray) -> np.ndarray:
     return rows.astype(np.float32)
 
 
-def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, leaf_size: int) -> dict:
-    if any(t is not None for t in sm.textures) or sm.material is None:
-        raise NotImplementedError(f"textured StaticMesh: {_STAGED}")
+def _boundary_tri_table(boundary) -> tuple[np.ndarray, float]:
+    """A general ConvexVolume boundary (a Triangle or a StaticMesh) as
+    world-space rows (T, 9) = [a, e1, e2] for the entry/exit scan, and the
+    volume's world-space Möller–Trumbore epsilon (models/scene.py:279 in
+    the JAX package).
+
+    A mesh's triangles are transformed to world space: the reference
+    intersects the boundary in its object space with |det| >= 1e-4
+    (geometry.rs:335), and det scales by det(M) under the linear part M of
+    the transform, so 1e-4·|det M| keeps its accept set."""
+    if isinstance(boundary, Triangle):
+        a = np.asarray(boundary.a, np.float32)
+        rows = np.concatenate([a, np.asarray(boundary.b, np.float32) - a,
+                               np.asarray(boundary.c, np.float32) - a]).reshape(1, 9)
+        return rows, bvhlib.MT_EPSILON
+    if isinstance(boundary, StaticMesh):
+        m = np.asarray(boundary.transform, np.float64)
+        pos_w = boundary.mesh.positions.astype(np.float64) @ m[:3, :3].T + m[:3, 3]
+        tri = pos_w[boundary.mesh.indices]  # (T, 3, 3)
+        a = tri[:, 0]
+        rows = np.concatenate([a, tri[:, 1] - a, tri[:, 2] - a], axis=1).astype(np.float32)
+        return rows, bvhlib.MT_EPSILON * float(abs(np.linalg.det(m[:3, :3])))
+    raise TypeError(f"unsupported ConvexVolume boundary {type(boundary)!r} "
+                    "(Sphere, Triangle and StaticMesh are supported)")
+
+
+def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, atlas: TextureAtlasBuilder,
+                  leaf_size: int) -> dict:
     mesh = sm.mesh
     idx = mesh.indices
     verts = mesh.positions[idx]
     normals = mesh.normals[idx]
+    uvs = mesh.texcoords[idx]  # (NT, 3, 2)
+    # per-triangle tangent (geometry.rs:245-250):
+    # ((v3-v1)(p2-p1) - (v2-v1)(p3-p1)) / ((u2-u1)(v3-v1) - (v2-v1)(u3-u1)),
+    # inf or NaN where the uv determinant is 0, as in the reference
+    p1, p2, p3 = verts[:, 0], verts[:, 1], verts[:, 2]
+    u1, u2, u3 = uvs[:, 0, 0], uvs[:, 1, 0], uvs[:, 2, 0]
+    v1, v2, v3 = uvs[:, 0, 1], uvs[:, 1, 1], uvs[:, 2, 1]
+    denom = (u2 - u1) * (v3 - v1) - (v2 - v1) * (u3 - u1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        tangent = ((v3 - v1)[:, None] * (p2 - p1) - (v2 - v1)[:, None] * (p3 - p1)) / denom[:, None]
     flat = bvhlib.build_bvh(verts, leaf_size=leaf_size)
     order = flat.tri_order
+    tex_ids = tuple(atlas.add(img) if img is not None else -1 for img in sm.textures)
     rv = verts[order]
     tri_table = np.concatenate(
         [rv[:, 0], rv[:, 1] - rv[:, 0], rv[:, 2] - rv[:, 0]], axis=1
@@ -273,6 +336,8 @@ def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, leaf_size: int) ->
         tri_verts=rv.astype(np.float32),
         tri_table=tri_table,
         tri_normals=_oct_decode(noct),
+        tri_uvs=uvs[order],
+        tri_tangent=tangent[order].astype(np.float32),
         transform=np.asarray(sm.transform, np.float32),
         inv_transform=np.asarray(sm.inv_transform, np.float32),
         normal_mat=np.asarray(sm.inv_transform[:3, :3].T, np.float32).copy(),
@@ -282,7 +347,9 @@ def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, leaf_size: int) ->
         leaf_start=flat.leaf_start,
         leaf_count=flat.leaf_count,
         leaf_size=leaf_size,
-        mat_id=mats.add(sm.material),
+        mat_id=mats.add(sm.material) if sm.material is not None else -1,
+        tex_ids=tex_ids,
+        has_uv=bool(mesh.has_texcoords),
     )
 
 
@@ -290,10 +357,12 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
     """Lower a Scene into tables (numpy on the host), then onto `device`
     (the card by default)."""
     mats = MaterialTableBuilder()
+    atlas = TextureAtlasBuilder()
     sph_center, sph_radius, sph_mat = [], [], []
     pln_point, pln_normal, pln_mat = [], [], []
     tri_a, tri_b, tri_c, tri_mat = [], [], [], []
     vol_center, vol_radius, vol_density, vol_mat = [], [], [], []
+    gvol_tris, gvol_density, gvol_mat, gvol_eps = [], [], [], []
     mesh_blocks: list[dict] = []
     # NEE's lights: emissive standalone Triangles and Spheres; any other
     # emitter voids nee_ok, because NEE suppresses the emission a scatter
@@ -334,26 +403,30 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
                 area = 0.5 * float(np.linalg.norm(np.cross(e1, e2)))
                 lt_tri_rows.append(tuple(a) + tuple(e1) + tuple(e2) + tuple(e) + (area,))
         elif isinstance(obj, ConvexVolume):
-            if not isinstance(obj.boundary, Sphere):
-                raise NotImplementedError(
-                    f"ConvexVolume with a {type(obj.boundary).__name__} boundary: {_STAGED}"
-                )
             if emission_of(obj.phase_function) is not None:
                 nee_ok = False  # an emissive medium is not a sampled light
-            vol_center.append(obj.boundary.center)
-            vol_radius.append(obj.boundary.radius)
-            vol_density.append(obj.density)
-            vol_mat.append(mats.add(obj.phase_function))
+            if isinstance(obj.boundary, Sphere):  # analytic entry and exit
+                vol_center.append(obj.boundary.center)
+                vol_radius.append(obj.boundary.radius)
+                vol_density.append(obj.density)
+                vol_mat.append(mats.add(obj.phase_function))
+            else:  # a boundary scanned for entry and exit
+                rows, eps = _boundary_tri_table(obj.boundary)
+                gvol_tris.append(rows)
+                gvol_eps.append(eps)
+                gvol_density.append(obj.density)
+                gvol_mat.append(mats.add(obj.phase_function))
         elif isinstance(obj, StaticMesh):
-            mesh_blocks.append(_compile_mesh(obj, mats, leaf_size))
-            if emission_of(obj.material) is not None:
-                nee_ok = False  # mesh faces are not sampled lights
+            mesh_blocks.append(_compile_mesh(obj, mats, atlas, leaf_size))
+            if emission_of(obj.material) is not None or mesh_blocks[-1]["tex_ids"][1] >= 0:
+                nee_ok = False  # mesh faces (or an emission texture) are not sampled lights
         else:
             raise TypeError(f"unsupported scene object {type(obj)!r}")
     if not (lt_tri_rows or lt_sph_rows):
         nee_ok = False  # nothing to sample
 
     table = mats.build()
+    packed = atlas.build()
 
     def f32(rows, width=None, fill=0.0):
         if rows:
@@ -467,7 +540,14 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
         vol_radius=f32(vol_radius, None, 0.0),
         vol_density=f32(vol_density, None, 1.0),
         vol_mat=i32(vol_mat),
+        gvol_tri=gvol_tris,
+        gvol_density=f32(gvol_density, None, 1.0),
+        gvol_mat=i32(gvol_mat),
         meshes=mesh_blocks,
+        tex_pixels=packed.pixels,
+        tex_offset=packed.offset,
+        tex_width=packed.width,
+        tex_height=packed.height,
         ksph_f=sph_np,
         ksph_m=i32(sph_mat),
         kpln_f=pln_np,
@@ -488,6 +568,8 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
         n_planes=len(pln_point),
         n_tris=len(tri_a),
         n_volumes=len(vol_center),
+        n_gvols=len(gvol_tris),
+        gvol_eps=tuple(gvol_eps),
         kmesh_ranges=tuple(ranges),
         ksl_ranges=tuple(sl_ranges),
         dense_mesh_ids=dense_ids,
@@ -500,13 +582,14 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
     return scene_data_from_numpy(arrays, meta, device=device)
 
 
-_MESH_ARRAYS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_transform",
-                "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
-_STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
-           "ksl_ranges", "dense_mesh_ids", "mat_types_present", "n_lt_tri", "n_lt_sph",
-           "nee_ok")
+_MESH_ARRAYS = ("tri_verts", "tri_table", "tri_normals", "tri_uvs", "tri_tangent", "transform",
+                "inv_transform", "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start",
+                "leaf_count")
+_STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "n_gvols", "gvol_eps",
+           "kmesh_ranges", "ksl_ranges", "dense_mesh_ids", "mat_types_present", "n_lt_tri",
+           "n_lt_sph", "nee_ok")
 # built by pack_kernel_tables, never passed in
-PACKED = ("kscene", "kmesh_nrm", "ksl_tree", "kmesh_tri4")
+PACKED = ("kscene", "kmesh_nrm", "ksl_tree", "kmesh_tri4", "kmesh_res", "kmesh_xfm", "kmesh_tex")
 
 SUPERLEAF = 16  # kmesh_tri rows under one superleaf box
 # the superleaf trees of all dense meshes: 2S - 1 nodes for S superleaves,
@@ -584,7 +667,13 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     on padding rows. ksl_tree: the superleaf trees (superleaf_trees),
     which the kernels stage into shared memory. kmesh_tri4: (TT, 12) the
     kmesh_tri rows [a, e1, e2] padded with three zeros, so that a kernel
-    reads a row as three 16-byte loads.
+    reads a row as three 16-byte loads. kmesh_res and kmesh_xfm: the
+    staged path's merged mesh resolve (ops/intersect.py::resolve_mesh_winners)
+    over the meshes in resolve_order: per triangle [corner normals, corner
+    uvs, tangent] (ΣT, 18) and per mesh [normal matrix, R, t] (M, 21),
+    float32 copies of the mesh tables, and kmesh_tex, per mesh the int32
+    atlas [offset, width, height] of each of the five texture slots (-1
+    where a slot is unbound) (M, 15); one inert row each without a mesh.
     """
     ns, npl, nt, nv = (int(meta[k]) for k in ("n_spheres", "n_planes", "n_tris", "n_volumes"))
 
@@ -620,7 +709,30 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     kscene = np.concatenate([r.reshape(-1) for r in rows]).astype(np.float32)
     kmesh_tri = f(a["kmesh_tri"])
     kmesh_tri4 = np.concatenate([kmesh_tri, np.zeros((kmesh_tri.shape[0], 3), np.float32)], 1)
-    return kscene, kmesh_nrm, superleaf_trees(a["ksl_bounds"], meta["ksl_ranges"]), kmesh_tri4
+    res, xfm = [np.zeros((0, 18), np.float32)], [np.zeros((0, 21), np.float32)]
+    tex = [np.zeros((0, 15), np.int32)]
+    for mi in resolve_order(meta["dense_mesh_ids"], len(a["meshes"])):
+        m = a["meshes"][mi]
+        nt = np.shape(m["tri_normals"])[0]
+        res.append(np.concatenate([f(m["tri_normals"]).reshape(nt, 9),
+                                   f(m["tri_uvs"]).reshape(nt, 6), f(m["tri_tangent"])], 1))
+        fwd = f(m["transform"])
+        xfm.append(np.concatenate([f(m["normal_mat"]).reshape(-1), fwd[:3, :3].reshape(-1),
+                                   fwd[:3, 3]])[None, :])
+        slots = [(int(a["tex_offset"][i]), int(a["tex_width"][i]), int(a["tex_height"][i]))
+                 if i >= 0 else (-1, -1, -1) for i in m["tex_ids"]]
+        tex.append(np.asarray([sum(slots, ())], np.int32))
+    kmesh_res = _pad_rows(np.concatenate(res), 1, 0.0)
+    kmesh_xfm = _pad_rows(np.concatenate(xfm), 1, 0.0)
+    kmesh_tex = _pad_rows(np.concatenate(tex), 1, -1)
+    return (kscene, kmesh_nrm, superleaf_trees(a["ksl_bounds"], meta["ksl_ranges"]), kmesh_tri4,
+            kmesh_res, kmesh_xfm, kmesh_tex)
+
+
+def resolve_order(dense_mesh_ids, n_meshes: int) -> list[int]:
+    """The staged path's mesh order: the dense meshes (K2's codes 4 + k),
+    then the big ones (K3, codes after them)."""
+    return list(dense_mesh_ids) + [i for i in range(n_meshes) if i not in dense_mesh_ids]
 
 
 def mesh_kernel_tables(m: dict) -> dict:
@@ -649,32 +761,33 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
     packages run the same tables — and move it onto `device`.
 
     arrays: every tensor field of SceneData except `meshes` and the
-      kernel's packed tables (PACKED, built here), plus "meshes": a list of
-      dicts holding the MeshBlock array fields and "leaf_size" (the
+      kernel's packed tables (PACKED, built here), with "gvol_tri" a list
+      of (T, 9) arrays, plus "meshes": a list of dicts holding the
+      MeshBlock array fields, "leaf_size", "tex_ids" and "has_uv" (the
       kernels' per-mesh tables are built here, by mesh_kernel_tables).
     meta: the static fields (_STATIC: the counts, ranges and mesh ids,
-      mat_types_present, the light counts n_lt_tri and n_lt_sph, nee_ok)
-      and "mesh_mat_ids", one material id per mesh.
+      mat_types_present, n_gvols and gvol_eps, the light counts n_lt_tri
+      and n_lt_sph, nee_ok) and "mesh_mat_ids", one material id per mesh
+      (-1 for a material synthesized from the mesh's textures).
     `device` is the card unless the caller asks for the CPU.
-    Raises NotImplementedError for what `compile_scene` also refuses.
     """
-    mesh_mat_ids = list(meta["mesh_mat_ids"])
-    if any(m < 0 for m in mesh_mat_ids):
-        raise NotImplementedError(f"texture-synthesized mesh material: {_STAGED}")
     device = resolve_device(device)
 
     def t(x):
         return torch.from_numpy(np.array(x)).to(device)  # a writable copy
 
     meshes = []
-    for m, mid in zip(arrays["meshes"], mesh_mat_ids):
+    for m, mid in zip(arrays["meshes"], meta["mesh_mat_ids"]):
         packed = mesh_kernel_tables(m)
         depth = packed.pop("bvh_depth")
         meshes.append(MeshBlock(**{k: t(m[k]) for k in _MESH_ARRAYS},
                                 **{k: t(x) for k, x in packed.items()}, mat_id=int(mid),
-                                leaf_size=int(m["leaf_size"]), bvh_depth=depth))
+                                tex_ids=tuple(int(x) for x in m["tex_ids"]),
+                                has_uv=bool(m["has_uv"]), leaf_size=int(m["leaf_size"]),
+                                bvh_depth=depth))
     meshes = tuple(meshes)
-    fields = {"meshes": meshes, **{k: t(x) for k, x in zip(PACKED, pack_kernel_tables(arrays, meta))}}
+    fields = {"meshes": meshes, "gvol_tri": tuple(t(x) for x in arrays["gvol_tri"]),
+              **{k: t(x) for k, x in zip(PACKED, pack_kernel_tables(arrays, meta))}}
     for f in dataclasses.fields(SceneData):
         if f.name in fields:
             continue
@@ -682,6 +795,8 @@ def scene_data_from_numpy(arrays: dict, meta: dict, device="cuda") -> SceneData:
             v = meta[f.name]
             if f.name == "nee_ok":
                 fields[f.name] = bool(v)
+            elif f.name == "gvol_eps":
+                fields[f.name] = tuple(float(x) for x in v)
             elif f.name.endswith("ranges"):
                 fields[f.name] = tuple(tuple(x) for x in v)
             else:

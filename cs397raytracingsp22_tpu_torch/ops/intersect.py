@@ -1,8 +1,7 @@
 """Scene-level intersection: per-class batched tests and the nearest-hit
 resolve.
 
-Mirrors `cs397raytracingsp22_tpu/ops/intersect.py` for scenes without
-textures or general-boundary volumes:
+Mirrors `cs397raytracingsp22_tpu/ops/intersect.py`:
 - `intersect_scene_plain` is `intersect_scene_jnp`, in plain torch: the
   spec, the intersection half of the mega-bounce kernel's plain version
   (render/integrator.py::path_trace), and what CPU tensors run;
@@ -10,8 +9,10 @@ textures or general-boundary volumes:
   the scene-intersection kernel K2 (ops/kernels/scene_intersect.py: every
   analytic class and the dense meshes), then the big-mesh traversal
   kernel K3 per mesh beyond the dense budget (ops/kernels/tri_scan_big.py)
-  with the running best t as its far bound, the merge, and one shading
-  resolve of the mesh winners;
+  with the running best t as its far bound, the general-boundary volumes,
+  and one merged resolve of the mesh winners (`resolve_mesh_winners`:
+  smooth normals, texcoords, texture sampling, normal maps and the
+  materials synthesized from textures);
 - `intersect_scene` picks the fused path for CUDA tensors and the plain
   one for CPU tensors;
 - `intersect_mesh` is one mesh's candidate: the dense-scan kernel K5
@@ -26,7 +27,9 @@ Replicated reference quirks:
 - a volume samples its scatter distance inside the test (geometry.rs:517)
   and returns a zero normal (geometry.rs:520).
 Ties across classes go to the earlier class in the order spheres →
-planes → triangles → volumes → meshes.
+planes → triangles → volumes → general volumes → meshes in the plain
+spec; the fused path merges the general volumes after the meshes, at a
+strictly smaller t (intersect.py:692-707 in the JAX package).
 """
 
 from __future__ import annotations
@@ -35,13 +38,19 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
-from cs397raytracingsp22_tpu_torch.models.scene import MeshBlock, SceneData
+from cs397raytracingsp22_tpu_torch.models import materials as mat
+from cs397raytracingsp22_tpu_torch.models.scene import MeshBlock, SceneData, resolve_order
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 _BIG = float("inf")
 CODE_MESH0 = 4  # winner code of mesh k in the fused path: 0-3 analytic classes, 4 + k
+CODE_GVOL0 = 1 << 20  # winner code of general volume g in the fused path: CODE_GVOL0 + g
+MAT_FIELDS = ("mtype", "albedo", "emission", "roughness", "metallic", "ior")
+# (ray, triangle) pairs of one block of the general-volume entry/exit scan
+GVOL_BLOCK = 1 << 24
 
 
 @dataclasses.dataclass
@@ -72,6 +81,29 @@ def _gather_material(scene: SceneData, mid: torch.Tensor) -> dict:
         metallic=scene.mat_metallic[mid],
         ior=scene.mat_ior[mid],
     )
+
+
+def texel_index(off, w, h, uv) -> torch.Tensor:
+    """The atlas row of the nearest texel (texture.rs:26-32) at (N, 2) uv
+    for per-ray (or scalar) int32 atlas offset, width and height: u
+    clamped to [0, 0.999], v flipped after the same clamp, truncating
+    casts, then min(size - 1). (N,) int64."""
+    u = torch.clamp(uv[:, 0], 0.0, 0.999)
+    v = torch.clamp(uv[:, 1], 0.0, 0.999)
+    x = torch.minimum((u * w).to(torch.int32), w - 1)
+    y = torch.minimum(((1.0 - v) * h).to(torch.int32), h - 1)
+    return (off + y * w + x).long()
+
+
+def sample_texture_dyn(scene: SceneData, off, w, h, uv) -> torch.Tensor:
+    """The nearest texel at uv (texel_index) as (N, 3) float32 in [0, 1]."""
+    return scene.tex_pixels[texel_index(off, w, h, uv)].to(torch.float32) / 255.0
+
+
+def sample_texture(scene: SceneData, tex_id: int, uv) -> torch.Tensor:
+    """sample_texture_dyn of one texture, atlas id tex_id."""
+    return sample_texture_dyn(scene, scene.tex_offset[tex_id], scene.tex_width[tex_id],
+                              scene.tex_height[tex_id], uv)
 
 
 def _col(x, like: torch.Tensor) -> torch.Tensor:
@@ -154,24 +186,110 @@ def intersect_volumes(scene: SceneData, o, d, t_min, t_max, u_vol):
     return _pick(t_start + dist, valid)
 
 
-def resolve_mesh_hit(mesh: MeshBlock, o_obj, d_obj, t, tri, u, v):
-    """Shading resolve of mesh hits from (t, tri, u, v) in object space:
-    smooth normal (geometry.rs:350-351), front face against the
-    object-space direction, normal matrix (geometry.rs:297), world point
-    from the object-space point (geometry.rs:307)."""
-    tri = torch.clamp(tri, min=0).long()
-    w = 1.0 - u - v
-    nabc = mesh.tri_normals[tri]
-    n_smooth = vm.normalize(
-        u[:, None] * nabc[:, 1] + v[:, None] * nabc[:, 2] + w[:, None] * nabc[:, 0],
-        eps=1e-30,
+def intersect_general_volume(tri_table, density, o, d, t_min, t_max, u, eps=bvhlib.MT_EPSILON):
+    """One general-boundary ConvexVolume (geometry.rs:502-525 with a
+    Triangle or StaticMesh boundary): the entry is the nearest boundary hit
+    over (-inf, inf) (geometry.rs:505), the exit the nearest at least 1e-4
+    past it (geometry.rs:508), then the free flight of the sphere volumes.
+
+    tri_table: (T, 9) world-space [a, e1, e2] rows; density a scalar; u
+    (N,) uniforms; eps the world-space Möller–Trumbore epsilon
+    (SceneData.gvol_eps). The (ray, triangle) scan runs in blocks of at
+    most GVOL_BLOCK pairs; entry and exit are minima, exact in any order,
+    so the blocks change no bit. Returns (t, valid), both (N,)."""
+    n, n_rows = o.shape[0], tri_table.shape[0]
+    step = max(1, GVOL_BLOCK // max(n, 1))
+
+    def boundary_t(r0):  # (N, B) boundary hits of rows r0.., inf where none
+        rows = tri_table[r0:r0 + step]
+        a = rows[:, 0:3]
+        ok, t, _, _ = bvhlib.moller_trumbore(o[:, None, :], d[:, None, :], a, a + rows[:, 3:6],
+                                             a + rows[:, 6:9], -_BIG, _BIG, eps=eps)
+        return ok, torch.where(ok, t, torch.full_like(t, _BIG))
+
+    starts = range(0, n_rows, step)
+    if len(starts) == 1:  # one block: scan it once for both passes
+        only = boundary_t(0)
+        scan = lambda r0: only  # noqa: E731
+    else:  # the exit pass needs the entry first: scan every block twice
+        scan = boundary_t
+    t_entr = torch.full((n,), _BIG, dtype=torch.float32, device=o.device)
+    entered = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    for r0 in starts:
+        ok, t_all = scan(r0)
+        t_entr = torch.minimum(t_entr, t_all.min(dim=1).values)
+        entered = entered | ok.any(dim=1)
+    t_exit = torch.full_like(t_entr, _BIG)
+    for r0 in starts:
+        t_all = scan(r0)[1]
+        t_all = torch.where(t_all >= t_entr[:, None] + 1e-4, t_all, torch.full_like(t_all, _BIG))
+        t_exit = torch.minimum(t_exit, t_all.min(dim=1).values)
+    t_min, t_max = vm.as_f32(t_min, o), vm.as_f32(t_max, o)
+    in_range = (t_exit >= t_min) & (t_entr <= t_max)
+    t_start = torch.maximum(t_entr, t_min)
+    t_end = torch.minimum(t_exit, t_max)
+    dist = (-1.0 / density) * torch.log(torch.clamp(u, min=1e-38))
+    valid = entered & torch.isfinite(t_exit) & in_range & (dist < t_end - t_start)
+    return t_start + dist, valid
+
+
+def _synthesized_material(n: int, like: torch.Tensor, albedo=None, emission=None, metallic=None,
+                          roughness=None) -> dict:
+    """A material synthesized from a mesh's texture slots
+    (geometry.rs:253-271): PARAMETERIZED, each unbound slot at its
+    default (albedo and emission 0, metallic 0, roughness 1), ior 1.5."""
+    zero3 = torch.zeros((n, 3), dtype=torch.float32, device=like.device)
+    return dict(
+        mtype=torch.full((n,), mat.PARAMETERIZED, dtype=torch.int32, device=like.device),
+        albedo=zero3 if albedo is None else albedo,
+        emission=zero3 if emission is None else emission,
+        roughness=torch.ones((n,), dtype=torch.float32, device=like.device)
+        if roughness is None else roughness,
+        metallic=torch.zeros((n,), dtype=torch.float32, device=like.device)
+        if metallic is None else metallic,
+        ior=torch.full((n,), 1.5, dtype=torch.float32, device=like.device),
     )
+
+
+def _normal_mapped(n_flip, tan_approx, nm_rgb):
+    """The TBN normal map (geometry.rs:274-296): a Gram–Schmidt frame from
+    the per-triangle tangent, the map's rgb to [-1, 1]."""
+    nm = 2.0 * nm_rgb - 1.0
+    bitangent = vm.normalize(vm.cross(n_flip, tan_approx), eps=1e-30)
+    tangent = vm.normalize(vm.cross(bitangent, n_flip), eps=1e-30)
+    return tangent * nm[:, 0:1] + bitangent * nm[:, 1:2] + n_flip * nm[:, 2:3]
+
+
+def resolve_mesh_hit(mesh: MeshBlock, scene: SceneData, o_obj, d_obj, t, tri, u, v):
+    """Shading resolve of one mesh's hits from (t, tri, u, v) in object
+    space (geometry.rs:274-321): smooth normal (geometry.rs:350-351), front
+    face against the object-space direction, texcoords (geometry.rs:355),
+    the normal map where slot 4 is bound, the normal matrix
+    (geometry.rs:297), the world point (geometry.rs:307), and the mesh's
+    material: its table row, or one synthesized from its textures."""
+    tri = torch.clamp(tri, min=0).long()
+    n = t.shape[0]
+    n_smooth = vm.normalize(_barycentric(mesh.tri_normals[tri].reshape(n, 9), u, v), eps=1e-30)
     frontface = vm.dot(n_smooth, d_obj) < 0.0
     n_flip = torch.where(frontface[:, None], n_smooth, -n_smooth)
-    n_world = vm.normalize(vm.apply_mat4_vector(mesh.normal_mat, n_flip), eps=1e-30)
+    uv = _barycentric(mesh.tri_uvs[tri].reshape(n, 6), u, v)
+    n_obj = n_flip
+    if mesh.tex_ids[4] >= 0:
+        n_obj = _normal_mapped(n_flip, mesh.tri_tangent[tri],
+                               sample_texture(scene, mesh.tex_ids[4], uv))
+    n_world = vm.normalize(vm.apply_mat4_vector(mesh.normal_mat, n_obj), eps=1e-30)
     p_obj = o_obj + t[:, None] * d_obj
     p_world = vm.apply_mat4_point(mesh.transform, p_obj)
-    return dict(point=p_world, normal=n_world, frontface=frontface)
+    if mesh.mat_id >= 0:
+        m = _gather_material(scene, torch.full(t.shape, mesh.mat_id, dtype=torch.int32,
+                                               device=t.device))
+    else:
+        s = {name: sample_texture(scene, mesh.tex_ids[slot], uv) if mesh.tex_ids[slot] >= 0
+             else None for slot, name in enumerate(("albedo", "emission", "metallic", "roughness"))}
+        for name in ("metallic", "roughness"):
+            s[name] = None if s[name] is None else s[name][:, 0]
+        m = _synthesized_material(t.shape[0], t, **s)
+    return dict(point=p_world, normal=n_world, frontface=frontface, **m)
 
 
 def object_rays(mesh: MeshBlock, o, d):
@@ -180,10 +298,10 @@ def object_rays(mesh: MeshBlock, o, d):
     return vm.apply_mat4_point(mesh.inv_transform, o), vm.apply_mat4_vector(mesh.inv_transform, d)
 
 
-def _mesh_candidate(mesh: MeshBlock, o_obj, d_obj, hit, t, tri, u, v) -> dict:
-    """The candidate fields of one mesh's nearest hits (t inf on a miss)."""
-    fields = resolve_mesh_hit(mesh, o_obj, d_obj, t, tri, u, v)
-    fields["mat"] = torch.full(t.shape, mesh.mat_id, dtype=torch.int32, device=t.device)
+def _mesh_candidate(mesh: MeshBlock, scene: SceneData, o_obj, d_obj, hit, t, tri, u, v) -> dict:
+    """The candidate fields of one mesh's nearest hits (t inf on a miss),
+    its material's fields among them."""
+    fields = resolve_mesh_hit(mesh, scene, o_obj, d_obj, t, tri, u, v)
     fields["valid"] = hit
     fields["t"] = torch.where(hit, t, torch.full_like(t, _BIG))
     return fields
@@ -202,7 +320,7 @@ def intersect_mesh_plain(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) 
             o_obj, d_obj, t_min, t_max, mesh.bounds_min, mesh.bounds_max, mesh.skip,
             mesh.leaf_start, mesh.leaf_count, mesh.tri_verts, mesh.leaf_size,
         )
-    return _mesh_candidate(mesh, o_obj, d_obj, hit, t, tri, u, v)
+    return _mesh_candidate(mesh, scene, o_obj, d_obj, hit, t, tri, u, v)
 
 
 def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dict:
@@ -217,7 +335,7 @@ def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dic
     o_obj, d_obj = object_rays(mesh, o, d)
     hit, t, tri, u, v = tri_scan.tri_scan_cuda(mesh, o_obj.contiguous(), d_obj.contiguous(),
                                                t_min, t_max)
-    return _mesh_candidate(mesh, o_obj, d_obj, hit, t, tri, u, v)
+    return _mesh_candidate(mesh, scene, o_obj, d_obj, hit, t, tri, u, v)
 
 
 def analytic_candidates(scene: SceneData, o, d, t_min, t_max, u_vol) -> list[dict]:
@@ -437,45 +555,65 @@ def select_winner(candidates: list[dict], fields):
     return winner, {f: select(f) for f in fields}
 
 
+def gvol_candidates(scene: SceneData, o, d, t_min, t_max, u_vol) -> list[dict]:
+    """Each general volume's scatter event as a candidate (valid, t inf
+    when invalid, point, zero normal, no front face, mat: its material id),
+    as analytic_candidates gives the other volumes'; its uniforms are
+    u_vol's columns after the V sphere-volume columns."""
+    n, n_vcols = o.shape[0], scene.vol_center.shape[0]
+    out = []
+    for g in range(scene.n_gvols):
+        t_g, v_g = intersect_general_volume(scene.gvol_tri[g], scene.gvol_density[g], o, d, t_min,
+                                            t_max, u_vol[:, n_vcols + g], eps=scene.gvol_eps[g])
+        out.append(dict(valid=v_g, t=torch.where(v_g, t_g, torch.full_like(t_g, _BIG)),
+                        point=o + t_g[:, None] * d, normal=torch.zeros_like(o),
+                        frontface=torch.zeros_like(v_g), mat=scene.gvol_mat[g].expand(n)))
+    return out
+
+
 def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
                           stats: dict | None = None) -> HitRecord:
     """Nearest hit across every primitive class (tracing.rs:326-350).
 
     o, d: (N, 3) world rays (directions may be unnormalized); t_min,
-    t_max: scalars or (N,); u_vol: (N, V) free-flight uniforms, V the
-    padded volume-table length. stats: when a dict, receives the dense
-    meshes' per-ray test counts (dense_scan_counts).
+    t_max: scalars or (N,); u_vol: (N, V + G) free-flight uniforms, V the
+    padded volume-table length, G the general volumes. stats: when a dict,
+    receives the dense meshes' per-ray test counts (dense_scan_counts).
     """
     n = o.shape[0]
-    candidates = analytic_candidates(scene, o, d, t_min, t_max, u_vol)
+    candidates = (analytic_candidates(scene, o, d, t_min, t_max, u_vol)
+                  + gvol_candidates(scene, o, d, t_min, t_max, u_vol))
+    for c in candidates:
+        c.update(_gather_material(scene, c["mat"]))
     for mesh in scene.meshes:
         candidates.append(intersect_mesh_plain(mesh, scene, o, d, t_min, t_max))
 
     # winner: argmin of raw t across classes, the earlier class on ties
     # (object-space mesh t against world t — the reference's quirk)
-    winner, sel = select_winner(candidates, ("t", "point", "normal", "frontface", "mat"))
+    winner, sel = select_winner(candidates, ("t", "point", "normal", "frontface") + MAT_FIELDS)
     if stats is not None:
         dense_scan_counts(scene, o, d, t_min, t_max, sel["t"], stats)
     valid = torch.zeros((n,), dtype=torch.bool, device=o.device)
     for g, c in enumerate(candidates):
         valid = valid | ((winner == g) & c["valid"])
-    return HitRecord(
-        valid=valid, t=sel["t"], point=sel["point"], normal=sel["normal"],
-        frontface=sel["frontface"], **_gather_material(scene, sel["mat"]),
-    )
+    return HitRecord(valid=valid, **sel)
 
 
 def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:
     """The staged path's intersection: K2 over the analytic classes and the
-    dense meshes, K3 per big mesh, merge, and one resolve of mesh winners
-    (intersect.py:559 in the JAX package, without textures and general
-    volumes). Same semantics as intersect_scene_plain.
+    dense meshes, K3 per big mesh, the general volumes, and one merged
+    resolve of the mesh winners (intersect.py:559 in the JAX package).
+    Same semantics as intersect_scene_plain.
 
     Each big mesh is traversed with t_max = min(t_max, t so far) per ray —
     hits already found cull its BVH (t is a valid bound because the ray
     parameter is transform-invariant) — and replaces the running winner
-    only at a strictly smaller t. The wrappers launch their kernels for
-    CUDA tensors and run their plain versions for CPU tensors.
+    only at a strictly smaller t; so does each general volume after them
+    (its winner code CODE_GVOL0 + g). K2 writes a dense mesh's material id
+    for its winners, -1 for a material synthesized from textures: the ids
+    are clipped to the table before the gather, and the resolve overwrites
+    every mesh winner. The wrappers launch their kernels for CUDA tensors
+    and run their plain versions for CPU tensors.
     """
     from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
 
@@ -483,16 +621,14 @@ def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
     o, d = o.contiguous(), d.contiguous()
     t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,)).contiguous()
     t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,)).contiguous()
-    u_vol = u_vol[:, :scene.vol_center.shape[0]].contiguous()
-    t, code, idx, mat, u, v, normal, ff = scene_intersect.scene_intersect_cuda(
-        scene, o, d, t_min, t_max, u_vol)
+    t, code, idx, mat_id, u, v, normal, ff = scene_intersect.scene_intersect_cuda(
+        scene, o, d, t_min, t_max, u_vol[:, :scene.vol_center.shape[0]].contiguous())
     valid = code >= 0
 
     n_dense = len(scene.dense_mesh_ids)
-    big_ids = [i for i in range(len(scene.meshes)) if i not in scene.dense_mesh_ids]
-    mesh_order = list(scene.dense_mesh_ids) + big_ids
+    mesh_order = resolve_order(scene.dense_mesh_ids, len(scene.meshes))
     obj_rays = {mi: object_rays(scene.meshes[mi], o, d) for mi in mesh_order}
-    for j, mi in enumerate(big_ids):
+    for j, mi in enumerate(mesh_order[n_dense:]):
         o_obj, d_obj = obj_rays[mi]
         hit_m, t_m, tri_m, u_m, v_m = tri_scan_big.tri_scan_big_cuda(
             scene.meshes[mi], o_obj.contiguous(), d_obj.contiguous(), t_min,
@@ -505,22 +641,165 @@ def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
         v = torch.where(better, v_m, v)
         valid = valid | better
 
-    point = o + t[:, None] * d
-    # mesh winners: shading resolve per mesh under its winner mask
-    for k, mi in enumerate(mesh_order):
-        mesh = scene.meshes[mi]
-        mask = code == CODE_MESH0 + k
-        o_obj, d_obj = obj_rays[mi]
-        tri = torch.clamp(idx, 0, mesh.tri_verts.shape[0] - 1)
-        res = resolve_mesh_hit(mesh, o_obj, d_obj, t, tri, u, v)
-        point = torch.where(mask[:, None], res["point"], point)
-        normal = torch.where(mask[:, None], res["normal"], normal)
-        ff = torch.where(mask, res["frontface"], ff)
-        mat = torch.where(mask, torch.full_like(mat, mesh.mat_id), mat)
-    return HitRecord(
-        valid=valid, t=torch.where(valid, t, torch.full_like(t, _BIG)), point=point,
-        normal=normal, frontface=ff, **_gather_material(scene, mat),
+    for g, c in enumerate(gvol_candidates(scene, o, d, t_min, t_max, u_vol)):
+        better = c["valid"] & (c["t"] < torch.where(valid, t, torch.full_like(t, _BIG)))
+        t = torch.where(better, c["t"], t)
+        code = torch.where(better, torch.full_like(code, CODE_GVOL0 + g), code)
+        mat_id = torch.where(better, c["mat"], mat_id)
+        normal = torch.where(better[:, None], 0.0, normal)
+        ff = ff & ~better
+        valid = valid | better
+
+    fields = dict(point=o + t[:, None] * d, normal=normal, frontface=ff, mat=mat_id)
+    if mesh_order:
+        with record_function("mesh_resolve"):
+            fields = resolve_mesh_winners(scene, obj_rays, code, t, idx, u, v, fields)
+    else:
+        fields.update(_gather_material(scene, _table_ids(scene, fields.pop("mat"))))
+    return HitRecord(valid=valid, t=torch.where(valid, t, torch.full_like(t, _BIG)), **fields)
+
+
+def _table_ids(scene: SceneData, mid):
+    """Material ids clipped to the table: K2 writes -1 for a winner whose
+    material is synthesized from textures, and torch would wrap it to the
+    last row (the resolve replaces those winners' fields)."""
+    return torch.clamp(mid, 0, scene.mat_type.shape[0] - 1)
+
+
+def _per_ray(values: list, masks: list, shape: tuple = ()) -> torch.Tensor:
+    """(N, *shape): values[j] (a row, a per-ray tensor or a scalar) on the
+    rays of masks[j], values[0] on every other ray (the caller masks those
+    out)."""
+    dev = masks[0].device
+    out = torch.as_tensor(values[0], device=dev)
+    for val, mask in zip(values[1:], masks[1:]):
+        out = torch.where(mask.reshape(-1, *[1] * len(shape)), torch.as_tensor(val, device=dev),
+                          out)
+    return torch.broadcast_to(out, (masks[0].shape[0], *shape))
+
+
+class MeshWinners(NamedTuple):
+    """The merged resolve's per-ray view of the mesh winners."""
+
+    is_mesh: torch.Tensor  # (N,) bool: a mesh won the ray
+    masks: list  # per mesh of resolve_order, (N,) bool: that mesh won
+    rows: torch.Tensor  # (N, 18) the winner's kmesh_res row
+
+
+def mesh_winners(scene: SceneData, code, idx) -> MeshWinners:
+    """The mesh winners of codes `code` (mesh j of resolve_order at
+    CODE_MESH0 + j) and their triangles idx (clamped to their mesh): one
+    gather of their kmesh_res rows."""
+    order = resolve_order(scene.dense_mesh_ids, len(scene.meshes))
+    masks = [code == CODE_MESH0 + j for j in range(len(order))]
+    first = [0]
+    for mi in order:
+        first.append(first[-1] + scene.meshes[mi].tri_normals.shape[0])
+    row = _per_ray([first[j] + torch.clamp(idx, 0, first[j + 1] - first[j] - 1)
+                    for j in range(len(order))], masks)
+    is_mesh = masks[0]
+    for mask in masks[1:]:
+        is_mesh = is_mesh | mask
+    return MeshWinners(is_mesh, masks, scene.kmesh_res[row.long()])
+
+
+def _barycentric(corners, u, v):
+    """u·b + v·c + (1 - u - v)·a of (N, 3K) rows of corners [a, b, c]
+    (geometry.rs:350, 355)."""
+    k = corners.shape[1] // 3
+    w = 1.0 - u - v
+    return (u[:, None] * corners[:, k:2 * k] + v[:, None] * corners[:, 2 * k:]
+            + w[:, None] * corners[:, :k])
+
+
+def _slot(scene: SceneData, win: MeshWinners, slot: int):
+    """(offset, width, height, bound) of texture slot `slot` of each
+    winner's mesh (kmesh_tex); an unbound slot reads texel 0 of a 1 × 1
+    texture."""
+    bind = _per_ray(list(scene.kmesh_tex[:len(win.masks), 3 * slot:3 * slot + 3]), win.masks,
+                    (3,))
+    bound = win.is_mesh & (bind[:, 0] >= 0)
+    one = torch.ones_like(bound, dtype=torch.int32)
+    return (torch.where(bound, bind[:, 0], torch.zeros_like(one)),
+            torch.where(bound, bind[:, 1], one), torch.where(bound, bind[:, 2], one), bound)
+
+
+def mesh_texels(scene: SceneData, code, idx, u, v, slot: int = 0) -> torch.Tensor:
+    """The atlas row that the merged resolve samples for texture slot
+    `slot` of each mesh winner (code, idx, u, v as the scene-intersection
+    kernels return them), -1 where no mesh won or the slot is unbound."""
+    win = mesh_winners(scene, code, idx)
+    uv = _barycentric(win.rows[:, 9:15], u, v)
+    off, w, h, bound = _slot(scene, win, slot)
+    return torch.where(bound, texel_index(off, w, h, uv), -1)
+
+
+def resolve_mesh_winners(scene: SceneData, obj_rays: dict, code, t, idx, u, v,
+                         fields: dict) -> dict:
+    """The shading resolve of every mesh winner at once (intersect.py:751
+    in the JAX package, `_resolve_mesh_winners_merged`; the values of
+    resolve_mesh_hit, bit for bit): one gather of the winners' triangle
+    rows from scene.kmesh_res (mesh_winners), per-ray selects of each
+    winner's object-space ray, transform rows (kmesh_xfm) and texture
+    bindings (kmesh_tex) over the few meshes, one atlas gather per texture
+    slot that some mesh binds, then one gather of the material rows.
+
+    obj_rays: mesh index → that mesh's object-space (o, d). fields: point,
+    normal, frontface and mat (the material id) of every ray. Returns
+    point, normal, frontface and the material's fields (MAT_FIELDS), the
+    mesh winners' in place: their mesh's material row, or the material
+    synthesized from its textures."""
+    order = resolve_order(scene.dense_mesh_ids, len(scene.meshes))
+    meshes = [scene.meshes[mi] for mi in order]
+    n = code.shape[0]
+    win = mesh_winners(scene, code, idx)
+    o_obj = _per_ray([obj_rays[mi][0] for mi in order], win.masks, (3,))
+    d_obj = _per_ray([obj_rays[mi][1] for mi in order], win.masks, (3,))
+    n_smooth = vm.normalize(_barycentric(win.rows[:, 0:9], u, v), eps=1e-30)
+    frontface = vm.dot(n_smooth, d_obj) < 0.0
+    n_flip = torch.where(frontface[:, None], n_smooth, -n_smooth)
+    if any(t_id >= 0 for m in meshes for t_id in m.tex_ids):
+        uv = _barycentric(win.rows[:, 9:15], u, v)
+
+    def sample_slot(slot):  # (rgb, bound): the slot's texel where the winner's mesh binds one
+        off, w, h, bound = _slot(scene, win, slot)
+        return sample_texture_dyn(scene, off, w, h, uv), bound
+
+    n_obj = n_flip
+    if any(m.tex_ids[4] >= 0 for m in meshes):
+        nm_rgb, nm_bound = sample_slot(4)
+        n_obj = torch.where(nm_bound[:, None], _normal_mapped(n_flip, win.rows[:, 15:18], nm_rgb),
+                            n_flip)
+
+    def mat3(r, p):  # rows r (N, 9) row-major times p, apply_mat4_vector's order
+        return r[:, 0::3] * p[:, 0:1] + r[:, 1::3] * p[:, 1:2] + r[:, 2::3] * p[:, 2:3]
+
+    xfm = _per_ray(list(scene.kmesh_xfm[:len(order)]), win.masks, (21,))
+    is_mesh = win.is_mesh
+    out = dict(
+        point=torch.where(is_mesh[:, None],
+                          mat3(xfm[:, 9:18], o_obj + t[:, None] * d_obj) + xfm[:, 18:21],
+                          fields["point"]),
+        normal=torch.where(is_mesh[:, None], vm.normalize(mat3(xfm[:, 0:9], n_obj), eps=1e-30),
+                           fields["normal"]),
+        frontface=torch.where(is_mesh, frontface, fields["frontface"]),
     )
+    mesh_mat = _per_ray([m.mat_id for m in meshes], win.masks)
+    out.update(_gather_material(scene, _table_ids(scene, torch.where(is_mesh, mesh_mat,
+                                                                     fields["mat"]))))
+    if any(m.mat_id < 0 for m in meshes):  # materials synthesized from textures
+        synth = is_mesh & (mesh_mat < 0)
+        tm = _synthesized_material(n, t)
+        for slot, name in enumerate(("albedo", "emission", "metallic", "roughness")):
+            if any(m.mat_id < 0 and m.tex_ids[slot] >= 0 for m in meshes):
+                rgb, bound = sample_slot(slot)
+                if name in ("albedo", "emission"):
+                    tm[name] = torch.where(bound[:, None], rgb, tm[name])
+                else:
+                    tm[name] = torch.where(bound, rgb[:, 0], tm[name])
+        for f in MAT_FIELDS:
+            out[f] = torch.where(synth[:, None] if out[f].ndim > 1 else synth, tm[f], out[f])
+    return out
 
 
 def intersect_scene(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:

@@ -79,15 +79,19 @@ def resident_blocks(scene: SceneData) -> int:
 
 def scene_is_simple(scene: SceneData) -> bool:
     """True when K1 can run the scene (bounce.py:285 in the JAX package):
-    every mesh dense with an explicit material, at most 128 materials and
-    at most 128 analytic primitives."""
+    every mesh dense with an explicit material and no normal map, no
+    general-boundary volume, at most 128 materials and at most 128
+    analytic primitives. K1 reads neither textures nor general volumes:
+    the staged path renders those scenes."""
     if len(scene.dense_mesh_ids) != len(scene.meshes):
+        return False
+    if scene.n_gvols:
         return False
     if int(scene.mat_type.shape[0]) > LANES:
         return False
     if scene.n_spheres + scene.n_planes + scene.n_tris + scene.n_volumes > LANES:
         return False
-    return all(m.mat_id >= 0 for m in scene.meshes)
+    return all(m.mat_id >= 0 and m.tex_ids[4] < 0 for m in scene.meshes)
 
 
 def check_tensor(name: str, x: torch.Tensor, dtype, shape, device) -> None:

@@ -11,7 +11,8 @@ Output, per ray: t (float32; t_max on a miss; object-space t for a mesh
 winner), code (int32: -1 miss, 0 sphere, 1 plane, 2 triangle, 3 volume,
 4 + k dense mesh k in dense_mesh_ids order), idx (int32: index in its
 class; the mesh's own row, in BVH order, for a mesh winner), mat (int32
-material id), u, v (barycentrics of a mesh winner, else 0), normal
+material id; a dense mesh's own, -1 where its material is synthesized
+from its textures: the caller resolves mesh winners), u, v (barycentrics of a mesh winner, else 0), normal
 ((N, 3) front-facing shading normal of an analytic winner; zero for
 volumes and meshes, whose winners the caller resolves) and frontface
 (bool; false for volumes and meshes).

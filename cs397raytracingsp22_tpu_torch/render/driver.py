@@ -14,8 +14,9 @@ content, so chunk sizes never change the image.
   the reference estimator only;
 - a scene that passes `scene_is_simple` to the mega-bounce kernel
   (ops/kernels/bounce.py; its plain version for CPU tensors);
-- any other scene (today, one with a mesh beyond the dense budget) to
-  the staged executor (integrator.path_trace_shrink).
+- any other scene (a mesh beyond the dense budget, a normal map, a
+  material synthesized from textures, a general-boundary volume) to the
+  staged executor (integrator.path_trace_shrink).
 Phong, NEE and the staged executor intersect through
 ops/intersect.py::intersect_scene: the scene-intersection kernel K2 (and
 the big-mesh kernel K3 per big mesh) for CUDA tensors, their plain
@@ -70,6 +71,9 @@ class RenderStats:
     # accumulator's mean over spp; a resumed render's includes the
     # checkpoint's samples)
     mean_radiance: float = 0.0
+    # pixels whose HDR sum holds a NaN or inf (a mapped normal over a
+    # triangle whose uv determinant is 0 gives the reference's NaN)
+    nonfinite_pixels: int = 0
 
     @property
     def primary_mrays_per_sec(self) -> float:
@@ -155,13 +159,15 @@ def _finalize_image(pieces, n_px: int, spp: int, gamma: float) -> torch.Tensor:
 
 def chunk_pixels(scene_data: SceneData, camera: Camera, spp_chunk: int) -> int:
     """Pixels per chunk from a work budget (ray segments × primitive
-    tests; 32× larger for big-mesh scenes), rounded down to a power of two
+    tests, a general volume's boundary triangles among them; 32× larger
+    for big-mesh scenes), rounded down to a power of two
     (driver.py:451-492)."""
     n_px_total = camera.screen_width * camera.screen_height
     per_px_rays = max(1, spp_chunk * max(1, camera.path_samples))
     prim_tests = (
         scene_data.n_spheres + scene_data.n_planes + scene_data.n_tris
-        + scene_data.n_volumes + sum(int(m.tri_verts.shape[0]) for m in scene_data.meshes)
+        + scene_data.n_volumes + sum(int(g.shape[0]) for g in scene_data.gvol_tri)
+        + sum(int(m.tri_verts.shape[0]) for m in scene_data.meshes)
     )
     work_per_px = per_px_rays * max(1, camera.path_depth) * max(16, prim_tests)
     budget = CHUNK_WORK_BUDGET
@@ -304,7 +310,9 @@ def render_to_image(
                 # the estimator: a resume with the other --nee would blend two
                 nee=np.int64(int(bool(cam.nee))),
             )
-    stats.mean_radiance = float(_raster(pieces, n_px_total).mean()) / max(spp, 1)
+    accum = _raster(pieces, n_px_total)
+    stats.mean_radiance = float(accum.mean()) / max(spp, 1)
+    stats.nonfinite_pixels = int((~torch.isfinite(accum)).any(dim=1).sum())
     img = _finalize_image(pieces, n_px_total, spp, cam.gamma).cpu().numpy().reshape(h, w, 3)
     stats.path_segments = int(seg_total)
     stats.wall_seconds = time.perf_counter() - t_start

@@ -53,11 +53,13 @@ def background_color(d: torch.Tensor) -> torch.Tensor:
 
 def _bounce_draws(scene: SceneData, rng_key, uids: torch.Tensor, site):
     """One bounce's draws from the counter RNG: ball vector, branch
-    uniform and one free-flight uniform per volume-table row (draw slots
-    4..4+V). Profiler traces show them as the span "bounce_rng"."""
+    uniform, one free-flight uniform per volume-table row (draw slots
+    4..4+V) and one per general volume (the G slots after them; each slot
+    is independent, so they move no sphere-volume draw). Profiler traces
+    show them as the span "bounce_rng"."""
     with record_function("bounce_rng"):
         n_vol = scene.vol_center.shape[0]
-        u = threefry.bounce_uniforms(rng_key, uids, site, 4 + n_vol)
+        u = threefry.bounce_uniforms(rng_key, uids, site, 4 + n_vol + scene.n_gvols)
         ball = sampling.ball_vec_from_uniform(u[:, 0:3])
         return ball, u[:, 3], u[:, 4:]
 

@@ -134,13 +134,13 @@ def sample_light_point(scene: SceneData, u_pick, u1, u2):
 
 
 def nee_draws(scene: SceneData, rng_key, uids: torch.Tensor, depth: int) -> torch.Tensor:
-    """One bounce's NEE draws, (N, 4 + V) at site SITE_NEE0 + depth: light
-    pick, two area uniforms, the shadow ray's ball length, and one
-    free-flight uniform per volume-table row. Profiler traces show them
-    as the span "nee_rng"."""
+    """One bounce's NEE draws, (N, 4 + V + G) at site SITE_NEE0 + depth:
+    light pick, two area uniforms, the shadow ray's ball length, and one
+    free-flight uniform per volume-table row and per general volume.
+    Profiler traces show them as the span "nee_rng"."""
     with record_function("nee_rng"):
         return threefry.counter_uniforms(rng_key, uids, SITE_NEE0 + depth,
-                                         4 + scene.vol_center.shape[0])
+                                         4 + scene.vol_center.shape[0] + scene.n_gvols)
 
 
 def direct_light(scene: SceneData, hit: HitRecord, d_in: torch.Tensor, u_choice: torch.Tensor,

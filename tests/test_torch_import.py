@@ -17,6 +17,7 @@ from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, wavefront
 from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_peak
 from cs397raytracingsp22_tpu_torch.render import driver, integrator, nee
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell, teapot
+from cs397raytracingsp22_tpu_torch.scenes import kitchen_sink, textured_spheres
 from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, compare_k1, compare_k4, profile_split
 from cs397raytracingsp22_tpu_torch.tools import vpu_peak as vpu_peak_tool
 from cs397raytracingsp22_tpu_torch.tools import vpu_peak_shape, vpu_peak_smem, walk_counts

@@ -24,9 +24,10 @@ torch.set_num_threads(1)  # several test workers share the cores
 
 TEAPOT_6K = tbench.TEAPOT_6K
 
-_MESH_FIELDS = ("tri_verts", "tri_table", "tri_normals", "transform", "inv_transform",
-                "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start", "leaf_count")
-_STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "kmesh_ranges",
+_MESH_FIELDS = ("tri_verts", "tri_table", "tri_normals", "tri_uvs", "tri_tangent", "transform",
+                "inv_transform", "normal_mat", "bounds_min", "bounds_max", "skip", "leaf_start",
+                "leaf_count")
+_STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "n_gvols", "gvol_eps", "kmesh_ranges",
            "ksl_ranges", "dense_mesh_ids", "mat_types_present", "n_lt_tri", "n_lt_sph",
            "nee_ok")
 
@@ -52,10 +53,12 @@ def port_data_from_jax(jsd) -> SceneData:
     arrays = {
         f.name: np.asarray(getattr(jsd, f.name))
         for f in dataclasses.fields(SceneData)
-        if f.name not in _STATIC and f.name not in PACKED and f.name != "meshes"
+        if f.name not in _STATIC and f.name not in PACKED and f.name not in ("meshes", "gvol_tri")
     }
+    arrays["gvol_tri"] = [np.asarray(x) for x in jsd.gvol_tri]
     arrays["meshes"] = [
-        {**{k: np.asarray(getattr(m, k)) for k in _MESH_FIELDS}, "leaf_size": m.leaf_size}
+        {**{k: np.asarray(getattr(m, k)) for k in _MESH_FIELDS}, "leaf_size": m.leaf_size,
+         "tex_ids": m.tex_ids, "has_uv": m.has_uv}
         for m in jsd.meshes
     ]
     meta = {k: getattr(jsd, k) for k in _STATIC}
@@ -66,8 +69,10 @@ def port_data_from_jax(jsd) -> SceneData:
 def assert_scene_data_equal(port: SceneData, jsd) -> None:
     """Every table the JAX package also compiles (it has no PACKED ones),
     the light tables lt_tri and lt_sph, Phong's point_light_pos and
-    ambient, and the static fields, n_lt_tri, n_lt_sph and nee_ok among
-    them."""
+    ambient, the texture atlas and the general volumes' rows, and the
+    static fields, n_lt_tri, n_lt_sph, nee_ok, n_gvols and gvol_eps among
+    them. Non-finite values (a tangent where the uv determinant is 0) must
+    stand in the same places."""
     for f in dataclasses.fields(SceneData):
         name = f.name
         if name in PACKED:
@@ -76,10 +81,16 @@ def assert_scene_data_equal(port: SceneData, jsd) -> None:
             assert len(port.meshes) == len(jsd.meshes)
             for pm, jm in zip(port.meshes, jsd.meshes):
                 assert pm.mat_id == jm.mat_id and pm.leaf_size == jm.leaf_size
+                assert pm.tex_ids == tuple(jm.tex_ids) and pm.has_uv == jm.has_uv
                 for k in _MESH_FIELDS:
                     a, b = pm.__dict__[k].numpy(), np.asarray(getattr(jm, k))
                     assert a.dtype == b.dtype, k
                     np.testing.assert_array_equal(a, b, err_msg=f"mesh.{k}")
+        elif name == "gvol_tri":
+            assert len(port.gvol_tri) == len(jsd.gvol_tri)
+            for a, b in zip(port.gvol_tri, jsd.gvol_tri):
+                assert a.dtype == torch.float32
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=name)
         elif name in _STATIC:
             assert getattr(port, name) == getattr(jsd, name), name
             assert type(getattr(port, name)) is type(getattr(jsd, name)), name
@@ -121,10 +132,10 @@ def test_round_trip_from_numpy(bench_pair):
     assert_scene_data_equal(moved, jsd)
 
 
-def test_compile_refuses_the_staged_path(tmp_path):
-    """Textured meshes and general-boundary volumes are a later slice of
-    the staged path; meshes beyond the dense budget compile (see
-    test_big_mesh_tables_equal)."""
+def test_compile_accepts_the_staged_path(tmp_path):
+    """Textured meshes, materials synthesized from textures and
+    general-boundary volumes compile; so do meshes beyond the dense budget
+    (see test_big_mesh_tables_equal)."""
     from cs397raytracingsp22_tpu_torch import (
         ConvexVolume, Isotropic, Lambertian, Scene, StaticMesh, Triangle,
     )
@@ -135,16 +146,17 @@ def test_compile_refuses_the_staged_path(tmp_path):
         boundary=Triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), Lambertian()),
         phase_function=Isotropic(), density=1.0,
     )
-    with pytest.raises(NotImplementedError, match="staged path"):
-        Scene(camera=cam, objects=[gvol]).compile(device="cpu")
+    sd = Scene(camera=cam, objects=[gvol]).compile(device="cpu")
+    assert sd.n_gvols == 1 and sd.n_volumes == 0 and sd.gvol_tri[0].shape == (1, 9)
     mesh = ObjMesh(
         positions=np.eye(3, dtype=np.float32), normals=np.eye(3, dtype=np.float32),
         texcoords=np.zeros((3, 2), np.float32), indices=np.array([[0, 1, 2]], np.int32),
         has_normals=True, has_texcoords=True,
     )
     textured = StaticMesh(mesh, [np.zeros((2, 2, 3), np.uint8)] + [None] * 4, None, np.eye(4))
-    with pytest.raises(NotImplementedError, match="staged path"):
-        Scene(camera=cam, objects=[textured]).compile(device="cpu")
+    sd = Scene(camera=cam, objects=[textured]).compile(device="cpu")
+    assert sd.meshes[0].mat_id == -1 and sd.meshes[0].tex_ids == (0, -1, -1, -1, -1)
+    assert sd.tex_pixels.shape == (4, 3) and sd.dense_mesh_ids == (0,)
     n = 8200  # beyond the dense budget: a big mesh, which compiles
     big = ObjMesh(
         positions=np.random.default_rng(0).random((n + 2, 3)).astype(np.float32),

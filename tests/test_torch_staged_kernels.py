@@ -6,7 +6,9 @@ one. Run them on a machine with the card:
     python -m pytest tests/test_torch_staged_kernels.py -q
 
 The file imports no JAX; its ray and scene helpers are shared with the
-JAX parity tests of tests/test_torch_staged.py.
+JAX parity tests of tests/test_torch_staged.py and
+tests/test_torch_kitchen_sink.py (the kitchen sink's bounce rays: its
+textured meshes through K2 and K3, its general volume merged after them).
 
 Tolerance: the same winner — K2's (code, idx), K3's (hit, tri) — on at
 least 99.9% of rays (a ray that grazes a triangle edge flips when one
@@ -17,6 +19,8 @@ path as a whole is held to K1's contract (rtol 1e-3, atol 1e-4 on at
 least 99.5% of rays, segments within depth × rays outside).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -24,7 +28,8 @@ import torch
 from cs397raytracingsp22_tpu_torch.ops import intersect as isect
 from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
-from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene, kitchen_sink
+from cs397raytracingsp22_tpu_torch.utils.rng import SITE_BOUNCE0
 from test_torch_bounce_kernel import assert_paths_match  # tests/ is on sys.path under pytest
 
 MIN_SAME = 0.999
@@ -105,6 +110,25 @@ def cuda():
     return torch.device("cuda")
 
 
+def bounce_rays(sd, cam, bounces):
+    """The staged path's rays entering each bounce in `bounces` for the
+    camera rays of a 32×32 × 2 spp chunk: (o, d, t_max, u_vol) each."""
+    ids = torch.arange(32 * 32, dtype=torch.int32)
+    cam = dataclasses.replace(cam, screen_width=32, screen_height=32)
+    o, d, uids = driver._gen_chunk_rays(cam, ids, 3, 0, 2, 1)
+    thr, rad = torch.ones_like(o), torch.zeros_like(o)
+    alive = torch.ones(o.shape[0], dtype=torch.bool)
+    out = {}
+    for b in range(max(bounces) + 1):
+        site = SITE_BOUNCE0 + b
+        if b in bounces:
+            u_vol = integrator._bounce_draws(sd, 3, uids, site)[2]
+            out[b] = (o, d, torch.where(alive, 100.0, 0.0), u_vol)
+        o, d, thr, rad, alive, _ = integrator._bounce_update(sd, o, d, thr, rad, alive, uids, 3,
+                                                             site, 100.0)
+    return out
+
+
 def _on(dev, *xs):
     return [torch.from_numpy(x).to(dev) for x in xs]
 
@@ -174,3 +198,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         tri_scan_big.tri_scan_big_cuda(mesh, o, d, t_min.cpu(), t_max)
     with pytest.raises(ValueError, match="shape"):
         tri_scan_big.tri_scan_big_cuda(mesh, o, d[:8], t_min, t_max)
+
+
+@pytest.mark.gpu
+def test_kitchen_sink_fused_on_card_matches_plain(cuda):
+    """K2 and K3 through intersect_scene_fused on the card against
+    intersect_scene_plain on the card: the same valid flag, and on a hit
+    the same material type, on >= 99.9% of rays; the hit fields within rtol
+    1e-4 / atol 1e-5 there."""
+    sd = kitchen_sink.build().compile(device=cuda)
+    cam = kitchen_sink.build().camera
+    for b, ins in bounce_rays(kitchen_sink.build().compile(device="cpu"), cam, (0, 2)).items():
+        o, d, t_max, u_vol = (x.to(cuda) for x in ins)
+        k2, k3 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
+        fused = isect.intersect_scene_fused(sd, o, d, integrator.PATH_T_MIN, t_max, u_vol)
+        assert scene_intersect.LAUNCHES == k2 + 1 and tri_scan_big.LAUNCHES == k3 + 2
+        plain = isect.intersect_scene_plain(sd, o, d, integrator.PATH_T_MIN, t_max, u_vol)
+        # a miss carries no material: compare the material type where the spec hits
+        same = (fused.valid == plain.valid) & (~plain.valid | (fused.mtype == plain.mtype))
+        assert float(same.float().mean()) >= 0.999, b
+        m = same & plain.valid
+        for f in ("t", "point", "normal", "albedo"):
+            torch.testing.assert_close(getattr(fused, f)[m], getattr(plain, f)[m], rtol=1e-4,
+                                       atol=1e-5, equal_nan=True)

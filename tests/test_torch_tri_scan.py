@@ -208,13 +208,14 @@ def table_mesh(table: np.ndarray) -> tscene.MeshBlock:
     nt = table.shape[0]
     return tscene.MeshBlock(
         tri_verts=torch.zeros((nt, 3, 3)), tri_table=torch.from_numpy(table),
-        tri_normals=torch.zeros((nt, 3, 3)), transform=torch.eye(4), inv_transform=torch.eye(4),
+        tri_normals=torch.zeros((nt, 3, 3)), tri_uvs=torch.zeros((nt, 3, 2)),
+        tri_tangent=torch.zeros((nt, 3)), transform=torch.eye(4), inv_transform=torch.eye(4),
         normal_mat=torch.eye(3), bounds_min=torch.zeros((1, 3)), bounds_max=torch.zeros((1, 3)),
         skip=torch.ones((1,), dtype=torch.int32), leaf_start=torch.zeros((1,), dtype=torch.int32),
         leaf_count=torch.zeros((1,), dtype=torch.int32), bvh_nodes=torch.zeros((1, 16)),
         bvh_tri4=torch.zeros((nt, 12)),
         tri_table4=torch.from_numpy(np.concatenate([table, np.zeros((nt, 3), np.float32)], 1)),
-        mat_id=0, leaf_size=4, bvh_depth=0,
+        mat_id=0, tex_ids=(-1,) * 5, has_uv=False, leaf_size=4, bvh_depth=0,
     )
 
 
