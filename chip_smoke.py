@@ -169,6 +169,29 @@ resolve shades (ops/intersect.py::resolve_mesh_winners, span
      against intersect_scene_plain on one chunk's camera rays (the same
      valid flag and material type on >= 99.9%), and the staged executor
      against the plain path on the strided sample.
+Then the sharded driver (parallel/: pixels over the mesh's dp axis,
+samples over sp, render_to_image(mesh=...)), whose ranks launch K1, K2
+and K3 on their shards:
+ 31. mesh-nccl: a world of one on NCCL (multihost.initialize on
+     tcp://127.0.0.1, a free port) and make_device_mesh(1, 1): the bench
+     frame (512² × 64 spp, depth 8, K1) and the 32k image (4 chunks, K2 +
+     K3) through render_to_image(mesh=...), the u8 image and the HDR
+     accumulator (the checkpoint each render writes) bit-identical to the
+     one-device render's; both timed in turns (mean of 2 after a warm
+     render): what the sharded path costs, with stats.device_count; one
+     render of each traced: kernels, busy, idle share, and the all_reduce
+     calls' host time;
+ 32. mesh-ranks: 4 gloo ranks on the one card (torch.multiprocessing,
+     spawned after phase 2 built the kernels), mesh 2x2: the bench frame,
+     one 4,194,304-ray chunk of the 32k scene (256² × 64 spp) and the NEE
+     frame at 256² × 16 spp, every rank's image and rank 0's accumulator
+     bit-identical to one device at spp_chunk / 2, no checkpoint but rank
+     0's; then mesh-resume: 2 ranks (mesh 1x2) killed at the first chunk
+     of their second spp chunk and resumed from the file in rank 0's
+     directory only, bit-identical to the uninterrupted one-device render
+     at spp_chunk / 2; each rank's K1, K2 and K3 launches. With more than
+     one card the same renders run with one NCCL rank a card
+     (mesh-nccl-cards). Four ranks sharing one card measure no scaling.
 Phases 6, 7, 9, 10, 14, 17, 25-27 and 28-30 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
@@ -186,9 +209,10 @@ sum of the timed renders of phase 10, the timed NEE renders of phase 25,
 the NEE chunk of phase 26, the timed Phong renders of phase 27, the
 kitchen-sink render of phase 28, the timed config-4 renders and its NEE
 chunk of phase 29; K3's of phases 10, 26 and 28 (K3's counts both its
-kernels, the screen and the walk: two a call); K4's of the two wavefront runs of phase 14, K5's of
-the intersect_mesh call of phase 17, and P1-P5's of their tools' runs in
-phases 22-24. Each counter is reset just before its path
+kernels, the screen and the walk: two a call); and, for K1, K2 and K3,
+the sharded renders of phase 31 and every rank's renders of phase 32;
+K4's of the two wavefront runs of phase 14, K5's of the intersect_mesh
+call of phase 17, and P1-P5's of their tools' runs in phases 22-24. Each counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
 plain version fall outside.
 """
@@ -2248,7 +2272,318 @@ def textured_phases(dev) -> dict:
     return {"k2": k2_k + k2_4 + k2_n, "k3": k3_k}
 
 
+# ---- phases 31-32: rendering over a mesh of ranks (parallel/) ----
+
+# frame → (scene module, build function, its kwargs, NEE). Phase 31 renders the
+# first two through a world of one on NCCL; phase 32 renders the bench
+# frame, one 4,194,304-ray chunk of the 32k scene and the NEE frame
+# (MESH_FRAMES) over 4 gloo ranks sharing the card, and RESUME_FRAME over 2.
+NCCL_FRAMES = {
+    "bench": ("bench_scene", "build", dict(width=512, height=512, spp=64, path_depth=8), False),
+    "32k": ("bench_teapot_32k", "build", dict(width=512, height=512, spp=64, path_depth=8), False),
+}
+MESH_FRAMES = {
+    "bench": NCCL_FRAMES["bench"],
+    "32k-chunk": ("bench_teapot_32k", "build", dict(width=256, height=256, spp=64, path_depth=8),
+                  False),
+    "nee": ("bench_scene", "build", dict(width=256, height=256, spp=16, path_depth=8), True),
+}
+RESUME_FRAME = ("bench_scene", "build", dict(width=256, height=256, spp=16, path_depth=8), False)
+RESUME_SPP_CHUNK = 8  # two spp chunks; the render is killed at the first chunk of the second
+RANKS_TIMEOUT = 300  # seconds for a group of spawned ranks, start-up included
+
+
+def frame_scene(frame):
+    import dataclasses
+    import importlib
+
+    module, fn, kw, nee = frame
+    scene = getattr(importlib.import_module("cs397raytracingsp22_tpu_torch.scenes." + module),
+                    fn)(**kw)
+    if nee:
+        scene = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera, nee=True))
+    return scene
+
+
+def mesh_rank(rank: int, world: int, port: int, backend: str, device: str, mesh_shape, jobs,
+              out_dir: str) -> None:
+    """One spawned rank of phase 32: joins the group, renders each job over
+    the mesh through render_to_image and saves its image, its stats and the
+    kernels it launched (counts set to 0 just before each render and read
+    just after). A job with `kill_after` raises at that chunk call on every
+    rank, before the chunk's collectives, and saves nothing."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.parallel import multihost, sharding
+    from cs397raytracingsp22_tpu_torch.render import driver
+
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend=backend, device=device)
+    mesh = sharding.make_device_mesh(*mesh_shape)
+    real, report = driver.render_chunk, {}
+    for job in jobs:
+        scene = frame_scene(job["frame"])
+        data = scene.compile(device=device)
+        kw = dict(job["render"])
+        if "checkpoint_path" in kw:
+            kw["checkpoint_path"] = kw["checkpoint_path"].format(rank=rank)
+            os.makedirs(os.path.dirname(kw["checkpoint_path"]), exist_ok=True)
+        calls = []
+
+        def chunk(*a, _calls=calls, _kill=job.get("kill_after"), **k):
+            _calls.append(1)
+            if _kill is not None and len(_calls) > _kill:
+                raise RuntimeError("killed")
+            return real(*a, **k)
+
+        driver.render_chunk = chunk
+        bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0
+        try:
+            img, st = driver.render_to_image(scene, device=device, seed=0, verbose=False,
+                                             scene_data=data, mesh=mesh, **kw)
+        except RuntimeError as e:
+            if "killed" not in str(e):
+                raise
+            continue
+        finally:
+            driver.render_chunk = real
+        report[job["name"]] = dict(
+            launches=[bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES],
+            seconds=st.wall_seconds, compile_seconds=st.compile_seconds,
+            segments=st.path_segments, device_count=st.device_count, chunks=st.chunks)
+        np.save(os.path.join(out_dir, f"{job['name']}_r{rank}.npy"), img)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f)
+    dist.destroy_process_group()
+
+
+def spawn_ranks(world: int, backend: str, device: str, mesh_shape, jobs, out_dir: str):
+    """Run mesh_rank in `world` spawned processes; fails when any rank
+    fails or the group outlives RANKS_TIMEOUT (every rank is killed).
+    Returns (each rank's report, seconds of the group)."""
+    import torch.multiprocessing as mp
+
+    from cs397raytracingsp22_tpu_torch.parallel import multihost
+
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(mesh_rank, args=(world, multihost.free_port(), backend, device,
+                                              mesh_shape, jobs, out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > RANKS_TIMEOUT:
+                raise AssertionError(f"{world} ranks still running after {RANKS_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    reports = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports, time.perf_counter() - t0
+
+
+def collective_host_time(name: str) -> tuple[int, float]:
+    """The all_reduce calls in device_trace's trace `name` and the host
+    milliseconds they took (the union of the c10d::allreduce_ spans)."""
+    with open(os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")) as f:
+        spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in json.load(f)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("name") == "c10d::allreduce_")
+    total, end = 0.0, -1.0
+    for a, b in spans:
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(spans), total / 1e3
+
+
+def read_accum(path: str) -> np.ndarray:
+    with np.load(path) as f:
+        return f["accum"]
+
+
+def mesh_phases(dev) -> list:
+    """Phases 31-32 (see the module docstring): the sharded driver on a
+    world of one on NCCL, and over 4 (and 2) gloo ranks sharing the card.
+    Returns the launches of K1, K2 and K3 on these paths."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.parallel import multihost, sharding
+    from cs397raytracingsp22_tpu_torch.render import driver
+
+    out = os.path.join(ROOT, "build", "chip_smoke", "mesh")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    counts = [0, 0, 0]  # K1, K2, K3
+
+    def zero():
+        bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0
+
+    def read():
+        got = [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES]
+        for i, n in enumerate(got):
+            counts[i] += n
+        return got
+
+    # ---- 31. mesh-nccl: the sharded path on a world of one ----
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, device=dev)
+    try:
+        mesh = sharding.make_device_mesh(1, 1)
+        for name, frame in NCCL_FRAMES.items():
+            scene = frame_scene(frame)
+            data = scene.compile(device=dev)
+
+            def run(m, **kw):
+                return driver.render_to_image(scene, device=dev, seed=0, verbose=False,
+                                              scene_data=data, mesh=m, **kw)
+
+            run(None)
+            run(mesh)  # warm
+            secs, launched = {"one": [], "mesh": []}, [0, 0, 0]
+            for m in (None, mesh, mesh, None):  # in turns
+                if m is not None:
+                    zero()  # the sharded render's counts start here
+                _, st = run(m)
+                if m is not None:
+                    launched = [a + b for a, b in zip(launched, read())]  # read just after
+                    device_count = st.device_count
+                secs["one" if m is None else "mesh"].append(st.wall_seconds)
+            ck_one, ck_mesh = (os.path.join(out, f"nccl_{name}_{k}.npz") for k in ("one", "mesh"))
+            img_one, st_one = run(None, checkpoint_path=ck_one)
+            zero()
+            img_mesh, st_mesh = run(mesh, checkpoint_path=ck_mesh)
+            launched = [a + b for a, b in zip(launched, read())]
+            if not np.array_equal(img_one, img_mesh):
+                raise AssertionError(f"mesh-nccl {name}: the sharded image differs from one device's")
+            if not np.array_equal(read_accum(ck_one), read_accum(ck_mesh)):
+                raise AssertionError(f"mesh-nccl {name}: the sharded accumulator differs")
+            if st_one.path_segments != st_mesh.path_segments or img_mesh.max() == 0:
+                raise AssertionError(f"mesh-nccl {name}: segments {st_mesh.path_segments} against "
+                                     f"{st_one.path_segments}, u8 max {img_mesh.max()}")
+            one_s, mesh_s = (sum(secs[k]) / 2 for k in ("one", "mesh"))
+            traces = {}
+            for label, m in (("one", None), ("sharded", mesh)):
+                tr = device_trace(f"mesh_nccl_{name}_{label}", lambda: run(m),
+                                  {"K1": "bounce_kernel"} if name == "bench" else
+                                  {"K2": "scene_intersect"})
+                calls, host_ms = collective_host_time(f"mesh_nccl_{name}_{label}")
+                traces[label] = (f"{label}: {tr['kernels']} kernels, busy {tr['busy_ms']:.3f} ms, "
+                                 f"idle {tr['idle']:.2%} of a {tr['span_ms']:.3f} ms span, wall "
+                                 f"{tr['wall_ms']:.3f} ms, {calls} all_reduce calls taking "
+                                 f"{host_ms:.3f} ms of host time")
+            log("mesh-nccl", f"{name} {frame[2]['width']}²x{frame[2]['spp']}spp depth "
+                f"{frame[2]['path_depth']}: a world of 1 on {dist.get_backend()}, mesh 1x1, "
+                f"stats.device_count {device_count}: one device {one_s:.4f} s, sharded "
+                f"{mesh_s:.4f} s an image ({mesh_s / one_s:.3f}x; mean of 2 after a warm render, "
+                f"in turns: one {secs['one'][0]:.4f} / {secs['one'][1]:.4f}, sharded "
+                f"{secs['mesh'][0]:.4f} / {secs['mesh'][1]:.4f}); {st_mesh.chunks} chunk(s), "
+                f"{st_mesh.path_segments} segments; u8 image and HDR accumulator bit-identical to "
+                f"one device's; launches of the 3 sharded renders K1 {launched[0]}, K2 "
+                f"{launched[1]}, K3 {launched[2]}")
+            log("mesh-nccl", f"{name}, one render of each traced (torch.profiler): "
+                + "; ".join(traces[k] for k in ("one", "sharded")))
+    finally:
+        dist.destroy_process_group()
+
+    # ---- 32. mesh-ranks: 4 gloo ranks sharing the card, then 2 ----
+    rank_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+
+    def one_device(name, frame, spp_chunk, n_sp, n_dp):
+        """The one-device reference at spp_chunk / n_sp, at the sharded
+        render's pixel chunk."""
+        scene = frame_scene(frame)
+        data = scene.compile(device=dev)
+        px = driver.chunk_pixels(data, scene.camera, spp_chunk)
+        px = max(n_dp, px - px % n_dp)
+        ck = os.path.join(out, f"{name}_one.npz")
+        img, st = driver.render_to_image(scene, device=dev, seed=0, verbose=False,
+                                         scene_data=data, spp_chunk=spp_chunk // n_sp,
+                                         pixel_chunk=px, checkpoint_path=ck)
+        return img, read_accum(ck), st, px
+
+    def check_group(what, reports, seconds, names, refs, group_dir, world):
+        for name in names:
+            img_ref, acc_ref, st_ref, _ = refs[name]
+            for r in range(world):
+                if not np.array_equal(np.load(os.path.join(group_dir, f"{name}_r{r}.npy")), img_ref):
+                    raise AssertionError(f"{what} {name}: rank {r}'s image differs from one device's")
+                if os.path.exists(os.path.join(group_dir, name, f"r{r}", "c.npz")) != (r == 0):
+                    raise AssertionError(f"{what} {name}: rank {r} wrote a checkpoint" if r else
+                                         f"{what} {name}: rank 0 wrote no checkpoint")
+            if not np.array_equal(read_accum(os.path.join(group_dir, name, "r0", "c.npz")), acc_ref):
+                raise AssertionError(f"{what} {name}: the accumulator differs from one device's")
+            rep = [rp[name] for rp in reports]
+            if {x["segments"] for x in rep} != {st_ref.path_segments}:
+                raise AssertionError(f"{what} {name}: segments {[x['segments'] for x in rep]} "
+                                     f"against {st_ref.path_segments}")
+            per_rank = [x["launches"] for x in rep]
+            for i in range(3):
+                counts[i] += sum(lr[i] for lr in per_rank)
+            log(what, f"{name}: every rank's u8 image and rank 0's HDR accumulator bit-identical "
+                f"to one device at spp_chunk / 2 ({st_ref.path_segments} segments); wall s per "
+                f"rank {[round(x['seconds'], 4) for x in rep]} (compile window "
+                f"{[round(x['compile_seconds'], 4) for x in rep]}), one device {st_ref.wall_seconds:.4f} s "
+                f"at spp_chunk / 2; launches per rank (K1, K2, K3) {per_rank}")
+        log(what, f"group of {world} ranks: {seconds:.1f} s, start-up and kernel loading included")
+
+    refs = {}
+    for name, frame in MESH_FRAMES.items():
+        refs[name] = one_device(name, frame, frame[2]["spp"], 2, 2)
+    groups = [("mesh-ranks", 4, "gloo", rank_dev, (2, 2))]
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    if n_cards > 1:  # one NCCL rank a card, as many as make a mesh with n_sp = 2
+        groups.append(("mesh-nccl-cards", 4 if n_cards >= 4 else 2, "nccl", "cuda",
+                       (2, 2) if n_cards >= 4 else (1, 2)))
+    for what, world, backend, device, shape in groups:
+        group_dir = os.path.join(out, what)
+        jobs = [dict(name=name, frame=frame, render=dict(
+            checkpoint_path=os.path.join(group_dir, name, "r{rank}", "c.npz")))
+            for name, frame in MESH_FRAMES.items()]
+        reports, seconds = spawn_ranks(world, backend, device, shape, jobs, group_dir)
+        log(what, f"{world} {backend} ranks on {device if backend == 'gloo' else 'a card each'}, "
+            f"mesh {shape[0]}x{shape[1]}")
+        check_group(what, reports, seconds, list(MESH_FRAMES), refs, group_dir, world)
+
+    # the 2-rank checkpoint resume: killed at the first chunk of its second
+    # spp chunk, resumed from rank 0's file on both ranks
+    img_ref, acc_ref, st_ref, px = one_device("resume", RESUME_FRAME, RESUME_SPP_CHUNK, 2, 1)
+    n_px = RESUME_FRAME[2]["width"] * RESUME_FRAME[2]["height"]
+    group_dir = os.path.join(out, "resume")
+    ckpt = os.path.join(group_dir, "resume", "r{rank}", "c.npz")
+    render = dict(spp_chunk=RESUME_SPP_CHUNK, checkpoint_path=ckpt)
+    reports, seconds = spawn_ranks(2, "gloo", rank_dev, (1, 2), [
+        dict(name="killed", frame=RESUME_FRAME, render=render, kill_after=-(-n_px // px)),
+        dict(name="resume", frame=RESUME_FRAME, render=render)], group_dir)
+    for r in range(2):
+        if not np.array_equal(np.load(os.path.join(group_dir, f"resume_r{r}.npy")), img_ref):
+            raise AssertionError(f"mesh-resume: rank {r}'s resumed image differs")
+    if os.path.exists(os.path.join(group_dir, "resume", "r1", "c.npz")):
+        raise AssertionError("mesh-resume: rank 1 wrote a checkpoint")
+    if not np.array_equal(read_accum(os.path.join(group_dir, "resume", "r0", "c.npz")), acc_ref):
+        raise AssertionError("mesh-resume: the resumed accumulator differs")
+    left = [rp["resume"]["chunks"] for rp in reports]
+    per_rank = [rp["resume"]["launches"] for rp in reports]
+    for i in range(3):
+        counts[i] += sum(lr[i] for lr in per_rank)
+    log("mesh-resume", f"2 gloo ranks, mesh 1x2, {RESUME_FRAME[2]['width']}²x"
+        f"{RESUME_FRAME[2]['spp']}spp at spp_chunk {RESUME_SPP_CHUNK}: killed at the first chunk of "
+        f"the second spp chunk, checkpoint in rank 0's directory only, resumed on both ranks "
+        f"({left[0]} chunk(s) left); image and accumulator bit-identical to the uninterrupted "
+        f"one-device render at spp_chunk {RESUME_SPP_CHUNK // 2}; launches per rank {per_rank}; "
+        f"{seconds:.1f} s for the group")
+    if counts[0] < 1 or counts[1] < 1 or counts[2] < 1:
+        raise AssertionError(f"the sharded paths launched K1, K2, K3 {counts} times")
+    return counts
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2466,14 +2801,19 @@ def main() -> int:
     nee_phong = nee_phong_phases(dev, k1_mean, width, height, spp, depth)
     # ---- 28-30: textures, normal maps and general volumes on the staged path ----
     textured = textured_phases(dev)
-    staged[0]["launches"] += nee_phong["k2"] + textured["k2"]
-    staged[1]["launches"] += nee_phong["k3"] + textured["k3"]
+    # ---- 31-32: the sharded driver over a mesh of ranks ----
+    t_mesh = time.perf_counter()
+    k1_mesh, k2_mesh, k3_mesh = mesh_phases(dev)
+    log("mesh", f"phases 31-32 took {time.perf_counter() - t_mesh:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+    staged[0]["launches"] += nee_phong["k2"] + textured["k2"] + k2_mesh
+    staged[1]["launches"] += nee_phong["k3"] + textured["k3"] + k3_mesh
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",
         "source": "cs397raytracingsp22_tpu_torch/csrc/bounce.cu",
         "replaces": "cs397raytracingsp22_tpu/ops/pallas/bounce.py:1480",
-        "launches": launches,
+        "launches": launches + k1_mesh,
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,

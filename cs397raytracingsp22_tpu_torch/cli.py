@@ -9,8 +9,15 @@ the GPU by default; `--device cpu` runs the plain torch version. A scene
 shades as its camera says (path tracing, or Phong shading with hard
 shadows); `--nee` turns on next-event estimation (render/nee.py);
 `--checkpoint PATH` keeps the HDR accumulator in PATH after every spp
-chunk (`--spp-chunk`) and resumes from it. Options of the JAX CLI that the
-port does not have yet raise a clear error instead of being ignored.
+chunk (`--spp-chunk`) and resumes from it.
+
+Several devices (parallel/): `--mesh DPxSP` splits each chunk's pixels
+over DP ranks and its samples over SP. Started under torchrun, or with
+`--distributed` (and `--coordinator`, `--num-processes`, `--process-id`
+off torchrun), the process joins the group and renders its shard; without
+either, `--mesh` spawns DP·SP ranks on this host: one a card under NCCL,
+or gloo ranks with `--device cpu`. Only rank 0 writes the PNG and the
+stats.
 """
 
 from __future__ import annotations
@@ -23,13 +30,11 @@ import json
 import os
 import sys
 
+import torch
+import torch.distributed as dist
+
 DEFAULT_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scenes",
                              "bench_teapot_32k.py")
-
-_NOT_PORTED = {
-    "mesh": "--mesh (multi-device rendering)",
-    "distributed": "--distributed (multi-host rendering)",
-}
 
 
 def load_scene_module(path: str):
@@ -41,7 +46,7 @@ def load_scene_module(path: str):
     return mod
 
 
-def main(argv=None) -> int:
+def parse_args(argv):
     p = argparse.ArgumentParser(description="PyTorch + CUDA path tracer")
     p.add_argument("scene", nargs="?", default=DEFAULT_SCENE,
                    help="scene script exposing build(**overrides) (default: %(default)s)")
@@ -60,18 +65,35 @@ def main(argv=None) -> int:
     )
     p.add_argument("--checkpoint", help="HDR accumulator checkpoint (.npz) for resume")
     p.add_argument("--spp-chunk", type=int, help="samples per accumulation (and checkpoint) chunk")
+    p.add_argument("--pixel-chunk", type=int, help="pixels per chunk (default: a work budget)")
     p.add_argument("--nee", action="store_true",
                    help="next-event estimation (explicit light sampling): the same converged "
                    "image at equal depth, less noise on small-light scenes (render/nee.py)")
-    p.add_argument("--mesh", help="not ported yet")
-    p.add_argument("--distributed", action="store_true", help="not ported yet")
+    p.add_argument("--mesh", help="render over a DPxSP mesh of ranks, e.g. --mesh 2x2 (pixels "
+                   "split over DP, samples over SP)")
+    p.add_argument("--distributed", action="store_true",
+                   help="join a torch.distributed group and render this rank's shard (run the "
+                   "same command in every process; under torchrun the group is found from its "
+                   "environment, elsewhere pass --coordinator, --num-processes, --process-id); "
+                   "without --mesh the pixels split over every rank")
+    p.add_argument("--coordinator", help="host:port of rank 0")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
     p.add_argument("-q", "--quiet", action="store_true")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
-    for key, what in _NOT_PORTED.items():
-        if getattr(args, key):
-            raise SystemExit(f"{what} is not ported to the torch package yet")
 
+def mesh_shape(spec: str) -> tuple[int, int]:
+    try:
+        n_dp, n_sp = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh must look like 4x2, got {spec!r}")
+    return n_dp, n_sp
+
+
+def render(args) -> int:
+    """Build the scene and render it: over a mesh of the group's ranks when
+    this process is in one, else on one device. Rank 0 writes the output."""
     overrides = {}
     for key in ("width", "height", "spp"):
         if getattr(args, key):
@@ -91,11 +113,21 @@ def main(argv=None) -> int:
     if args.nee:
         scene = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera, nee=True))
 
-    from cs397raytracingsp22_tpu_torch.render.driver import render_and_save
+    from cs397raytracingsp22_tpu_torch.render.driver import render_to_image, save_png
 
-    _, stats = render_and_save(scene, args.output, device=args.device, seed=args.seed,
-                               spp_chunk=args.spp_chunk, checkpoint_path=args.checkpoint,
-                               verbose=not args.quiet)
+    mesh, rank = None, 0
+    if dist.is_initialized():
+        from cs397raytracingsp22_tpu_torch.parallel import sharding
+
+        n_dp, n_sp = mesh_shape(args.mesh) if args.mesh else (None, 1)
+        mesh, rank = sharding.make_device_mesh(n_dp, n_sp), dist.get_rank()
+    img, stats = render_to_image(scene, device=args.device, seed=args.seed,
+                                 pixel_chunk=args.pixel_chunk, spp_chunk=args.spp_chunk,
+                                 checkpoint_path=args.checkpoint, verbose=not args.quiet,
+                                 mesh=mesh)
+    if rank:
+        return 0
+    save_png(img, args.output)
     if not args.quiet:
         print(f"[cli] wrote {args.output}")
     if args.stats_json:
@@ -107,7 +139,9 @@ def main(argv=None) -> int:
                     "spp": stats.spp,
                     "path_depth": stats.path_depth,
                     "device": stats.device,
+                    "device_count": stats.device_count,
                     "wall_seconds": stats.wall_seconds,
+                    "compile_seconds": stats.compile_seconds,
                     "primary_rays": stats.primary_rays,
                     "path_segments": stats.path_segments,
                     "primary_mrays_per_sec": stats.primary_mrays_per_sec,
@@ -117,6 +151,56 @@ def main(argv=None) -> int:
                 indent=2,
             )
     return 0
+
+
+def rank_main(rank: int, world: int, port: int, argv: list) -> None:
+    """One spawned rank of `--mesh` on this host."""
+    from cs397raytracingsp22_tpu_torch.parallel import multihost
+
+    args = parse_args(argv)
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, device=args.device)
+    try:
+        render(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_mesh(argv: list, device: str, n_dp: int, n_sp: int) -> int:
+    """Render over DP·SP ranks spawned on this host, one a card under NCCL
+    (or gloo ranks on the CPU); fails when any rank fails."""
+    import torch.multiprocessing as mp
+
+    from cs397raytracingsp22_tpu_torch.parallel import multihost
+
+    n = n_dp * n_sp
+    if torch.device(device).type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"mesh {n_dp}x{n_sp} needs {n} devices, have "
+                         f"{torch.cuda.device_count()} (is n_sp larger than the device count?)")
+    try:
+        mp.start_processes(rank_main, args=(n, multihost.free_port(), argv), nprocs=n,
+                           start_method="spawn")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        raise SystemExit(f"[cli] a rank failed: {e}")
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    shape = mesh_shape(args.mesh) if args.mesh else None
+    if args.distributed or dist.is_torchelastic_launched():
+        from cs397raytracingsp22_tpu_torch.parallel import multihost
+
+        multihost.initialize(coordinator_address=args.coordinator,
+                             num_processes=args.num_processes, process_id=args.process_id,
+                             device=args.device)
+        try:
+            return render(args)
+        finally:
+            dist.destroy_process_group()
+    if shape:
+        return spawn_mesh(argv, args.device, *shape)
+    return render(args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,15 @@
 """Render driver: chunked batch rendering, on-device accumulation, image I/O.
 
-Mirrors `cs397raytracingsp22_tpu/render/driver.py` for one device. Pixels
-go in chunks (each chunk generates pixel×spp rays, traces them and sums
-per pixel); the per-chunk sums accumulate on the device in float32 and
-only the tonemapped u8 image comes back to the host. The RNG follows ray
-content, so chunk sizes never change the image.
+Mirrors `cs397raytracingsp22_tpu/render/driver.py`: one loop for one
+device, a ("dp", "sp") mesh of ranks on one host and many hosts
+(parallel/). Pixels go in chunks (each chunk generates pixel×spp rays,
+traces them and sums per pixel); the per-chunk sums accumulate on the
+device in float32 and only the tonemapped u8 image comes back to the host.
+The RNG follows ray content, so chunk sizes never change the image. The
+host waits for the card only at the end, and in a verbose render for its
+progress lines (after the first chunk, then every SYNC_EVERY chunks); the
+compile and steady windows of the stats are read from marks on the
+device's timeline.
 
 `render_chunk` routes as the JAX package's render_chunk_core does:
 - Phong shading to integrator.phong_trace (two scene intersections a ray:
@@ -31,6 +36,7 @@ the JAX package writes and reads, so either package resumes the other's.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -52,6 +58,11 @@ from cs397raytracingsp22_tpu_torch.utils import threefry
 # work (driver.py:474-484), so their chunks are larger
 CHUNK_WORK_BUDGET = 1 << 36
 BIG_MESH_BUDGET_SHIFT = 5
+# chunks between the progress lines of a verbose render, at each of which
+# the host waits for the card (the JAX driver's sync_every)
+SYNC_EVERY = 8
+# runs of a chunk again after the card ran out of memory
+CHUNK_RETRIES = 2
 
 
 @dataclasses.dataclass
@@ -63,8 +74,18 @@ class RenderStats:
     spp: int = 0
     path_depth: int = 0
     wall_seconds: float = 0.0
+    # to the end of the first chunk on the device: the kernels' first load,
+    # the allocator's warm-up
+    compile_seconds: float = 0.0
     primary_rays: int = 0
     path_segments: int = 0
+    # the chunks after the first, less the checkpoints' writes; zero for a
+    # render of one chunk. The rates below come from this window when
+    # there is one, else from the whole wall time
+    steady_seconds: float = 0.0
+    steady_segments: int = 0
+    steady_primary: int = 0
+    device_count: int = 1
     chunks: int = 0
     device: str = ""
     # mean HDR radiance of one sample over the image and channels (the
@@ -77,18 +98,23 @@ class RenderStats:
 
     @property
     def primary_mrays_per_sec(self) -> float:
+        if self.steady_seconds > 0:
+            return self.steady_primary / self.steady_seconds / 1e6
         return self.primary_rays / (self.wall_seconds or 1e-9) / 1e6
 
     @property
     def segment_mrays_per_sec(self) -> float:
+        if self.steady_seconds > 0:
+            return self.steady_segments / self.steady_seconds / 1e6
         return self.path_segments / (self.wall_seconds or 1e-9) / 1e6
 
     def summary(self) -> str:
         return (
             f"{self.width}x{self.height} @ {self.spp}spp depth {self.path_depth} | "
-            f"{self.wall_seconds:.3f}s wall, {self.chunks} chunk(s) | "
-            f"{self.primary_mrays_per_sec:.1f} Mrays/s primary, "
-            f"{self.segment_mrays_per_sec:.1f} Mrays/s segments | {self.device}"
+            f"{self.wall_seconds:.3f}s wall ({self.compile_seconds:.3f}s compile), "
+            f"{self.chunks} chunk(s) | {self.primary_mrays_per_sec:.1f} Mrays/s primary, "
+            f"{self.segment_mrays_per_sec:.1f} Mrays/s segments | {self.device}, "
+            f"{self.device_count} device(s)"
         )
 
 
@@ -197,6 +223,108 @@ def _load_checkpoint(path: str, n_px: int, seed: int):
         return ckpt["accum"].astype(np.float32), int(ckpt["spp_done"]), nee
 
 
+def _dispatch_with_retry(dispatch, args):
+    """dispatch(*args), run again (up to CHUNK_RETRIES times) after the
+    card ran out of memory.
+
+    Chunks are stateless, so a chunk that found too little free memory
+    (other work on the card, a fragmented cache) is simply run again once
+    the caching allocator has handed its free blocks back. Any other
+    exception propagates at once: a CUDA launch error leaves the context
+    unusable, so nothing can be re-run in it, and nothing falls back to the
+    CPU. Under a mesh each rank retries its own shard before the chunk's
+    collective, so the ranks stay in step.
+
+    The JAX driver also replays, at its next sync, the chunks dispatched
+    since its last good snapshot when an asynchronous device error surfaces
+    there (`sync`, driver.py:827-843). The port has no counterpart: the
+    allocator raises out-of-memory synchronously, inside the call wrapped
+    here, and the errors a CUDA stream reports later are the sticky ones
+    that leave the context unusable."""
+    for attempt in range(CHUNK_RETRIES + 1):
+        try:
+            return dispatch(*args)
+        except torch.cuda.OutOfMemoryError:
+            if attempt == CHUNK_RETRIES:
+                raise
+            print(f"\n[render] out of device memory; retrying chunk "
+                  f"({attempt + 1}/{CHUNK_RETRIES})")
+            torch.cuda.empty_cache()
+
+
+def _mark(device: torch.device):
+    """A point on the device's timeline, taken without waiting for it: a
+    recorded CUDA event on the card, the host clock on the CPU (whose work
+    is done when its call returns)."""
+    if device.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _seconds(a, b) -> float:
+    """Seconds from mark a to mark b, both reached."""
+    return b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
+
+
+class _Clock:
+    """The render's windows and its progress.
+
+    The compile window runs from the start to the end of the first chunk on
+    the device (the kernels' first load, the allocator's warm-up); the
+    steady window from there to the end of the last chunk, less each
+    checkpoint's pull and write. Both are read from marks on the device's
+    timeline once the render is done, so they add no wait to the render.
+    Only a verbose render waits for the card: after the first chunk and
+    then every SYNC_EVERY chunks, to print its progress with elapsed time
+    and ETA."""
+
+    def __init__(self, device: torch.device, total_chunks: int, verbose: bool):
+        self.device, self.total, self.verbose = device, total_chunks, verbose
+        self.t_start = time.perf_counter()
+        self.start = _mark(device)
+        self.first = None  # the end of the first chunk
+        self.first_segments = None  # the segment count there
+        self.pauses: list = []  # (mark, mark) around each checkpoint
+        self.done = 0
+        self.steady_primary = 0  # primary rays after the first chunk
+
+    def chunk_done(self, seg_total: torch.Tensor, primary: int) -> None:
+        self.done += 1
+        if self.first is None:
+            self.first, self.first_segments = _mark(self.device), seg_total
+        else:
+            self.steady_primary += primary
+        if self.verbose and (self.done - 1) % SYNC_EVERY == 0:
+            _sync(self.device)
+            frac = min(1.0, self.done / self.total)
+            elapsed = time.perf_counter() - self.t_start
+            print(f"\r[render] chunk {self.done}/{self.total} ({100 * frac:.0f}%, elapsed "
+                  f"{elapsed:.1f}s, eta {elapsed / frac - elapsed:.1f}s)", end="", flush=True)
+
+    @contextlib.contextmanager
+    def paused(self):
+        """Leave the block (a checkpoint's pull and write) out of the steady
+        window."""
+        before = _mark(self.device)
+        yield
+        self.pauses.append((before, _mark(self.device)))
+
+    def finish(self, stats: RenderStats) -> None:
+        """Wait for the card and fill the windows' seconds into stats."""
+        end = _mark(self.device)
+        _sync(self.device)
+        if self.first is not None:
+            stats.compile_seconds = _seconds(self.start, self.first)
+        if self.done > 1:
+            stats.steady_seconds = _seconds(self.first, end) - sum(
+                _seconds(a, b) for a, b in self.pauses)
+            stats.steady_primary = self.steady_primary
+        if self.verbose and self.done:
+            print()
+
+
 def render_to_image(
     scene: Scene,
     *,
@@ -207,6 +335,7 @@ def render_to_image(
     checkpoint_path: Optional[str] = None,
     verbose: bool = True,
     scene_data: Optional[SceneData] = None,
+    mesh=None,
 ) -> tuple[np.ndarray, RenderStats]:
     """Full render on `device` (the card unless the caller asks for the
     CPU): ((H, W, 3) uint8 image, RenderStats).
@@ -222,6 +351,21 @@ def render_to_image(
     holds more samples than `spp`, or was rendered with the other `nee`
     setting, raises ValueError. Raises ValueError for NEE under Phong and
     for NEE on a scene whose emitters are not all sampled lights.
+
+    mesh: a ("dp", "sp") DeviceMesh over every rank of the process group
+    (parallel.sharding.make_device_mesh); every rank calls this with the
+    same arguments. Each chunk's pixels split over dp, its samples over sp
+    (parallel.sharding.make_sharded_render_chunk). pixel_chunk is rounded
+    down to a multiple of n_dp and spp_chunk up to a multiple of n_sp; spp
+    must divide by n_sp. Only rank 0 writes the checkpoint, and a resume
+    reads rank 0's file on every rank (multihost.broadcast_checkpoint).
+    Only rank 0 prints. Every rank returns the same image. The contract,
+    bit for bit in the u8 image and in the HDR accumulator: with n_sp = 1
+    the render equals the one-device render (each pixel's sum is made
+    whole on one rank); with n_sp > 1 it equals the one-device render at
+    spp_chunk / n_sp, since the sp partials of a chunk are added one at a
+    time in sp order, the order in which one device adds its spp chunks.
+    (A float sum regrouped over ranks could not promise more.)
     """
     device = resolve_device(device)
     cam = scene.camera
@@ -251,8 +395,24 @@ def render_to_image(
             "Render without --nee."
         )
     spp_chunk = min(spp_chunk or spp, spp)
+    n_dp = n_sp = 1
+    rank = 0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from cs397raytracingsp22_tpu_torch.parallel import multihost, sharding
+
+        n_dp, n_sp, _, _ = sharding.mesh_axes(mesh)
+        rank = dist.get_rank()
+        verbose = verbose and rank == 0
+        # chunk shapes must tile the mesh's axes
+        if spp_chunk % n_sp:
+            spp_chunk = min(spp, spp_chunk + n_sp - spp_chunk % n_sp)
+        if spp % n_sp:
+            raise ValueError(f"spp {spp} not divisible by the mesh's sp axis {n_sp}")
     if pixel_chunk is None:
         pixel_chunk = chunk_pixels(scene_data, cam, spp_chunk)
+    pixel_chunk = max(n_dp, pixel_chunk - pixel_chunk % n_dp)
     n_chunks = (n_px_total + pixel_chunk - 1) // pixel_chunk
     rng_key = threefry.key_words(seed)
 
@@ -260,8 +420,18 @@ def render_to_image(
         checkpoint_path += ".npz"
     pieces: list = [None] * n_chunks
     spp_done = 0
-    resume = _load_checkpoint(checkpoint_path, n_px_total, seed) if checkpoint_path else None
+    resume = None
+    if checkpoint_path and mesh is not None:
+        # every rank must see rank 0's file: a local read could disagree
+        # on spp_done, and the ranks' chunk counts with it
+        accum, spp_done, ckpt_nee = multihost.broadcast_checkpoint(checkpoint_path, n_px_total,
+                                                                   seed)
+        resume = None if accum is None else (accum, spp_done, ckpt_nee)
+    elif checkpoint_path:
+        resume = _load_checkpoint(checkpoint_path, n_px_total, seed)
     if resume is not None:
+        # every refusal below comes after the broadcast, so it is raised on
+        # every rank and none is left waiting in a collective
         accum, spp_done, ckpt_nee = resume
         # an accumulator of more samples than asked for cannot be finished
         # (the mean would divide by too few), and two estimators must not
@@ -277,6 +447,14 @@ def render_to_image(
                 f"nee={bool(cam.nee)}: the accumulator would blend two estimators; match "
                 "--nee or delete the checkpoint"
             )
+        if spp_done % n_sp:
+            # every sharded chunk splits its samples over sp, so what is
+            # left must come in multiples of n_sp
+            raise ValueError(
+                f"checkpoint at spp_done={spp_done} is not divisible by this mesh's sp axis "
+                f"({n_sp}); resume on the original device configuration or finish the "
+                "render without an sp axis"
+            )
         # raster order re-split into this render's interleaved chunks
         padded = np.zeros((n_chunks * pixel_chunk, 3), np.float32)
         padded[:n_px_total] = accum
@@ -285,37 +463,67 @@ def render_to_image(
         if verbose:
             print(f"[render] resuming from {checkpoint_path} at {spp_done} spp")
 
+    if mesh is None:
+        def dispatch(ids, s0, s_count):
+            # one device: a single "sp partial"; render_chunk is looked up
+            # at call time, so a test can patch it
+            rad, segs = _dispatch_with_retry(render_chunk, (scene_data, cam, ids, rng_key, s0,
+                                                            s_count, n_chains))
+            return rad[None], segs
+    else:
+        sharded_fns: dict = {}
+
+        def dispatch(ids, s0, s_count):
+            if s_count not in sharded_fns:
+                sharded_fns[s_count] = sharding.make_sharded_render_chunk(mesh, cam, s_count,
+                                                                          n_chains)
+            return sharded_fns[s_count](scene_data, ids, rng_key, s0)
+
     stats = RenderStats(width=w, height=h, spp=spp, path_depth=cam.path_depth,
-                        device=str(device))
+                        device=str(device), device_count=n_dp * n_sp)
     _sync(device)
-    t_start = time.perf_counter()
     seg_total = torch.zeros((), dtype=torch.int64, device=device)
     lane = torch.arange(pixel_chunk, dtype=torch.int32, device=device) * n_chunks
+    n_spp_chunks = max(1, -(-(spp - spp_done) // spp_chunk))
+    clock = _Clock(device, n_spp_chunks * n_chunks, verbose)
     for s0 in range(spp_done, spp, spp_chunk):
         s_count = min(spp_chunk, spp - s0)
         for ci in range(n_chunks):
-            ids = lane + ci
-            rad, segs = render_chunk(
-                scene_data, cam, ids, rng_key, s0, s_count, n_chains
-            )
-            pieces[ci] = rad if pieces[ci] is None else pieces[ci] + rad
+            parts, segs = dispatch(lane + ci, s0, s_count)
+            # the sp partials one at a time, in sp order: the order in which
+            # one device adds its spp chunks
+            for part in parts:
+                pieces[ci] = part if pieces[ci] is None else pieces[ci] + part
             seg_total = seg_total + segs
             stats.chunks += 1
-        if checkpoint_path:
-            np.savez(
-                checkpoint_path,
-                accum=_raster(pieces, n_px_total).cpu().numpy().astype(np.float64),
-                spp_done=np.int64(s0 + s_count),
-                seed=np.int64(seed),
-                # the estimator: a resume with the other --nee would blend two
-                nee=np.int64(int(bool(cam.nee))),
-            )
+            # ids past n_px (a ragged tail's padding) are traced, not counted
+            n_valid = -(-(n_px_total - ci) // n_chunks)
+            clock.chunk_done(seg_total, n_valid * s_count * n_chains)
+        if checkpoint_path and rank == 0:
+            with clock.paused():
+                np.savez(
+                    checkpoint_path,
+                    accum=_raster(pieces, n_px_total).cpu().numpy().astype(np.float64),
+                    spp_done=np.int64(s0 + s_count),
+                    seed=np.int64(seed),
+                    # the estimator: a resume with the other --nee would blend two
+                    nee=np.int64(int(bool(cam.nee))),
+                )
+    clock.finish(stats)
+    # the segments after the first chunk and in all; under a mesh each rank
+    # counted its own shards, summed over the ranks here, once a render
+    seg_counts = torch.stack([
+        seg_total if clock.first_segments is None else clock.first_segments, seg_total])
+    if mesh is not None:
+        sharding.sum_over_ranks(seg_counts)
+    first_segs, stats.path_segments = seg_counts.tolist()
+    if clock.done > 1:
+        stats.steady_segments = stats.path_segments - first_segs
     accum = _raster(pieces, n_px_total)
     stats.mean_radiance = float(accum.mean()) / max(spp, 1)
     stats.nonfinite_pixels = int((~torch.isfinite(accum)).any(dim=1).sum())
     img = _finalize_image(pieces, n_px_total, spp, cam.gamma).cpu().numpy().reshape(h, w, 3)
-    stats.path_segments = int(seg_total)
-    stats.wall_seconds = time.perf_counter() - t_start
+    stats.wall_seconds = time.perf_counter() - clock.t_start
     stats.primary_rays = n_px_total * (spp - spp_done) * n_chains
     if verbose:
         print("[render] " + stats.summary())
@@ -328,9 +536,3 @@ def save_png(img: np.ndarray, path: str) -> None:
 
     Image.fromarray(img, mode="RGB").save(path, format="PNG")
 
-
-def render_and_save(scene: Scene, path: str = "render.png", **kw):
-    """render_to_image, then save_png; returns what render_to_image does."""
-    img, stats = render_to_image(scene, **kw)
-    save_png(img, path)
-    return img, stats

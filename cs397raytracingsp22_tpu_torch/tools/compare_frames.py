@@ -1,7 +1,7 @@
 """Time whole frames of this checkout against other checkouts of the
-package, on the card: the check for a change to the glue of the staged,
-NEE or Phong paths (the host code around K2 and K3) that should leave
-their speed as it was.
+package, on the card: the check for a change to the driver, or to the glue
+of the staged, NEE, Phong or textured paths (the host code around K1, K2
+and K3), that should leave their speed as it was.
 
     python -m cs397raytracingsp22_tpu_torch.tools.compare_frames OTHER_ROOT [OTHER_ROOT ...]
 
@@ -9,13 +9,17 @@ Each OTHER_ROOT is the root of another checkout (for example a parent
 commit unpacked with `git archive <commit> | tar -x -C build/parent`).
 Each checkout renders in a process of its own, which runs this file and
 imports the package from that root, in turns: the others, this one, this
-one, the others. `--size` and `--spp` shrink the frames and `--device
-cpu` runs the plain versions, for a rehearsal without the card.
-A process renders each frame of FRAMES through render_to_image (seed 0)
-once to warm up, then twice, and prints a JSON line a frame: seconds per
-image (the mean of the two), segments, chunks and the image's u8 mean.
-Then the table: each checkout's mean seconds per frame over its turns,
-with the card's nvidia-smi name and power limit.
+one, the others (`--rounds` times). `--frames` picks frames of FRAMES,
+`--size` and `--spp` shrink them and `--device cpu` runs the plain
+versions, for a rehearsal without the card.
+A process renders each frame through render_to_image (seed 0, not
+verbose) once to warm up, then `--reps` times (2 by default), and prints a
+JSON line a frame: the seconds of each image, segments, chunks and the
+image's u8 mean. Then the table, with the card's nvidia-smi name and power
+limit: for each frame and checkout the mean, median and least seconds per
+image over all its turns, and this checkout's median and least over each
+other's. The host noise of a shared machine only ever adds time, so the
+least of many images is the steadiest figure of what the code costs.
 """
 
 from __future__ import annotations
@@ -24,25 +28,28 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 
 # frame → (scene module, build kwargs, NEE)
 FRAMES = {
+    "bench": ("bench_scene", dict(width=512, height=512, spp=64, path_depth=8), False),
     "32k": ("bench_teapot_32k", dict(width=512, height=512, spp=64, path_depth=8), False),
     "phong": ("teapot", dict(width=512, height=512, spp=64), False),
     "nee": ("bench_scene", dict(width=512, height=512, spp=64, path_depth=8), True),
+    "config4": ("textured_spheres", dict(width=512, height=512, spp=32), False),
 }
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def child(device: str, size: int | None, spp: int | None) -> None:
+def child(device: str, frames: list, reps: int, size: int | None, spp: int | None) -> None:
     """Render each frame on `device`, one JSON line a frame."""
     import importlib
 
     from cs397raytracingsp22_tpu_torch.render import driver
 
-    for name in FRAMES:
+    for name in frames:
         module, kw, nee = FRAMES[name]
         kw = dict(kw, **({"width": size, "height": size} if size else {}),
                   **({"spp": spp} if spp else {}))
@@ -54,9 +61,9 @@ def child(device: str, size: int | None, spp: int | None) -> None:
         render = lambda: driver.render_to_image(  # noqa: E731
             scene, device=device, seed=0, verbose=False, scene_data=data)
         render()  # warm
-        runs = [render() for _ in range(2)]
+        runs = [render() for _ in range(reps)]
         img, st = runs[0]
-        print(json.dumps(dict(frame=name, seconds=sum(s.wall_seconds for _, s in runs) / 2,
+        print(json.dumps(dict(frame=name, seconds=[s.wall_seconds for _, s in runs],
                               segments=st.path_segments, chunks=st.chunks,
                               u8_mean=float(img.mean()))), flush=True)
 
@@ -64,7 +71,8 @@ def child(device: str, size: int | None, spp: int | None) -> None:
 def run_in(root: str, args) -> list[dict]:
     """child() in a process that runs this file and imports the package
     from root."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--child", root, "--device", args.device]
+    cmd = [sys.executable, os.path.abspath(__file__), "--child", root, "--device", args.device,
+           "--frames", ",".join(args.frames), "--reps", str(args.reps)]
     cmd += ["--size", str(args.size)] if args.size else []
     cmd += ["--spp", str(args.spp)] if args.spp else []
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True)
@@ -79,28 +87,40 @@ def main(argv=None) -> int:
     p.add_argument("--device", default="cuda")
     p.add_argument("--size", type=int, help="width and height of every frame")
     p.add_argument("--spp", type=int)
+    p.add_argument("--frames", type=lambda x: x.split(","), default=list(FRAMES),
+                   help="comma-separated frames of FRAMES (default: all)")
+    p.add_argument("--reps", type=int, default=2, help="timed images a frame and process")
+    p.add_argument("--rounds", type=int, default=1, help="rounds of turns")
     p.add_argument("--child", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.child:  # the package of that root renders
         sys.path.insert(0, args.child)
-        child(args.device, args.size, args.spp)
+        child(args.device, args.frames, args.reps, args.size, args.spp)
         return 0
     roots = [os.path.abspath(r) for r in args.others]
-    turns = roots + [ROOT, ROOT] + roots
+    turns = (roots + [ROOT, ROOT] + roots) * args.rounds
     results: dict = {}
     for root in turns:
         label = "this checkout" if root == ROOT else root
         for line in run_in(root, args):
             print(f"[compare-frames] {label}: {json.dumps(line)}", flush=True)
-            results.setdefault((label, line["frame"]), []).append(line["seconds"])
+            results.setdefault(line["frame"], {}).setdefault(label, []).extend(line["seconds"])
     if args.device != "cpu":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True, text=True,
                              check=True).stdout.strip()
         print(f"[compare-frames] {smi}")
-    for (label, frame), secs in results.items():
-        print(f"[compare-frames] {frame}: {label}: {sum(secs) / len(secs):.4f} s per image "
-              f"(turns: {', '.join(f'{s:.4f}' for s in secs)})")
+    for frame, by_label in results.items():
+        mine = by_label.get("this checkout", [])
+        for label, secs in by_label.items():
+            line = (f"[compare-frames] {frame}: {label}: {len(secs)} images, mean "
+                    f"{statistics.mean(secs):.4f}, median {statistics.median(secs):.4f}, least "
+                    f"{min(secs):.4f} s an image")
+            if label != "this checkout" and mine:
+                line += (f"; this checkout ÷ it: median "
+                         f"{statistics.median(mine) / statistics.median(secs):.4f}x, least "
+                         f"{min(mine) / min(secs):.4f}x")
+            print(line)
     return 0
 
 

@@ -1,6 +1,9 @@
 """The torch port's render_to_image on the CPU against the committed
 goldens (rendered by the JAX package at seed 42, tools/make_goldens.py),
-and the chunking contract.
+the chunking contract, the retry of a chunk that ran out of device
+memory, the stats' compile and steady windows, and the CLI (its --mesh
+runs spawn gloo ranks, each run under the 120 s bound of
+tests/test_torch_sharding.py::run_bounded).
 
 Goldens: within 1 u8 on at least 99% of subpixels, mean |diff| at most
 0.05 u8 — the per-pixel sample sum runs in another float order, which can
@@ -10,14 +13,17 @@ RNG follows ray content, not position).
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
+from cs397raytracingsp22_tpu_torch.parallel import multihost
 from cs397raytracingsp22_tpu_torch.render.driver import render_to_image, save_png
 from cs397raytracingsp22_tpu_torch.scenes import cornell
+from tests.test_torch_sharding import ROOT, run_bounded
 
 torch.set_num_threads(1)  # several test workers share the cores
 
@@ -82,8 +88,10 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 def test_cli_renders_and_refuses_unported_flags(tmp_path):
     """The CLI renders; --nee and --checkpoint render (NEE's shadow rays
-    add segments beyond the path's, a checkpoint is written); --mesh and
-    --distributed (multi-device) are refused."""
+    add segments beyond the path's, a checkpoint is written); --mesh
+    renders over gloo ranks it spawns and --distributed joins a group (a
+    world of one here), each giving the plain image bit for bit with
+    n_sp = 1; a mesh larger than the visible cards is refused."""
     import json
 
     from cs397raytracingsp22_tpu_torch import cli
@@ -93,23 +101,130 @@ def test_cli_renders_and_refuses_unported_flags(tmp_path):
     base = [scene, "-o", str(out), "--width", "8", "--height", "8", "--spp", "2", "--depth", "2",
             "--device", "cpu", "--stats-json", str(stats), "-q"]
     assert cli.main(base) == 0
-    assert np.asarray(Image.open(out)).shape == (8, 8, 3)
+    plain_img = np.asarray(Image.open(out))
+    assert plain_img.shape == (8, 8, 3)
     plain = json.loads(stats.read_text())
-    assert plain["path_depth"] == 2
+    assert plain["path_depth"] == 2 and plain["device_count"] == 1
     for flag in (["--nee"], ["--checkpoint", str(tmp_path / "c.npz")], ["--mesh", "2x1"],
-                 ["--distributed"]):
-        if flag[0] in ("--mesh", "--distributed"):
-            with pytest.raises(SystemExit, match="not ported"):
-                cli.main([scene, "--device", "cpu", *flag])
-            continue
-        assert cli.main(base + flag) == 0
+                 ["--distributed", "--coordinator", f"127.0.0.1:{multihost.free_port()}",
+                  "--num-processes", "1", "--process-id", "0"]):
+        if flag[0] == "--mesh":
+            (rc, log), = run_bounded([cli_command(base + flag)], ROOT, tmp_path)[0]
+            assert rc == 0, log[-4000:]
+        else:
+            assert cli.main(base + flag) == 0
         assert np.asarray(Image.open(out)).shape == (8, 8, 3)
         got = json.loads(stats.read_text())
         if flag[0] == "--nee":
             assert got["path_segments"] > plain["path_segments"]
-        else:
+        elif flag[0] == "--checkpoint":
             assert (tmp_path / "c.npz").exists()
             assert got["path_segments"] == plain["path_segments"]
+        else:
+            np.testing.assert_array_equal(np.asarray(Image.open(out)), plain_img)
+            assert got["path_segments"] == plain["path_segments"]
+            assert got["device_count"] == (2 if flag[0] == "--mesh" else 1)
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(SystemExit, match=f"mesh {n}x1 needs {n} devices, have {n - 1}"):
+        cli.main([scene, "--mesh", f"{n}x1"])
+
+
+def cli_command(argv):
+    return [sys.executable, "-m", "cs397raytracingsp22_tpu_torch.cli", *argv]
+
+
+def test_cli_mesh_2x2_matches_plain_at_half_the_spp_chunk(tmp_path):
+    """--mesh 2x2 --spp-chunk 4 --device cpu (four gloo ranks the CLI
+    spawns) writes, from rank 0 only, the plain run's image at --spp-chunk
+    2, bit for bit."""
+    import json
+
+    from cs397raytracingsp22_tpu_torch import cli
+
+    scene = os.path.join(os.path.dirname(cornell.__file__), "cornell.py")
+    base = [scene, "--width", "16", "--height", "16", "--spp", "8", "--depth", "3",
+            "--device", "cpu", "-q"]
+    assert cli.main(base + ["-o", str(tmp_path / "p.png"), "--spp-chunk", "2"]) == 0
+    (rc, log), = run_bounded([cli_command(base + [
+        "-o", str(tmp_path / "m.png"), "--spp-chunk", "4", "--mesh", "2x2",
+        "--stats-json", str(tmp_path / "m.json")])], ROOT, tmp_path)[0]
+    assert rc == 0, log[-4000:]
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "m.png")),
+                                  np.asarray(Image.open(tmp_path / "p.png")))
+    got = json.loads((tmp_path / "m.json").read_text())
+    assert got["device_count"] == 4 and got["compile_seconds"] > 0
+
+
+def test_cli_pixel_chunk(tmp_path):
+    """--pixel-chunk sets the chunk: 48-pixel chunks of an 8x8 image give
+    the same image, and trace the ragged tail's padding too."""
+    import json
+
+    from cs397raytracingsp22_tpu_torch import cli
+
+    scene = os.path.join(os.path.dirname(cornell.__file__), "cornell.py")
+    base = [scene, "--width", "8", "--height", "8", "--spp", "2", "--depth", "2",
+            "--device", "cpu", "-q"]
+    segs = []
+    for name, extra in (("a", []), ("b", ["--pixel-chunk", "48"])):
+        assert cli.main(base + ["-o", str(tmp_path / f"{name}.png"), "--stats-json",
+                                str(tmp_path / f"{name}.json")] + extra) == 0
+        segs.append(json.loads((tmp_path / f"{name}.json").read_text())["path_segments"])
+    np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "a.png")),
+                                  np.asarray(Image.open(tmp_path / "b.png")))
+    assert segs[1] > segs[0]  # 2 chunks of 48: 32 padding pixels traced
+
+
+def test_retry_after_out_of_memory(monkeypatch):
+    """A chunk that runs out of device memory is run again (the same
+    image, one more call); any other error is raised at once."""
+    from cs397raytracingsp22_tpu_torch.render import driver
+
+    scene = cornell.build(width=8, height=8, spp=2, path_depth=2)
+    whole, _ = render_to_image(scene, device="cpu", seed=1, verbose=False)
+    real = driver.render_chunk
+    for error, expect_calls in ((torch.cuda.OutOfMemoryError("CUDA out of memory"), 2),
+                                (RuntimeError("launch failed"), 1)):
+        calls = []
+
+        def chunk(*a, _error=error, **k):
+            calls.append(1)
+            if len(calls) == 1:
+                raise _error
+            return real(*a, **k)
+
+        monkeypatch.setattr(driver, "render_chunk", chunk)
+        if isinstance(error, torch.cuda.OutOfMemoryError):
+            img, _ = render_to_image(scene, device="cpu", seed=1, verbose=False)
+            np.testing.assert_array_equal(img, whole)
+        else:
+            with pytest.raises(RuntimeError, match="launch failed"):
+                render_to_image(scene, device="cpu", seed=1, verbose=False)
+        assert len(calls) == expect_calls
+
+
+def test_render_stats_steady_and_compile(capsys):
+    """The first chunk is the compile window, the later ones the steady
+    window, whose rates the stats report; one chunk has no steady window
+    and its rates come from the wall time. A verbose render prints its
+    progress after the first chunk and then every SYNC_EVERY chunks."""
+    from cs397raytracingsp22_tpu_torch.render.driver import SYNC_EVERY
+
+    scene = cornell.build_config3(width=12, height=10, spp=4, path_depth=3)
+    _, one = render_to_image(scene, device="cpu", seed=5, verbose=False)
+    assert one.chunks == 1 and one.steady_seconds == 0 and one.device_count == 1
+    assert one.compile_seconds > 0
+    assert one.segment_mrays_per_sec == one.path_segments / one.wall_seconds / 1e6
+    capsys.readouterr()
+    _, st = render_to_image(scene, device="cpu", seed=5, pixel_chunk=8)
+    progress = capsys.readouterr().out.count("\r[render] chunk ")
+    assert progress == 1 + (st.chunks - 1) // SYNC_EVERY == 2
+    first_px = 8  # chunk 0 of 15 holds pixels 0, 15, ..., 105
+    assert st.chunks == 15 and st.compile_seconds > 0 and st.steady_seconds > 0
+    assert st.steady_primary == st.primary_rays - first_px * 4
+    assert 0 < st.steady_segments < st.path_segments == one.path_segments
+    assert st.compile_seconds + st.steady_seconds <= st.wall_seconds
+    assert st.primary_mrays_per_sec == st.steady_primary / st.steady_seconds / 1e6
 
 
 def test_cli_renders_a_phong_scene(tmp_path):

@@ -1,4 +1,5 @@
-"""The torch port imports without JAX, Triton or a CUDA device."""
+"""The torch port, its multi-device modules (parallel/) among them,
+imports without JAX, Triton or a CUDA device, and joins no process group."""
 
 import json
 import os
@@ -15,6 +16,7 @@ from cs397raytracingsp22_tpu_torch.ops import intersect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect, tri_scan_big
 from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, wavefront
 from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_peak
+from cs397raytracingsp22_tpu_torch.parallel import multihost, sharding
 from cs397raytracingsp22_tpu_torch.render import driver, integrator, nee
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell, teapot
 from cs397raytracingsp22_tpu_torch.scenes import kitchen_sink, textured_spheres
@@ -29,6 +31,7 @@ print(json.dumps({
                        for m in sys.modules),
     "triton": "triton" in sys.modules,
     "cuda_initialized": torch.cuda.is_initialized(),
+    "process_group": torch.distributed.is_initialized(),
     "launches": [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES,
                  wavefront.LAUNCHES, tri_scan.LAUNCHES, vpu_peak.LAUNCHES, dtype_rate.LAUNCHES,
                  bw_scan.LAUNCHES, bw_scan.MMA_LAUNCHES],
@@ -50,6 +53,7 @@ def test_import_needs_no_jax_triton_or_cuda():
     assert info["jax_package"] is False
     assert info["triton"] is False
     assert info["cuda_initialized"] is False
+    assert info["process_group"] is False
     assert info["launches"] == [0] * 9
     assert sorted(info["kernels"]) == sorted(
         f[:-3] for f in os.listdir(os.path.join(ROOT, "cs397raytracingsp22_tpu_torch", "csrc"))
