@@ -46,6 +46,9 @@ nonzero):
  11. K2 and K3 timed against their plain versions on that chunk's
      bounce-0 inputs, and K3 on the bounce-2 and aimed rays; K3's
      registers, spills, resident blocks, stack depth and shared memory;
+     K2's (`config-k2`): registers, spills, and for the bench scenes,
+     config 4 and the kitchen sink the bytes a block stages, resident
+     blocks an SM and the persistent grid (32-ray tiles from a ticket);
  12. bounds: the work of each kernel on these inputs (the tests that the
      plain versions count with their `stats` on a strided sample, scaled
      to the launch) and the least time the card could take for it; K1's
@@ -439,6 +442,17 @@ def sample_alone(what: str, fn, full, inputs, idx):
     return sub, alone
 
 
+def k2_ms(sd, ins, reps: int = 10) -> float:
+    """K2's milliseconds a launch on ins = (o, d, t_min, t_max, u_vol) by
+    CUDA events, the outputs allocated once and the wrapper's checks left
+    out (scene_intersect.launch): on a busy host the wrapper's Python work
+    can outlast a 0.1 ms launch, and the events would time the host."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect
+
+    out = scene_intersect.empty_outputs(ins[0].shape[0], ins[0].device)
+    return cuda_ms(lambda: scene_intersect.launch(sd, ins, out), reps)
+
+
 def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
     """(least milliseconds on the card, "bytes" or "operations"): operations
     at `peak` a second (FP32 unless given)."""
@@ -548,6 +562,36 @@ def k3_bound(mesh, ins, idx) -> tuple[float, str, dict]:
     return ms, by, w
 
 
+def k2_config(dev, scenes: dict) -> None:
+    """Phase 11's config-k2 line: K2's registers and spills (both
+    instantiations: the walk's few bytes of spill stay, PERF.md),
+    and for each scene (`scenes`, then config 4 on its stand-ins and the
+    kitchen sink, compiled here) the bytes a block stages, the resident
+    blocks an SM, the persistent grid of a 1,048,576-ray and a
+    4,194,304-ray launch and the tiles taken by the fixed rule before the
+    ticket."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect
+    from cs397raytracingsp22_tpu_torch.scenes import kitchen_sink, textured_spheres
+
+    scenes = dict(scenes)
+    scenes["config 4"] = textured_spheres.build(
+        16, 16, spp=1, asset_dir=textured_spheres.stand_in_dir()).compile(device=dev)
+    scenes["kitchen sink"] = kitchen_sink.build().compile(device=dev)
+    attrs = [scene_intersect.kernel_attrs(dense) for dense in (True, False)]
+    parts = []
+    for name, sd in scenes.items():
+        c1, c4 = (scene_intersect.launch_config(sd, n) for n in (1 << 20, 1 << 22))
+        parts.append(f"{name} {c1['smem_bytes']} B staged ({len(sd.dense_mesh_ids)} dense meshes, "
+                     f"{sd.ksl_tree.shape[0]} tree nodes): {c1['blocks_per_sm']} blocks an SM "
+                     f"({c1['blocks_per_sm'] * c1['threads'] // 32} warps), grid {c1['grid']} / "
+                     f"{c4['grid']} blocks, {c1['static_tiles']} / {c4['static_tiles']} of "
+                     f"{c1['tiles']} / {c4['tiles']} tiles by the fixed rule")
+    log("config-k2", f"K2 {attrs[0][0]} registers/thread and {attrs[0][1]} B local with the "
+        f"dense-mesh walk and the ticket, {attrs[1][0]} and {attrs[1][1]} B without; blocks of "
+        f"{c1['threads']} threads on {c1['sms']} SMs, tiles of {c1['tile']} rays; grids for "
+        f"1,048,576 / 4,194,304 rays; " + "; ".join(parts))
+
+
 def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) -> list:
     """Phases 9-11 and 13 and the bounds of K2 and K3 (see the module
     docstring): data6k is the bench scene with teapot_6k compiled at
@@ -603,12 +647,16 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
                     *(dict(t=x[0], u=x[4], v=x[5], normal=x[6]) for x in (alone, ref)))
                 k2_err = max(k2_err, err)
                 codes = alone[1]
+                ms = k2_ms(sd, inputs)
+                b_ms, b_by, _ = k2_bound_of(sd, inputs, idx)
                 log("parity-k2", f"{label} bounce {b}: one K2 launch of {n32} rays "
                     f"({int(alive.sum())} live); every {SAMPLE_STRIDE}th ray ({n}) alone is "
                     f"bit-identical to the launch's rows; {n_same}/{n} same (code, idx, mat) as "
                     f"the plain version, {n_exact}/{n} bit-identical, t/u/v/normal max |diff| "
                     f"{err:.3g}; sampled winners: "
-                    f"{int((codes < 0).sum())} miss, {int((codes == 4).sum())} dense mesh")
+                    f"{int((codes < 0).sum())} miss, {int((codes == 4).sum())} dense mesh; K2 "
+                    f"{ms:.4f} ms a launch (bound {b_ms:.4f} ms, {b_by}; K2 at {b_ms / ms:.1%} of "
+                    f"it)")
                 if label == "teapot_32k":
                     o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh32, *inputs[:2]))
                     t3 = torch.minimum(t_max, full_out[0])
@@ -703,15 +751,19 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         f"memory {peak / 2**30:.2f} GiB; image u8 max {img32.max()}, mean {img32.mean():.2f}")
 
     # ---- 11. K2 and K3 timing at the main path's shapes ----
-    k2_ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd32, *k2_in), 10)
+    k2_dev_ms = k2_ms(sd32, k2_in)
+    k2_wrap_ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd32, *k2_in), 10)
     k2_plain_ms = cuda_ms(lambda: scene_intersect.scene_intersect_plain(sd32, *k2_in), 2)
     k3_in = k3_ins[0]
     k3_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *k3_in), 10)
     k3_plain_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_plain(mesh32, *k3_in), 1)
     k3_b2_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *k3_ins[2]), 10)
     k3_aim_ms = cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh32, *aim_in), 10)
-    log("timing-staged", f"teapot_32k chunk 0 bounce 0 ({n32} rays): K2 {k2_ms:.3f} ms, plain "
-        f"{k2_plain_ms:.3f} ms ({k2_plain_ms / k2_ms:.1f}x); K3 {k3_ms:.3f} ms, plain "
+    k2_bound, k2_by, w2 = k2_bound_of(sd32, k2_in, idx)
+    log("timing-staged", f"teapot_32k chunk 0 bounce 0 ({n32} rays): K2 {k2_dev_ms:.4f} ms "
+        f"(bound {k2_bound:.4f} ms, {k2_by}; K2 at {k2_bound / k2_dev_ms:.1%} of it; "
+        f"{k2_wrap_ms:.4f} ms a call through the wrapper), plain {k2_plain_ms:.3f} ms "
+        f"({k2_plain_ms / k2_dev_ms:.1f}x); K3 {k3_ms:.3f} ms, plain "
         f"{k3_plain_ms:.3f} ms ({k3_plain_ms / k3_ms:.1f}x); K3 on the bounce-2 rays "
         f"{k3_b2_ms:.3f} ms; K3 on {n32} rays aimed at the teapot {k3_aim_ms:.3f} ms")
     regs, spill = tri_scan_big.kernel_attrs()
@@ -724,12 +776,13 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         f" warps)")
     if spill:
         raise AssertionError(f"K3 spills {spill} B")
+    k2_config(dev, {"teapot_6k (NEE, Phong)": data6k, "teapot_32k": sd32})
 
     # ---- 12. bounds of K2 and K3 at phase 11's inputs ----
-    k2_bound, k2_by, w2 = k2_bound_of(sd32, k2_in, idx)
     log("bound-k2", f"teapot_32k chunk 0 bounce 0 ({n32} rays): {analytic_ops(sd32)} FP32 ops of "
         f"analytic tests per ray, {w2['tris']:.2f} dense-mesh triangles per sampled ray; "
-        f"{w2['ops']:.4g} ops, {w2['bytes']:.4g} B -> bound {k2_bound:.4f} ms ({k2_by})")
+        f"{w2['ops']:.4g} ops, {w2['bytes']:.4g} B -> bound {k2_bound:.4f} ms ({k2_by}); K2 "
+        f"{k2_dev_ms:.4f} ms, at {k2_bound / k2_dev_ms:.1%} of it")
     k3b = {}
     for what, ins3, ms in (("chunk 0 bounce 0", k3_in, k3_ms),
                            ("chunk 0 bounce 2", k3_ins[2], k3_b2_ms),
@@ -763,7 +816,7 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         "replaces": "cs397raytracingsp22_tpu/ops/pallas/scene_intersect.py:464",
         "launches": k2_launches,
         "max_abs_err": k2_err,
-        "ms": k2_ms,
+        "ms": k2_dev_ms,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_bound,
         "bound_by": k2_by,
@@ -1829,7 +1882,7 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
                torch.broadcast_to(torch.as_tensor(t1_, dtype=torch.float32, device=dev), (n,))
                .contiguous(),
                u_[:, :sd.vol_center.shape[0]].contiguous())
-        ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd, *ins), 10)
+        ms = k2_ms(sd, ins)
         b_ms, b_by, w = k2_bound_of(sd, ins, idx)
         parts.append(f"{what} {ms:.4f} ms ({int((ins[3] > 0).sum())} rays with a window, "
                      f"{w['tris']:.2f} dense-mesh triangles a sampled ray; bound {b_ms:.4f} ms, "
@@ -2094,12 +2147,12 @@ def textured_phases(dev) -> dict:
             o, d, thr, rad, alive, _ = integrator._bounce_update(
                 sdk, o, d, thr, rad, alive, uids, key, site, camk.max_trace_dist,
                 intersect=isect.intersect_scene)
-    k2_ms, k3_ms = cuda_ms(lambda: k2f(*k2_in), 10), cuda_ms(lambda: k3f(*k3_in), 10)
+    ms2, k3_ms = k2_ms(sdk, k2_in), cuda_ms(lambda: k3f(*k3_in), 10)
     k2_b, k2_by, w2 = k2_bound_of(sdk, k2_in, idx)
     k3_b, k3_by, _ = k3_bound(mesh_big, k3_in, idx)
-    log("timing-textured", f"kitchen sink bounce 0 ({n} rays): K2 {k2_ms:.4f} ms ({w2['tris']:.2f} "
+    log("timing-textured", f"kitchen sink bounce 0 ({n} rays): K2 {ms2:.4f} ms ({w2['tris']:.2f} "
         f"dense-mesh triangles a sampled ray; bound {k2_b:.4f} ms, {k2_by}; K2 at "
-        f"{k2_b / k2_ms:.1%} of it); K3 on the {mesh_big.tri_verts.shape[0]}-triangle grid "
+        f"{k2_b / ms2:.1%} of it); K3 on the {mesh_big.tri_verts.shape[0]}-triangle grid "
         f"{k3_ms:.4f} ms (bound {k3_b:.4f} ms, {k3_by}; {k3_b / k3_ms:.1%})")
     nchk, (o, d, uids) = chunk0(sdk, camk)
     log("textured-parity", f"kitchen sink chunk 0 of {nchk}: "
@@ -2146,7 +2199,7 @@ def textured_phases(dev) -> dict:
     ins = (o, d, torch.full((n,), integrator.PATH_T_MIN, device=dev),
            torch.full((n,), cam4.max_trace_dist, device=dev),
            u_vol[:, :sd4.vol_center.shape[0]].contiguous())
-    ms = cuda_ms(lambda: scene_intersect.scene_intersect_cuda(sd4, *ins), 10)
+    ms = k2_ms(sd4, ins)
     b_ms, b_by, w = k2_bound_of(sd4, ins, torch.arange(0, n, SAMPLE_STRIDE, device=dev))
     log("timing-textured", f"stand-in config 4 chunk 0 bounce 0 ({n} rays): K2 {ms:.4f} ms "
         f"({w['tris']:.2f} dense-mesh triangles a sampled ray over the two spheres' "
@@ -2613,6 +2666,8 @@ def main() -> int:
                                ("K4 no mesh last", "wavefront", wavefront,
                                 {"dense": False, "last": True}),
                                ("K2", "scene_intersect", scene_intersect, {}),
+                               ("K2 no mesh", "scene_intersect", scene_intersect,
+                                {"dense": False}),
                                ("K3", "bvh_traverse", tri_scan_big, {}),
                                ("K5", "tri_scan", tri_scan, {})):
         regs, spill = mod.kernel_attrs(**kw)

@@ -9,13 +9,34 @@
 // dense meshes of a scene. The staged path merges big meshes (K3) and
 // resolves mesh winners around it (ops/intersect.py::intersect_scene_fused).
 //
-// Shape: one thread per ray. The scene's analytic, material and mesh-row
-// tables (kscene, a few hundred bytes) and the dense meshes' superleaf
-// trees (ksl_tree, at most 32,736 B) are staged into shared memory once
-// per block; the class tests and the dense-mesh walk (the superleaf tree,
-// then Möller–Trumbore on the superleaves it reaches) are the device
-// functions of intersect.cuh, which K1 runs too. The winner rules are the
-// spec's: class order with a running
+// Shape: one thread per ray; persistent blocks of 256 threads that stage
+// the scene once; warps that take 32-ray tiles, up to half of a launch's by
+// a fixed rule and the rest from a ticket. The grid is as many blocks
+// as stay resident on the card (the occupancy query times the SM count;
+// fewer when the rays fill fewer), computed by the wrapper
+// (ops/kernels/scene_intersect.py::launch_config). Each block copies the
+// scene's analytic, material and mesh-row tables (kscene, a few hundred
+// bytes) and the dense meshes' superleaf trees (ksl_tree, up to a few tens
+// of KB) into shared memory once, with Hopper's bulk asynchronous copy
+// (cp.async.bulk global -> shared, completing on an mbarrier): one thread
+// issues it, and each warp loads its first tile's rays before it waits for
+// the copy to land. Warp w of the grid's W takes tiles w, w + W, ... below
+// n_static; beyond, each warp draws its next tile from an atomic ticket
+// while it works on the current one, so the end of the launch goes to
+// whichever warp is free. Without a dense mesh every ray costs about the
+// same and n_static covers every tile (no atomic). The ticket (ticket[0])
+// and a count of the warps done (ticket[1]) start at zero, and the last
+// warp to finish puts both back to zero, so a launch needs no memset. The
+// lanes of a last, partial tile run a dead ray (an empty window), so every
+// warp enters the walk whole, and store nothing. The class tests are the
+// device functions of intersect.cuh, which K1 and K4 run too; the
+// dense-mesh walk is K2's own variant of intersect.cuh::scan_dense_mesh
+// (scan_dense_mesh_k2: the same superleaf tree and leaf order, the leaves
+// a warp reaches in a step scanned two at a time), so the rows are bit for
+// bit those of the earlier design, which ran the shared walk in 128-ray
+// blocks that each staged the tables.
+//
+// The winner rules are the spec's: class order with a running
 // best and strict `<`, analytic t in [t_min, t_max], mesh t < t_max
 // strictly and in object space (the ray is transformed without
 // renormalisation, intersect.py:287-288 in the JAX package). A ray whose
@@ -36,14 +57,18 @@
 // The ray-sphere quadratic cancels when a ray starts on a sphere, and a
 // contracted FMA there moved hit points by 2e-4 against the plain version.
 //
-// What bounds it on the H100, and what the design does about it:
+// What bounds it on the H100, and what the design does about it (PERF.md):
 // - With no dense mesh (the 32k-triangle bench scene, whose teapot is a big
 //   mesh), each ray does a few dozen FP32 tests and moves ~70 B of rays,
 //   bounds and outputs: memory-bound. Rows are read and written once;
 //   outputs are structure-of-arrays, so a warp's stores coalesce.
-// - With a dense mesh, the mesh walk, as in K1: a ray tests the tree's root,
-//   and the path to each superleaf it reaches. Warp divergence follows ray
-//   coherence: camera rays start coherent, later bounces less so.
+// - With a dense mesh, the walk: a ray tests the tree's root and the path
+//   to each superleaf it reaches (2-8 nodes a lane on the measured inputs),
+//   and the warp scans every superleaf its lanes reach, 2.5-18 a warp, each
+//   a chain of global row loads, an exact division and warp reductions. The
+//   leaf scans are the time, so K2 scans two leaves at once, 16 lanes each.
+//   The earlier design also copied the trees (24-32 KB) into every 128-ray
+//   block, 7-10% of a launch; here they are copied once a resident block.
 
 #include "intersect.cuh"
 
@@ -51,7 +76,8 @@ namespace {
 
 using namespace rt;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;  // a block: eight warps, each taking its own tiles (PERF.md)
+constexpr int kWarps = kThreads / 32;
 
 struct Params {
   const float* o;      // (N, 3)
@@ -61,6 +87,10 @@ struct Params {
   const float* u_vol;  // (N, u_ld): column q is volume q's free-flight uniform
   int u_ld;
   int n;
+  int n_tiles;   // ceil(n / 32)
+  int n_static;  // tiles taken by a fixed rule; the rest come from the ticket
+  int n_warps;   // warps in the grid
+  int* ticket;  // [0] tiles taken, [1] warps done: zero before and after a launch
   const float* scene;
   int scene_len;
   int n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh;
@@ -77,91 +107,286 @@ struct Params {
   unsigned char* ff;
 };
 
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One bulk asynchronous copy of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) from device memory into shared memory, completing on
+// the mbarrier at `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(shared_addr(dst)), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Wait until the mbarrier at `bar` has completed its first phase.
+__device__ __forceinline__ void wait_staged(uint32_t bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
+  }
+}
+
+// K2's walk of dense mesh m: intersect.cuh::scan_dense_mesh, whose leaves a
+// warp scans two at a time. In each step every lane still walking tests one
+// node, as there; then the leaves reached in the step (at most one a lane)
+// are scanned in pairs, the lower 16 lanes one leaf and the upper 16 the
+// next, one row a lane, so a warp pays one row's latency for two leaves. A
+// ray's leaves are still scanned in its walk's order, each against its own
+// running best, and the least t wins, the lowest row on ties (the lowest
+// lane of the half): the rows are scan_dense_mesh's, bit for bit. Needs the
+// whole warp (the kernel runs dead rays on lanes past the last ray).
+__device__ __forceinline__ void scan_dense_mesh_k2(const float* X, int m, const float4* mesh_tri,
+                                                   const float4* tree, float ox, float oy,
+                                                   float oz, float dx, float dy, float dz,
+                                                   float tmin, float tmax, Nearest& h) {
+  constexpr unsigned kAll = 0xffffffffu;
+  float mox, moy, moz, mdx, mdy, mdz;
+  to_object(X, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);
+  const float ix = 1.0f / mdx, iy = 1.0f / mdy, iz = 1.0f / mdz;
+  const int s = (int)X[37];
+  const float4* nodes = tree + 2 * (2 * (int)X[36] - m - 1);  // node k at nodes[2k], nodes[2k + 1]
+  const int lane = threadIdx.x & 31, half = lane >> 4, j = lane & 15;
+  int k = 1;
+  bool walking = true;
+  do {
+    int r0 = -1;  // the first row of a superleaf this lane reached in this step
+    if (walking) {
+      if (node_reached(nodes + 2 * k, mox, moy, moz, ix, iy, iz, tmin, fminf(h.t, tmax))) {
+        if (k < s) {
+          k *= 2;  // an inner node: enter its first child
+        } else {
+          const int top = 1 << (31 - __clz(2 * s - 1));
+          r0 = (int)X[34] + 16 * (k - top + (k < top ? s : 0));
+          k = (k >> (__ffs(~k) - 1)) + 1;
+        }
+      } else {
+        k = (k >> (__ffs(~k) - 1)) + 1;  // past k's subtree
+      }
+      walking = k != 1;
+    }
+    unsigned pend = __ballot_sync(kAll, r0 >= 0);
+    while (pend) {
+      const int a = __ffs(pend) - 1;
+      pend &= pend - 1;
+      const int b = pend ? __ffs(pend) - 1 : -1;  // the pair's second leaf, if any
+      pend &= pend - 1;
+      const int src = half && b >= 0 ? b : a;
+      const int sr0 = __shfl_sync(kAll, r0, src);
+      const float sox = __shfl_sync(kAll, mox, src), soy = __shfl_sync(kAll, moy, src),
+                  soz = __shfl_sync(kAll, moz, src), sdx = __shfl_sync(kAll, mdx, src),
+                  sdy = __shfl_sync(kAll, mdy, src), sdz = __shfl_sync(kAll, mdz, src);
+      const float stmin = __shfl_sync(kAll, tmin, src);
+      const float sfar = __shfl_sync(kAll, fminf(h.t, tmax), src);
+      unsigned key = 0xffffffffu;
+      float bu = 0.0f, bv = 0.0f;
+      float t, u, v;
+      if ((half == 0 || b >= 0) &&
+          mt_row(mesh_tri, sr0 + j, sox, soy, soz, sdx, sdy, sdz, stmin, sfar, t, u, v)) {
+        key = ordered_key(t); bu = u; bv = v;
+      }
+      const unsigned ka = __reduce_min_sync(kAll, half ? 0xffffffffu : key);
+      const unsigned kb = __reduce_min_sync(kAll, half ? key : 0xffffffffu);
+      // the winning row of each half: its lowest lane holding the least key
+      const unsigned wins = __ballot_sync(kAll, key == (half ? kb : ka) && key != 0xffffffffu);
+      const int wa = __ffs(wins & 0xffffu) - 1, wb = __ffs(wins >> 16) - 1;
+      const int wl = lane == b ? 16 + wb : wa;
+      const float wu = __shfl_sync(kAll, bu, wl & 31), wv = __shfl_sync(kAll, bv, wl & 31);
+      const unsigned kw = lane == b ? kb : ka;
+      if ((lane == a || lane == b) && kw != 0xffffffffu) {
+        h.t = key_value(kw); h.cls = kClsMesh; h.idx = r0 + (wl & 15); h.mesh = m;
+        h.u = wu; h.v = wv;
+      }
+    }
+  } while (__any_sync(kAll, walking));
+}
+
+// Warps take the tiles of a launch: the first n_static by a fixed rule (warp
+// w of the grid's W takes tiles w, w + W, w + 2W, ... below n_static), the
+// rest from the ticket, each drawn while the warp's current tile runs. With
+// a dense mesh the walk's length varies from tile to tile, and the ticket
+// gives the end of the launch to whichever warp is free; without one every
+// ray costs about the same, and n_static covers every tile: one atomic a
+// tile on one word costs more than it balances (PERF.md).
+template <bool kWalk>
 __global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params p) {
   extern __shared__ __align__(16) float sm[];
-  const float4* tree = stage_tables(sm, p.scene, p.scene_len, p.tree, p.tree_len);
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
+  __shared__ __align__(8) unsigned long long staged;  // the mbarrier of the staging copy
+  const int lane = threadIdx.x & 31;
+  const uint32_t bar = shared_addr(&staged);
+  float4* tree = reinterpret_cast<float4*>(sm + tree_offset(p.scene_len));
+  // The table's whole 16-byte words and the trees go by one bulk copy each;
+  // the table's last 0-3 floats by plain loads.
+  const int head = p.scene_len & ~3;
+  if (threadIdx.x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const uint32_t bytes = 4u * (uint32_t)(head + p.tree_len);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+                 : "memory");
+    if (head > 0) bulk_copy(sm, p.scene, 4u * head, bar);
+    if (p.tree_len > 0) bulk_copy(tree, p.tree, 4u * p.tree_len, bar);
+  }
+  if (threadIdx.x < p.scene_len - head) sm[head + threadIdx.x] = p.scene[head + threadIdx.x];
+  __syncthreads();  // the barrier is initialised and the table's tail stored
 
   const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
-  const float ox = p.o[3 * i], oy = p.o[3 * i + 1], oz = p.o[3 * i + 2];
-  const float dx = p.d[3 * i], dy = p.d[3 * i + 1], dz = p.d[3 * i + 2];
-  const float tmin = p.t_min[i], tmax = p.t_max[i];
+  const bool ticketed = p.n_static < p.n_tiles;  // uniform over the launch
+  int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (tile >= p.n_static && ticketed) {
+    tile = lane == 0 ? p.n_static + atomicAdd(p.ticket, 1) : 0;
+    tile = __shfl_sync(0xffffffffu, tile, 0);
+  }
+  bool waited = false;
+  while (tile < p.n_tiles) {
+    int next = tile + p.n_warps;
+    if (next >= p.n_static && ticketed) {  // drawn now, it lands during the tile
+      next = lane == 0 ? p.n_static + atomicAdd(p.ticket, 1) : 0;
+    }
+    const int i = tile * 32 + lane;
+    const bool in = i < p.n;
+    // a lane past the last ray runs a dead ray: an empty window, no store
+    const float ox = in ? p.o[3 * i] : 0.0f, oy = in ? p.o[3 * i + 1] : 0.0f,
+                oz = in ? p.o[3 * i + 2] : 0.0f;
+    const float dx = in ? p.d[3 * i] : 1.0f, dy = in ? p.d[3 * i + 1] : 1.0f,
+                dz = in ? p.d[3 * i + 2] : 1.0f;
+    const float tmin = in ? p.t_min[i] : 1.0f, tmax = in ? p.t_max[i] : 0.0f;
+    if (!waited) {  // the first tile's rays are in flight: now the tables
+      wait_staged(bar);
+      waited = true;
+    }
 
-  Nearest h = nearest_none();
-  const float a2 = dx * dx + dy * dy + dz * dz;
-  scan_spheres(R.sph, p.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
-  scan_planes(R.pln, p.n_pln, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
-  scan_triangles(R.tri, p.n_tri, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
-  const float* uq = p.u_vol + (size_t)i * p.u_ld;
-  for (int q = 0; q < p.n_vol; ++q) {
-    test_volume(R.vol + kVol * q, q, uq[q], ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
-  }
-  for (int m = 0; m < p.n_mesh; ++m) {
-    scan_dense_mesh(R.msh + kMesh * m, m, p.mesh_tri, R.tree, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
-  }
+    Nearest h = nearest_none();
+    const float a2 = dx * dx + dy * dy + dz * dz;
+    scan_spheres(R.sph, p.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
+    scan_planes(R.pln, p.n_pln, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
+    scan_triangles(R.tri, p.n_tri, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
+    const float* uq = p.u_vol + (size_t)i * p.u_ld;
+    for (int q = 0; q < p.n_vol; ++q) {
+      test_volume(R.vol + kVol * q, q, in ? uq[q] : 1.0f, ox, oy, oz, dx, dy, dz, a2, tmin, tmax,
+                  h);
+    }
+    if (kWalk) {
+      for (int m = 0; m < p.n_mesh; ++m) {
+        scan_dense_mesh_k2(R.msh + kMesh * m, m, p.mesh_tri, R.tree, ox, oy, oz, dx, dy, dz, tmin,
+                           tmax, h);
+      }
+    }
 
-  float t = tmax, u = 0.0f, v = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
-  int code = -1, idx = 0, mid = 0;
-  bool ff = false;
-  if (h.cls == kClsMesh) {
-    const float* X = R.msh + kMesh * h.mesh;
-    t = h.t; u = h.u; v = h.v;
-    code = kClsMesh + h.mesh;
-    idx = h.idx - (int)X[34];
-    mid = (int)X[33];
-  } else if (h.cls >= 0) {
-    float px, py, pz;
-    resolve_analytic(R, h.cls, h.idx, h.t, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff, mid);
-    t = h.t;
-    code = h.cls;
-    idx = h.idx;
+    float t = tmax, u = 0.0f, v = 0.0f, nx = 0.0f, ny = 0.0f, nz = 0.0f;
+    int code = -1, idx = 0, mid = 0;
+    bool ff = false;
+    if (h.cls == kClsMesh) {
+      const float* X = R.msh + kMesh * h.mesh;
+      t = h.t; u = h.u; v = h.v;
+      code = kClsMesh + h.mesh;
+      idx = h.idx - (int)X[34];
+      mid = (int)X[33];
+    } else if (h.cls >= 0) {
+      float px, py, pz;
+      resolve_analytic(R, h.cls, h.idx, h.t, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff,
+                       mid);
+      t = h.t;
+      code = h.cls;
+      idx = h.idx;
+    }
+    if (in) {
+      p.t[i] = t;
+      p.code[i] = code;
+      p.idx[i] = idx;
+      p.mat[i] = mid;
+      p.u[i] = u;
+      p.v[i] = v;
+      p.normal[3 * i] = nx;
+      p.normal[3 * i + 1] = ny;
+      p.normal[3 * i + 2] = nz;
+      p.ff[i] = ff ? 1 : 0;
+    }
+    tile = ticketed ? __shfl_sync(0xffffffffu, next, 0) : next;
   }
-  p.t[i] = t;
-  p.code[i] = code;
-  p.idx[i] = idx;
-  p.mat[i] = mid;
-  p.u[i] = u;
-  p.v[i] = v;
-  p.normal[3 * i] = nx;
-  p.normal[3 * i + 1] = ny;
-  p.normal[3 * i + 2] = nz;
-  p.ff[i] = ff ? 1 : 0;
+  if (!waited) wait_staged(bar);  // no block leaves while its copy is in flight
+  if (ticketed && lane == 0 && atomicAdd(p.ticket + 1, 1) == p.n_warps - 1) {
+    // every other warp has drawn its last ticket: reset for the next launch
+    p.ticket[0] = 0;
+    p.ticket[1] = 0;
+  }
+}
+
+template <bool kWalk>
+cudaError_t prepare(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(scene_intersect_kernel<kWalk>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <bool kWalk>
+cudaError_t occupancy(size_t smem, int* blocks) {
+  const cudaError_t e = prepare<kWalk>(smem);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, scene_intersect_kernel<kWalk>,
+                                                       kThreads, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K2 on `stream`. Returns cudaGetLastError() after the launch (0 on
-// success); the caller raises on anything else.
+// Launch K2 on `stream` in `grid` blocks (launch_config: at most the
+// resident blocks of the card, at least 1), the first n_static of its
+// ceil(n / 32) tiles by the fixed rule and the rest from the ticket (two
+// int32 on the device, zero before the launch; the kernel leaves them
+// zero). Returns
+// cudaGetLastError() after the launch (0 on success); the caller raises on
+// anything else.
 int rt_scene_intersect_launch(const float* o, const float* d, const float* t_min,
-                              const float* t_max, const float* u_vol, int u_ld, int n,
-                              const float* scene, int scene_len, int n_sph, int n_pln, int n_tri,
-                              int n_vol, int n_mat, int n_mesh, const float* mesh_tri,
-                              const float* tree, int tree_len, float* t, int* code, int* idx,
-                              int* mat, float* u, float* v, float* normal, unsigned char* ff,
-                              void* stream) {
+                              const float* t_max, const float* u_vol, int u_ld, int n, int grid,
+                              int n_static, int* ticket, const float* scene, int scene_len,
+                              int n_sph, int n_pln, int n_tri, int n_vol, int n_mat, int n_mesh,
+                              const float* mesh_tri, const float* tree, int tree_len, float* t,
+                              int* code, int* idx, int* mat, float* u, float* v, float* normal,
+                              unsigned char* ff, void* stream) {
   if (n <= 0) return 0;
-  Params p{o, d, t_min, t_max, u_vol, u_ld, n, scene, scene_len, n_sph, n_pln, n_tri, n_vol,
-           n_mat, n_mesh, reinterpret_cast<const float4*>(mesh_tri), tree, tree_len, t, code,
-           idx, mat, u, v, normal, ff};
+  if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
+  Params p{o, d, t_min, t_max, u_vol, u_ld, n, (n + 31) / 32, n_static, grid * kWarps, ticket,
+           scene, scene_len, n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh,
+           reinterpret_cast<const float4*>(mesh_tri), tree, tree_len, t, code, idx, mat, u, v,
+           normal, ff};
   const size_t smem = staged_bytes(scene_len, tree_len);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(scene_intersect_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const cudaError_t e = n_mesh > 0 ? prepare<true>(smem) : prepare<false>(smem);
+  if (e != cudaSuccess) return (int)e;
+  if (n_mesh > 0) {
+    scene_intersect_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
+  } else {
+    scene_intersect_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
   }
-  const int blocks = (n + kThreads - 1) / kThreads;
-  scene_intersect_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Registers per thread and local (spill) bytes of the compiled kernel.
-int rt_scene_intersect_attrs(int* num_regs, int* local_bytes) {
+// Threads a block, and blocks resident on one SM of the instantiation a
+// scene with `n_mesh` dense meshes launches, when each block stages a scene
+// table of `scene_len` floats and superleaf trees of `tree_len` floats.
+int rt_scene_intersect_occupancy(int scene_len, int tree_len, int n_mesh, int* blocks,
+                                 int* threads) {
+  const size_t smem = staged_bytes(scene_len, tree_len);
+  *threads = kThreads;
+  return (int)(n_mesh > 0 ? occupancy<true>(smem, blocks) : occupancy<false>(smem, blocks));
+}
+
+// Registers per thread and local (spill) bytes of the compiled kernel for a
+// scene with (dense != 0) or without dense meshes.
+int rt_scene_intersect_attrs(int dense, int* num_regs, int* local_bytes) {
   cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, scene_intersect_kernel);
+  const cudaError_t e = dense ? cudaFuncGetAttributes(&a, scene_intersect_kernel<true>)
+                              : cudaFuncGetAttributes(&a, scene_intersect_kernel<false>);
   if (e != cudaSuccess) return (int)e;
   *num_regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

@@ -7,6 +7,14 @@ tensors it runs the plain version `scene_intersect_plain`, which is also
 what the kernel is held against on the card. It replaces the JAX
 package's ops/pallas/scene_intersect.py::scene_intersect_pallas.
 
+The launch is a persistent grid (`launch_config`: the blocks that stay
+resident on the card, no more than the rays' 32-ray tiles give each warp
+one) whose blocks stage the scene tables once. Its W warps take 32-ray
+tiles: warp w takes w, w + W, ... below `static_tiles` (every tile without
+a dense mesh, up to half with one), and the rest come from a ticket: two
+int32 on the device a stream (`ticket`), zero before a launch and put back
+to zero by its last warp.
+
 Output, per ray: t (float32; t_max on a miss; object-space t for a mesh
 winner), code (int32: -1 miss, 0 sphere, 1 plane, 2 triangle, 3 volume,
 4 + k dense mesh k in dense_mesh_ids order), idx (int32: index in its
@@ -35,11 +43,17 @@ from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 LAUNCHES = 0
 SMEM_LIMIT = 227 * 1024  # shared memory a block can use on the H100
+TILE = 32  # rays a warp takes at a time
+_OCCUPANCY: dict = {}  # (library, device, table sizes, dense meshes) -> (blocks an SM, threads)
+_SMS: dict = {}  # device -> SMs
+_TICKETS: dict = {}  # (device, stream) -> the tile ticket
+_TYPED: set = set()  # libraries whose functions carry their C types
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [
     _P, _P, _P, _P, _P, _I, _I,  # o, d, t_min, t_max, u_vol, u_ld, n
+    _I, _I, _P,  # grid, n_static, ticket
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
     _P, _P, _I,  # mesh_tri (kmesh_tri4), tree, tree_len
     _P, _P, _P, _P, _P, _P, _P, _P,  # t, code, idx, mat, u, v, normal, ff
@@ -48,22 +62,99 @@ _ARGTYPES = [
 
 
 def library() -> ctypes.CDLL:
-    """The built kernel library (builds it on first use)."""
+    """The built kernel library (builds it on first use), its functions
+    typed once."""
     lib = _build.load_library("scene_intersect")
+    if id(lib) in _TYPED:
+        return lib
+    _TYPED.add(id(lib))
     lib.rt_scene_intersect_launch.argtypes = _ARGTYPES
     lib.rt_scene_intersect_launch.restype = _I
-    lib.rt_scene_intersect_attrs.argtypes = [ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_scene_intersect_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rt_scene_intersect_attrs.restype = _I
+    lib.rt_scene_intersect_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
+                                                 ctypes.POINTER(_I)]
+    lib.rt_scene_intersect_occupancy.restype = _I
     return lib
 
 
-def kernel_attrs() -> tuple[int, int]:
-    """(registers per thread, local spill bytes) of the compiled kernel."""
+def kernel_attrs(dense: bool = True) -> tuple[int, int]:
+    """(registers per thread, local spill bytes) of the compiled kernel: the
+    instantiation with the dense-mesh walk and the ticket, or (dense False)
+    the one for scenes without a dense mesh."""
     regs, local = _I(), _I()
-    rc = library().rt_scene_intersect_attrs(ctypes.byref(regs), ctypes.byref(local))
+    rc = library().rt_scene_intersect_attrs(int(dense), ctypes.byref(regs), ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
     return regs.value, local.value
+
+
+def grid_blocks(n: int, per_sm: int, sms: int, threads: int) -> int:
+    """Blocks of a launch over n > 0 rays: as many as stay resident on the
+    card (per_sm on each of sms SMs), but no more than give each warp of
+    `threads`-thread blocks one 32-ray tile."""
+    if per_sm < 1 or sms < 1:
+        raise ValueError(f"no block of K2 fits on an SM ({per_sm} an SM, {sms} SMs)")
+    warps_a_block = threads // TILE
+    tiles = -(-n // TILE)
+    return max(1, min(per_sm * sms, -(-tiles // warps_a_block)))
+
+
+def static_tiles(n_tiles: int, n_warps: int, dense: bool) -> int:
+    """The tiles of a launch that its warps take by the fixed rule (warp w
+    of n_warps takes w, w + n_warps, ...): all of them without a dense mesh
+    (rays of about the same cost, where one atomic a tile would cost more
+    than it balances); with one, whole rounds of the warps up to half the
+    tiles (at least one round), the rest drawn from the ticket (PERF.md)."""
+    if not dense:
+        return n_tiles
+    return max(1, n_tiles // 2 // n_warps) * n_warps
+
+
+def occupancy(scene: SceneData, lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """(blocks resident on one SM, threads a block) of the instantiation that
+    `scene` launches when each block stages its scene table and superleaf
+    trees (cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached per
+    library, device, table sizes and instantiation)."""
+    lib = lib or library()
+    key = (id(lib), torch.cuda.current_device(), int(scene.kscene.numel()),
+           int(scene.ksl_tree.numel()), len(scene.dense_mesh_ids))
+    if key not in _OCCUPANCY:
+        blocks, threads = _I(), _I()
+        rc = lib.rt_scene_intersect_occupancy(key[2], key[3], key[4], ctypes.byref(blocks),
+                                              ctypes.byref(threads))
+        if rc != 0:
+            raise RuntimeError(
+                f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed with CUDA error {rc}")
+        _OCCUPANCY[key] = (blocks.value, threads.value)
+    return _OCCUPANCY[key]
+
+
+def launch_config(scene: SceneData, n: int, lib: ctypes.CDLL | None = None) -> dict:
+    """The launch's shape over n rays of `scene` on the current device:
+    threads a block, rays a tile, resident blocks an SM, SMs, the grid,
+    the tiles and those taken by the fixed rule (the rest come from the
+    ticket), and the shared memory a block stages."""
+    per_sm, threads = occupancy(scene, lib)
+    dev = torch.cuda.current_device()
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = _SMS[dev]
+    grid = grid_blocks(max(n, 1), per_sm, sms, threads)
+    tiles = -(-n // TILE)
+    return dict(threads=threads, tile=TILE, blocks_per_sm=per_sm, sms=sms, grid=grid,
+                tiles=tiles, static_tiles=static_tiles(tiles, grid * threads // TILE,
+                                                       bool(scene.dense_mesh_ids)),
+                smem_bytes=staged_bytes(scene))
+
+
+def ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """The tile ticket of launches on `stream` of device `dev`: two int32,
+    zeroed once; each launch leaves them zero."""
+    key = (dev.index, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    return _TICKETS[key]
 
 
 def scene_intersect_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
@@ -127,33 +218,51 @@ def scene_intersect_cuda(scene: SceneData, o, d, t_min, t_max, u_vol):
     for key in ("kscene", "kmesh_tri4", "ksl_tree"):
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"scene.{key} must start on a 16-byte boundary (bulk copy)")
     staged = staged_bytes(scene)
     if staged > SMEM_LIMIT:
         raise ValueError(f"the scene table and superleaf trees ({staged} B) exceed shared memory")
     if n * max(3, u_vol.shape[1]) >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    code = torch.empty((n,), dtype=torch.int32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
-    mat = torch.empty((n,), dtype=torch.int32, device=dev)
-    u = torch.empty((n,), dtype=torch.float32, device=dev)
-    v = torch.empty((n,), dtype=torch.float32, device=dev)
-    normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    ff = torch.empty((n,), dtype=torch.bool, device=dev)
+    out = empty_outputs(n, dev)
+    if n == 0:  # nothing to launch
+        return out
+    launch(scene, (o, d, t_min, t_max, u_vol), out)
+    LAUNCHES += 1
+    return out
+
+
+def empty_outputs(n: int, dev) -> tuple:
+    """The kernel's outputs for n rays on `dev`, unset: t, code, idx, mat,
+    u, v, normal, ff."""
+    f32, i32 = dict(dtype=torch.float32, device=dev), dict(dtype=torch.int32, device=dev)
+    return (torch.empty((n,), **f32), torch.empty((n,), **i32), torch.empty((n,), **i32),
+            torch.empty((n,), **i32), torch.empty((n,), **f32), torch.empty((n,), **f32),
+            torch.empty((n, 3), **f32), torch.empty((n,), dtype=torch.bool, device=dev))
+
+
+def launch(scene: SceneData, ins: tuple, out: tuple) -> None:
+    """One launch of the kernel on the current stream of the inputs' device:
+    ins = (o, d, t_min, t_max, u_vol), n > 0 rays, as scene_intersect_cuda
+    checks them; out from empty_outputs. Counts nothing: the wrapper counts
+    its launches, and a timing that leaves the wrapper's checks and
+    allocations out of its bracket calls this (chip_smoke.py)."""
+    o, d, t_min, t_max, u_vol = ins
+    dev = o.device
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
+        cfg = launch_config(scene, o.shape[0], lib)
         rc = lib.rt_scene_intersect_launch(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), u_vol.data_ptr(),
-            int(u_vol.shape[1]), n,
+            int(u_vol.shape[1]), o.shape[0], cfg["grid"], cfg["static_tiles"],
+            ticket(dev, stream).data_ptr(),
             scene.kscene.data_ptr(), int(scene.kscene.numel()),
             scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
             scene.kmesh_tri4.data_ptr(), scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()),
-            t.data_ptr(), code.data_ptr(), idx.data_ptr(), mat.data_ptr(), u.data_ptr(),
-            v.data_ptr(), normal.data_ptr(), ff.data_ptr(), stream,
+            *(x.data_ptr() for x in out), stream,
         )
     if rc != 0:
         raise RuntimeError(f"scene-intersection kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
-    return t, code, idx, mat, u, v, normal, ff

@@ -20,6 +20,13 @@ limit: for each frame and checkout the mean, median and least seconds per
 image over all its turns, and this checkout's median and least over each
 other's. The host noise of a shared machine only ever adds time, so the
 least of many images is the steadiest figure of what the code costs.
+
+`--frames k2host` (not in the default set) times the host side of the
+scene-intersection wrapper instead of a frame: K2_CALLS calls of
+`scene_intersect_cuda` on 1,024 camera rays of the bench scene, then one
+wait for the card; its "seconds" are those of K2_CALLS calls, a figure
+that the NEE, Phong and config-4 frames (host-bound) pay 240, 32 and 64
+calls of an image.
 """
 
 from __future__ import annotations
@@ -41,6 +48,38 @@ FRAMES = {
     "config4": ("textured_spheres", dict(width=512, height=512, spp=32), False),
 }
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+K2_CALLS = 1000
+
+
+def k2_host(device: str, reps: int) -> dict:
+    """The "k2host" line: the seconds of K2_CALLS wrapper calls, reps times."""
+    import time
+
+    import torch
+
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+
+    sc = bench_scene.build(32, 32, spp=1, path_depth=8)
+    sd = sc.compile(device=device)
+    o, d, _ = driver._gen_chunk_rays(sc.camera, torch.arange(1024, dtype=torch.int32,
+                                                             device=device), 0, 0, 1, 1)
+    ins = (o.contiguous(), d.contiguous(),
+           torch.full((1024,), integrator.PATH_T_MIN, device=device),
+           torch.full((1024,), 100.0, device=device),
+           torch.full((1024, max(1, sd.n_volumes)), 0.5, device=device))
+    wait = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    scene_intersect.scene_intersect_cuda(sd, *ins)
+    wait()
+    seconds = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(K2_CALLS):
+            scene_intersect.scene_intersect_cuda(sd, *ins)
+        wait()
+        seconds.append(time.perf_counter() - t0)
+    return dict(frame="k2host", seconds=seconds, segments=0, chunks=K2_CALLS, u8_mean=0.0)
 
 
 def child(device: str, frames: list, reps: int, size: int | None, spp: int | None) -> None:
@@ -50,6 +89,9 @@ def child(device: str, frames: list, reps: int, size: int | None, spp: int | Non
     from cs397raytracingsp22_tpu_torch.render import driver
 
     for name in frames:
+        if name == "k2host":
+            print(json.dumps(k2_host(device, reps)), flush=True)
+            continue
         module, kw, nee = FRAMES[name]
         kw = dict(kw, **({"width": size, "height": size} if size else {}),
                   **({"spp": spp} if spp else {}))

@@ -133,21 +133,67 @@ def _on(dev, *xs):
     return [torch.from_numpy(x).to(dev) for x in xs]
 
 
+def shadow_rays(n, seed=0):
+    """(o, d, t_min, t_max, u_vol) numpy shadow-like rays of the bench box:
+    from uniform points toward uniform points near the teapot, the window
+    ending at 0.999 of the way (d unnormalised: the aim point at t = 1); every
+    third an empty window (t_max = 0 < t_min), as the NEE executor sends a
+    vertex that does not shoot."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-2.4, 0.05, -2.4], [2.4, 4.95, 3.0], (n, 3))
+    d = rng.uniform([-1.0, 0.4, -1.4], [1.0, 1.8, 0.2], (n, 3)) - o
+    t_min = np.full((n,), 0.001, np.float32)
+    t_max = np.full((n,), 0.999, np.float32)
+    t_max[::3] = 0.0
+    u_vol = rng.random((n, 1)).astype(np.float32)
+    return o.astype(np.float32), d.astype(np.float32), t_min, t_max, u_vol
+
+
+def k2_scene(which):
+    """The bench scene with teapot_6k ("dense"), with its teapot subdivided
+    to BIG_TARGET triangles ("big"), or config 4 on its stand-in assets
+    ("textured": two dense spheres whose materials come from their
+    textures, material id -1)."""
+    if which == "textured":
+        from cs397raytracingsp22_tpu_torch.scenes import textured_spheres
+
+        return textured_spheres.build(16, 16, spp=1, asset_dir=textured_spheres.stand_in_dir())
+    return teapot_scene(None if which == "dense" else BIG_TARGET)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("target", [None, BIG_TARGET])
-def test_k2_matches_plain_on_card(cuda, target):
-    data = teapot_scene(target).compile(device=cuda)
-    o, d, t_min, t_max, u_vol = _on(cuda, *scene_rays(4096))
+@pytest.mark.parametrize("n", [4096, 1, 33, 1000])
+@pytest.mark.parametrize("rays", ["scene", "shadow"])
+@pytest.mark.parametrize("target", ["dense", "big", "textured"])
+def test_k2_matches_plain_on_card(cuda, target, rays, n):
+    """K2 against its plain version: the bench scene's dense and big
+    teapots and config 4's two textured spheres; rays of the bench box and
+    shadow-like rays, a third with empty windows; 4,096 rays, and the edge
+    sizes 1, 33 (a tile and one ray) and 1,000 (fewer than the persistent
+    grid's threads). The tile ticket is zero after each launch."""
+    data = k2_scene(target).compile(device=cuda)
+    o, d, t_min, t_max, u_vol = _on(cuda, *(scene_rays(4096) if rays == "scene"
+                                            else shadow_rays(4096))[:5])
+    if target == "textured":  # config 4's spheres sit elsewhere: aim at them
+        c = data.meshes[0].transform[:3, 3]
+        d = torch.where(torch.arange(4096, device=cuda)[:, None] % 2 == 0, c - o, d).contiguous()
+    o, d, t_min, t_max, u_vol = (x[:n].contiguous() for x in (o, d, t_min, t_max, u_vol))
     before = scene_intersect.LAUNCHES
     out = scene_intersect.scene_intersect_cuda(data, o, d, t_min, t_max, u_vol)
     torch.cuda.synchronize()
     assert scene_intersect.LAUNCHES == before + 1
+    cfg = scene_intersect.launch_config(data, n)
+    assert 1 <= cfg["grid"] <= cfg["blocks_per_sm"] * cfg["sms"]
+    assert scene_intersect.ticket(cuda, torch.cuda.current_stream().cuda_stream).tolist() == [0, 0]
     ref = scene_intersect.scene_intersect_plain(data, o, d, t_min, t_max, u_vol)
     k2_compare(out, ref)
     code = out[1].cpu().numpy()
-    assert (code[::16] == -1).all(), "dead rays must miss"
-    if target is None:
-        assert (code == 4).sum() > 100, "the dense teapot must take part"
+    dead = (t_max < t_min).cpu().numpy()
+    assert (code[dead] == -1).all(), "dead rays must miss"
+    if n == 4096 and target != "big":
+        assert (code >= 4).sum() > 100, "the dense meshes must take part"
+    if target == "textured" and n == 4096:
+        assert (out[3][out[1] >= 4] == -1).all(), "texture-synthesized materials carry id -1"
 
 
 @pytest.mark.gpu
