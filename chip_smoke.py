@@ -195,7 +195,34 @@ and K3 on their shards:
      at spp_chunk / 2; each rank's K1, K2 and K3 launches. With more than
      one card the same renders run with one NCCL rank a card
      (mesh-nccl-cards). Four ranks sharing one card measure no scaling.
-Phases 6, 7, 9, 10, 14, 17, 25-27 and 28-30 first hold a full-size launch (all of the chunk's
+Then config 5, the reference's demo scene (scenes/drone_demo.py), and the
+port's tools:
+ 33. config5: config 5 at 1024² x 64 spp, depth 10 (the spec's 1000 spp
+     cut to 64). Without its meshes (K1's scene): chunk 0 through one K1
+     launch held to integrator.path_trace on the strided sample, then one
+     render. On its stand-in assets (the staged path): K2 and K3 (the
+     32,512-triangle sphere) against their plain versions on chunk 0's
+     bounce-0 and bounce-2 rays, and the texels of their mesh winners, as
+     phase 28 (staged_bounce_parity); K2 and K3 timed on the bounce-0 rays
+     beside their bounds; the chunk against the plain path on the strided
+     sample; the camera rays that reach the sphere and lose it to the
+     reference's absolute |det| >= 1e-4 (ROADMAP C4) counted on every 256th
+     ray; a warm render, a timed one (seconds, Mrays/s of segments,
+     peak memory, non-finite pixels) and a trace through
+     utils/profiling.device_trace (kernels an image, idle share, the
+     shares of K2, K3 and the spans bounce_rng, raygen, mesh_resolve);
+     then a render at GATE_SPP (256) spp whose region means
+     (tools/compare_reference_render.py) must lie within 6.0 u8 of the JAX
+     package's full-spec render artifacts/config5_demo_1024_1000spp_tpu.png
+     on sphere_grid, cyan_emitter and glass_area (the other regions hold
+     stand-in meshes and maps, and are printed);
+ 34. tools: make_artifacts' default recipes (configs 1-5 and the bench
+     frame, through K1, K2 and K3) into build/chip_smoke/artifacts/, each
+     with its agreement with the committed _tpu.png; preview_checkpoint on
+     the checkpoint of a two-chunk config-5 render: its PNG the tonemap of
+     the kept accumulator and within 1 u8 of the render's image. The
+     script's time so far is printed after phase 34.
+Phases 6, 7, 9, 10, 14, 17, 25-27, 28-30 and 33 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
 traced alone must give the same rows, bit for bit, and those rows must
@@ -213,7 +240,8 @@ the NEE chunk of phase 26, the timed Phong renders of phase 27, the
 kitchen-sink render of phase 28, the timed config-4 renders and its NEE
 chunk of phase 29; K3's of phases 10, 26 and 28 (K3's counts both its
 kernels, the screen and the walk: two a call); and, for K1, K2 and K3,
-the sharded renders of phase 31 and every rank's renders of phase 32;
+the sharded renders of phase 31, every rank's renders of phase 32, and
+the config-5 renders of phase 33 and the tools' renders of phase 34;
 K4's of the two wavefront runs of phase 14, K5's of the intersect_mesh
 call of phase 17, and P1-P5's of their tools' runs in phases 22-24. Each counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
@@ -323,9 +351,17 @@ def check_full_launch(bounce, integrator, data, o, d, uids, key, depth, max_dist
     return int(idx.numel()), compare(rad_s, segs_s, ref_rad, ref_segs, depth)
 
 
+def trace_file(name: str) -> str:
+    """The Chrome trace that device_trace(name, ...) writes in this process."""
+    from cs397raytracingsp22_tpu_torch.utils import profiling
+
+    return profiling.trace_path(os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}"))
+
+
 def device_trace(name: str, fn, kernels: dict, spans: tuple = (), absent: tuple = ()) -> dict:
-    """Run fn() once under torch.profiler and read the device's kernels
-    from the trace: busy time (union of kernel intervals), the span from
+    """Run fn() once under utils/profiling.device_trace (torch.profiler, its
+    trace in trace_file(name)) and read the device's kernels from the
+    trace: busy time (union of kernel intervals), the span from
     the first kernel's start to the last one's end, the idle share inside
     that span, and for each label of `kernels` (label → a substring of the
     kernel's name in any case, e.g. "bounce_kernel") the time of the
@@ -339,18 +375,15 @@ def device_trace(name: str, fn, kernels: dict, spans: tuple = (), absent: tuple 
     label the same way. absent: span labels inside which no kernel may run
     (each is reported as "<label> spans" and "<label> kernels", both
     counted)."""
-    from torch.profiler import ProfilerActivity, profile
+    from cs397raytracingsp22_tpu_torch.utils import profiling
 
-    path = os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.device_trace(os.path.dirname(trace_file(name))):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    prof.export_chrome_trace(path)
-    with open(path) as f:
+    with open(trace_file(name)) as f:
         events = json.load(f)["traceEvents"]
     kern = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"],
                    e.get("args", {}).get("correlation"))
@@ -1827,12 +1860,6 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     def with_nee(sc):
         return dataclasses.replace(sc, camera=dataclasses.replace(sc.camera, nee=True))
 
-    def chunk0(sd, cam):
-        px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
-        nch = (n_px + px - 1) // px
-        ids = torch.arange(px, dtype=torch.int32, device=dev) * nch
-        return nch, driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
-
     def nee_sample_check(what, sd, cam, o, d, uids, rad_full):
         """The strided sample traced alone, bit for bit; then against the
         plain executor (intersect_scene_plain on the card)."""
@@ -1856,7 +1883,7 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     cam = sc.camera
     if not sd.nee_ok or sd.n_lt_tri != 2:
         raise AssertionError("the bench scene's two light triangles must make it NEE-able")
-    nch, (o, d, uids) = chunk0(sd, cam)
+    nch, (o, d, uids) = chunk0(sd, cam, key)
     rad_full, _ = integrator.path_trace_nee(sd, o, d, uids, key, depth, cam.max_trace_dist)
     msg = nee_sample_check("NEE chunk", sd, cam, o, d, uids, rad_full)
     log("parity-nee", f"bench teapot_6k {width}²x{spp}spp depth {depth} with NEE, chunk 0 of "
@@ -1943,7 +1970,7 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     sc32 = with_nee(bench_teapot_32k.build(width, height, spp=spp, path_depth=depth))
     sd32 = sc32.compile(device=dev)
     cam32 = sc32.camera
-    nch32, (o, d, uids) = chunk0(sd32, cam32)
+    nch32, (o, d, uids) = chunk0(sd32, cam32, key)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the 32k NEE chunk's counts start here
@@ -1968,7 +1995,7 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     scp = teapot.build(width, height, spp=spp)
     sdp = scp.compile(device=dev)
     camp = scp.camera
-    nchp, (o, d, uids) = chunk0(sdp, camp)
+    nchp, (o, d, uids) = chunk0(sdp, camp, key)
     shade = lambda o_, d_, u_, **kw: (integrator.phong_trace(  # noqa: E731
         sdp, o_, d_, u_, key, camp.eyepoint, camp.max_trace_dist, **kw),)
     col_full = shade(o, d, uids)
@@ -2031,6 +2058,120 @@ def texel_parity(what: str, sd, out, ref) -> str:
     return f"texels {n_same}/{n} of the mesh hits identical"
 
 
+def chunk0(sd, cam, key):
+    """(chunks, (o, d, uids)): chunk 0 of render_to_image's interleaved
+    chunks of the scene, as the driver builds it."""
+    from cs397raytracingsp22_tpu_torch.render import driver
+
+    px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
+    n_px = cam.screen_width * cam.screen_height
+    nch = (n_px + px - 1) // px
+    ids = torch.arange(px, dtype=torch.int32, device=sd.device) * nch
+    return nch, driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
+
+
+def staged_check(what, sd, cam, o, d, uids, key):
+    """One staged run of the chunk; its strided sample alone, bit for bit,
+    then against the plain path (integrator.path_trace)."""
+    from cs397raytracingsp22_tpu_torch.render import integrator
+
+    depth, max_dist = cam.path_depth, cam.max_trace_dist
+    rad_full, segs = integrator.path_trace_shrink(sd, o, d, uids, key, depth, max_dist)
+    idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=o.device)
+    stage = lambda o_, d_, u_: integrator.path_trace_shrink(  # noqa: E731
+        sd, o_, d_, u_, key, depth, max_dist)
+    sub, (rad_s, segs_s) = sample_alone(what, stage, (rad_full,), (o, d, uids), idx)
+    ref_rad, ref_segs = integrator.path_trace(sd, *sub, key, depth, max_dist)
+    n_bad, err, _ = compare(rad_s, segs_s, ref_rad, ref_segs, depth)
+    return (f"one staged run of {o.shape[0]} rays ({int(segs)} segments); every "
+            f"{SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone is bit-identical to the run's "
+            f"rows; {idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol {ATOL} of the "
+            f"plain path (integrator.path_trace on the card), max |diff| {err:.3g}, segments "
+            f"{int(segs_s)} vs {int(ref_segs)}")
+
+
+def staged_bounce_parity(phase: str, what: str, sd, cam, o, d, uids, key,
+                         texel_stride: int = 16):
+    """Phases 28 and 33: K2, and K3 on the scene's big mesh (one), against
+    their plain versions on the bounce-0 and bounce-2 rays of a chunk (o,
+    d, uids): every SAMPLE_STRIDE-th ray traced alone bit for bit, then the
+    plain versions' winners and values (compare_hits), and the texels of
+    the mesh winners on every texel_stride-th ray (texel_parity); the
+    staged path's own bounce update between. Returns K2's and K3's
+    bounce-0 inputs and the strided sample's indices."""
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.render import integrator
+    from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
+
+    dev = o.device
+    big = [i for i in range(len(sd.meshes)) if i not in sd.dense_mesh_ids]
+    mesh_big = sd.meshes[big[0]]
+    code_big = isect.CODE_MESH0 + len(sd.dense_mesh_ids)
+    n = o.shape[0]
+    idx = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
+    texel_rows = torch.arange(0, n, texel_stride, device=dev)
+    k2f = lambda *a: scene_intersect.scene_intersect_cuda(sd, *a)  # noqa: E731
+    k3f = lambda *a: tri_scan_big.tri_scan_big_cuda(mesh_big, *a)  # noqa: E731
+    k2_err = k3_err = 0.0
+    thr, rad = torch.ones_like(o), torch.zeros_like(o)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    for b in range(3):
+        site = rnglib.SITE_BOUNCE0 + b
+        if b in (0, 2):
+            u_vol = integrator._bounce_draws(sd, key, uids, site)[2]
+            t_min = torch.full((n,), integrator.PATH_T_MIN, device=dev)
+            t_max = torch.where(alive, torch.full_like(t_min, cam.max_trace_dist),
+                                torch.zeros_like(t_min))
+            ins = (o.contiguous(), d.contiguous(), t_min, t_max,
+                   u_vol[:, :sd.vol_center.shape[0]].contiguous())
+            full = k2f(*ins)
+            sub, alone = sample_alone(f"K2 {what} bounce {b}", k2f, full, ins, idx)
+            ref = scene_intersect.scene_intersect_plain(sd, *sub)
+            m2, s2, e2, err = compare_hits(
+                f"K2 {what} bounce {b}", alone[1:4], ref[1:4],
+                *(dict(t=x[0], u=x[4], v=x[5], normal=x[6]) for x in (alone, ref)))
+            k2_err = max(k2_err, err)
+            ref_t = scene_intersect.scene_intersect_plain(sd, *[x[texel_rows] for x in ins])
+            tx2 = texel_parity(f"K2 {what} bounce {b}", sd,
+                               tuple(full[i][texel_rows] for i in (1, 2, 4, 5)),
+                               tuple(ref_t[i] for i in (1, 2, 4, 5)))
+            o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh_big, o, d))
+            ins3 = (o_obj, d_obj, t_min, torch.minimum(t_max, full[0]))
+            full3 = k3f(*ins3)
+            sub3, alone3 = sample_alone(f"K3 {what} bounce {b}", k3f, full3, ins3, idx)
+            ref3 = tri_scan_big.tri_scan_big_plain(mesh_big, *sub3)
+            m3, s3, e3, err = compare_hits(
+                f"K3 {what} bounce {b}", (alone3[0], alone3[2]), (ref3[0], ref3[2]),
+                *(dict(t=x[1], u=x[3], v=x[4]) for x in (alone3, ref3)))
+            k3_err = max(k3_err, err)
+            ref3_t = tri_scan_big.tri_scan_big_plain(mesh_big, *[x[texel_rows] for x in ins3])
+
+            def big_rows(hit, tri, u, v):
+                return (torch.where(hit, code_big, -1).to(torch.int32), tri, u, v)
+
+            tx3 = texel_parity(f"K3 {what} bounce {b}", sd,
+                               big_rows(*[full3[i][texel_rows] for i in (0, 2, 3, 4)]),
+                               big_rows(*[ref3_t[i] for i in (0, 2, 3, 4)]))
+            if b == 0:
+                k2_in, k3_in = ins, ins3
+            log(phase, f"{what} bounce {b} ({n} rays, "
+                f"{int(alive.sum())} live): K2 and K3 ({mesh_big.tri_verts.shape[0]} triangles, "
+                f"textured and normal-mapped) each one launch; every {SAMPLE_STRIDE}th ray alone "
+                f"is bit-identical to the launch's rows; K2 {s2}/{m2} same (code, idx, mat) as "
+                f"the plain version, {e2}/{m2} bit-identical, max |diff| {k2_err:.3g}; K3 "
+                f"{s3}/{m3} same (hit, tri) as traverse, {e3}/{m3} bit-identical; on every "
+                f"{texel_stride}th ray "
+                f"({texel_rows.numel()}): K2 {tx2}, K3 {tx3}; sampled winners: "
+                f"{int((alone[1] >= isect.CODE_MESH0).sum())} dense mesh, "
+                f"{int(alone3[0].sum())} big mesh")
+        if b < 2:
+            o, d, thr, rad, alive, _ = integrator._bounce_update(
+                sd, o, d, thr, rad, alive, uids, key, site, cam.max_trace_dist,
+                intersect=isect.intersect_scene)
+    return k2_in, k3_in, idx
+
+
 def textured_phases(dev) -> dict:
     """Phases 28-30 (see the module docstring): the kitchen sink, the
     stand-in config 4 and general-boundary volumes on the staged path.
@@ -2052,101 +2193,21 @@ def textured_phases(dev) -> dict:
 
     key = threefry.key_words(0)
 
-    def chunk0(sd, cam):
-        px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
-        n_px = cam.screen_width * cam.screen_height
-        nch = (n_px + px - 1) // px
-        ids = torch.arange(px, dtype=torch.int32, device=dev) * nch
-        return nch, driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
-
-    def staged_check(what, sd, cam, o, d, uids):
-        """One staged run of the chunk; its strided sample alone, bit for
-        bit, then against the plain path (integrator.path_trace)."""
-        depth, max_dist = cam.path_depth, cam.max_trace_dist
-        rad_full, segs = integrator.path_trace_shrink(sd, o, d, uids, key, depth, max_dist)
-        idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
-        stage = lambda o_, d_, u_: integrator.path_trace_shrink(  # noqa: E731
-            sd, o_, d_, u_, key, depth, max_dist)
-        sub, (rad_s, segs_s) = sample_alone(what, stage, (rad_full,), (o, d, uids), idx)
-        ref_rad, ref_segs = integrator.path_trace(sd, *sub, key, depth, max_dist)
-        n_bad, err, _ = compare(rad_s, segs_s, ref_rad, ref_segs, depth)
-        return (f"one staged run of {o.shape[0]} rays ({int(segs)} segments); every "
-                f"{SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone is bit-identical to the run's "
-                f"rows; {idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol {ATOL} of the "
-                f"plain path (integrator.path_trace on the card), max |diff| {err:.3g}, segments "
-                f"{int(segs_s)} vs {int(ref_segs)}")
-
     # ---- 28. the kitchen sink: K2 and K3 on textured meshes, the staged path ----
     sck = kitchen_sink.build(256, 256, spp=16, path_depth=5)
     sdk = sck.compile(device=dev)
     camk = sck.camera
-    nchk, (o, d, uids) = chunk0(sdk, camk)
+    nchk, (o, d, uids) = chunk0(sdk, camk, key)
     if nchk != 1:
         raise AssertionError(f"the kitchen sink at 256² x 16 spp takes {nchk} chunks, not 1")
     big = [i for i in range(len(sdk.meshes)) if i not in sdk.dense_mesh_ids]
     if len(big) != 1 or len(sdk.dense_mesh_ids) != 1 or sdk.n_gvols != 1:
         raise AssertionError("the kitchen sink must hold a dense mesh, a big mesh and a gvol")
     mesh_big = sdk.meshes[big[0]]
-    code_big = isect.CODE_MESH0 + len(sdk.dense_mesh_ids)
     n = o.shape[0]
-    idx = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
-    texel_rows = torch.arange(0, n, 16, device=dev)
-    k2f = lambda *a: scene_intersect.scene_intersect_cuda(sdk, *a)  # noqa: E731
+    k2_in, k3_in, idx = staged_bounce_parity("textured-parity", "kitchen sink 256²x16spp depth 5",
+                                             sdk, camk, o, d, uids, key)
     k3f = lambda *a: tri_scan_big.tri_scan_big_cuda(mesh_big, *a)  # noqa: E731
-    k2_err = k3_err = 0.0
-    thr, rad = torch.ones_like(o), torch.zeros_like(o)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    for b in range(3):
-        site = rnglib.SITE_BOUNCE0 + b
-        if b in (0, 2):
-            u_vol = integrator._bounce_draws(sdk, key, uids, site)[2]
-            t_min = torch.full((n,), integrator.PATH_T_MIN, device=dev)
-            t_max = torch.where(alive, torch.full_like(t_min, camk.max_trace_dist),
-                                torch.zeros_like(t_min))
-            ins = (o.contiguous(), d.contiguous(), t_min, t_max,
-                   u_vol[:, :sdk.vol_center.shape[0]].contiguous())
-            full = k2f(*ins)
-            sub, alone = sample_alone(f"K2 kitchen sink bounce {b}", k2f, full, ins, idx)
-            ref = scene_intersect.scene_intersect_plain(sdk, *sub)
-            m2, s2, e2, err = compare_hits(
-                f"K2 kitchen sink bounce {b}", alone[1:4], ref[1:4],
-                *(dict(t=x[0], u=x[4], v=x[5], normal=x[6]) for x in (alone, ref)))
-            k2_err = max(k2_err, err)
-            ref_t = scene_intersect.scene_intersect_plain(sdk, *[x[texel_rows] for x in ins])
-            tx2 = texel_parity(f"K2 kitchen sink bounce {b}", sdk,
-                               tuple(full[i][texel_rows] for i in (1, 2, 4, 5)),
-                               tuple(ref_t[i] for i in (1, 2, 4, 5)))
-            o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh_big, o, d))
-            ins3 = (o_obj, d_obj, t_min, torch.minimum(t_max, full[0]))
-            full3 = k3f(*ins3)
-            sub3, alone3 = sample_alone(f"K3 kitchen sink bounce {b}", k3f, full3, ins3, idx)
-            ref3 = tri_scan_big.tri_scan_big_plain(mesh_big, *sub3)
-            m3, s3, e3, err = compare_hits(
-                f"K3 kitchen sink bounce {b}", (alone3[0], alone3[2]), (ref3[0], ref3[2]),
-                *(dict(t=x[1], u=x[3], v=x[4]) for x in (alone3, ref3)))
-            k3_err = max(k3_err, err)
-            ref3_t = tri_scan_big.tri_scan_big_plain(mesh_big, *[x[texel_rows] for x in ins3])
-
-            def big_rows(hit, tri, u, v):
-                return (torch.where(hit, code_big, -1).to(torch.int32), tri, u, v)
-
-            tx3 = texel_parity(f"K3 kitchen sink bounce {b}", sdk,
-                               big_rows(*[full3[i][texel_rows] for i in (0, 2, 3, 4)]),
-                               big_rows(*[ref3_t[i] for i in (0, 2, 3, 4)]))
-            if b == 0:
-                k2_in, k3_in = ins, ins3
-            log("textured-parity", f"kitchen sink 256²x16spp depth 5 bounce {b} ({n} rays, "
-                f"{int(alive.sum())} live): K2 and K3 ({mesh_big.tri_verts.shape[0]} triangles, "
-                f"textured and normal-mapped) each one launch; every {SAMPLE_STRIDE}th ray alone "
-                f"is bit-identical to the launch's rows; K2 {s2}/{m2} same (code, idx, mat) as "
-                f"the plain version, {e2}/{m2} bit-identical, max |diff| {k2_err:.3g}; K3 "
-                f"{s3}/{m3} same (hit, tri) as traverse, {e3}/{m3} bit-identical; on every 16th ray "
-                f"({texel_rows.numel()}): K2 {tx2}, K3 {tx3}; sampled winners: "
-                f"{int((alone[1] == 4).sum())} dense mesh, {int(alone3[0].sum())} big mesh")
-        if b < 2:
-            o, d, thr, rad, alive, _ = integrator._bounce_update(
-                sdk, o, d, thr, rad, alive, uids, key, site, camk.max_trace_dist,
-                intersect=isect.intersect_scene)
     ms2, k3_ms = k2_ms(sdk, k2_in), cuda_ms(lambda: k3f(*k3_in), 10)
     k2_b, k2_by, w2 = k2_bound_of(sdk, k2_in, idx)
     k3_b, k3_by, _ = k3_bound(mesh_big, k3_in, idx)
@@ -2154,10 +2215,10 @@ def textured_phases(dev) -> dict:
         f"dense-mesh triangles a sampled ray; bound {k2_b:.4f} ms, {k2_by}; K2 at "
         f"{k2_b / ms2:.1%} of it); K3 on the {mesh_big.tri_verts.shape[0]}-triangle grid "
         f"{k3_ms:.4f} ms (bound {k3_b:.4f} ms, {k3_by}; {k3_b / k3_ms:.1%})")
-    nchk, (o, d, uids) = chunk0(sdk, camk)
+    nchk, (o, d, uids) = chunk0(sdk, camk, key)
     log("textured-parity", f"kitchen sink chunk 0 of {nchk}: "
-        + staged_check("kitchen sink chunk", sdk, camk, o, d, uids))
-    del o, d, uids, thr, rad, alive
+        + staged_check("kitchen sink chunk", sdk, camk, o, d, uids, key))
+    del o, d, uids
     render_k = lambda: driver.render_to_image(sck, device=dev, seed=0, verbose=False,  # noqa: E731
                                               scene_data=sdk)
     render_k()  # warm
@@ -2191,9 +2252,9 @@ def textured_phases(dev) -> dict:
                                      "map's pixels")
             bound.append(f"{name} {img.shape[1]}x{img.shape[0]}")
     n_tan = sum(int((~torch.isfinite(m.tri_tangent)).any(dim=1).sum()) for m in sd4.meshes)
-    nch4, (o, d, uids) = chunk0(sd4, cam4)
+    nch4, (o, d, uids) = chunk0(sd4, cam4, key)
     log("config4-frame", f"stand-in config 4 chunk 0 of {nch4}: "
-        + staged_check("config 4 chunk", sd4, cam4, o, d, uids))
+        + staged_check("config 4 chunk", sd4, cam4, o, d, uids, key))
     n = o.shape[0]
     u_vol = integrator._bounce_draws(sd4, key, uids, rnglib.SITE_BOUNCE0)[2]
     ins = (o, d, torch.full((n,), integrator.PATH_T_MIN, device=dev),
@@ -2242,7 +2303,7 @@ def textured_phases(dev) -> dict:
     sc4n = dataclasses.replace(sc4, camera=dataclasses.replace(cam4, nee=True))
     if not sd4.nee_ok:
         raise AssertionError("config 4's two light triangles must make it NEE-able")
-    _, (o, d, uids) = chunk0(sd4, sc4n.camera)
+    _, (o, d, uids) = chunk0(sd4, sc4n.camera, key)
     shadow_depth = 2 * cam4.path_depth - 1
     torch.cuda.synchronize()
     scene_intersect.LAUNCHES = 0  # config 4's NEE chunk's count starts here
@@ -2298,7 +2359,7 @@ def textured_phases(dev) -> dict:
     camg = scg.camera
     if sdg.n_gvols != 2 or sdg.gvol_tri[0].shape[0] != 12:
         raise AssertionError("the gvol scene must hold two 12-triangle boundaries")
-    nchg, (o, d, uids) = chunk0(sdg, camg)
+    nchg, (o, d, uids) = chunk0(sdg, camg, key)
     n = o.shape[0]
     u_vol = integrator._bounce_draws(sdg, key, uids, rnglib.SITE_BOUNCE0)[2]
     before = scene_intersect.LAUNCHES
@@ -2321,8 +2382,224 @@ def textured_phases(dev) -> dict:
         f"against intersect_scene_plain on the card: {sg}/{mg} same (valid, material type), "
         f"{eg}/{mg} bit-identical, max |diff| {errg:.3g}; {nv} hits, {ng} volume scatter events, "
         f"{small} in the small cube (eps {sdg.gvol_eps[1]:.3g})")
-    log("gvol", f"chunk 0 of {nchg}: " + staged_check("gvol chunk", sdg, camg, o, d, uids))
+    log("gvol", f"chunk 0 of {nchg}: " + staged_check("gvol chunk", sdg, camg, o, d, uids, key))
     return {"k2": k2_k + k2_4 + k2_n, "k3": k3_k}
+
+
+# ---- phases 33-34: config 5 (the reference's demo scene) and the tools ----
+
+# config 5 at its BASELINE width and depth; the spec's 1000 spp cut to 64
+CONFIG5 = dict(width=1024, height=1024, spp=64, path_depth=10)
+# the spp of the config-5 image held to the JAX package's 1000-spp render
+GATE_SPP = 256
+# the config-5 render whose checkpoint phase 34 previews: two spp chunks
+PREVIEW_FRAME = dict(width=256, height=256, spp=8, path_depth=10)
+
+
+def mesh_hits(mesh, o_obj, d_obj, eps: float) -> torch.Tensor:
+    """Which object-space rays hit any triangle of the mesh in [PATH_T_MIN,
+    100] under Möller–Trumbore with the |det| epsilon eps (every triangle
+    tested, in blocks of 2,048)."""
+    from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
+    from cs397raytracingsp22_tpu_torch.render import integrator
+
+    hit = torch.zeros(o_obj.shape[0], dtype=torch.bool, device=o_obj.device)
+    for c in range(0, mesh.tri_verts.shape[0], 2048):
+        tv = mesh.tri_verts[None, c:c + 2048]
+        valid, *_ = bvhlib.moller_trumbore(o_obj[:, None], d_obj[:, None], tv[..., 0, :],
+                                           tv[..., 1, :], tv[..., 2, :], integrator.PATH_T_MIN,
+                                           100.0, eps=eps)
+        hit |= valid.any(dim=1)
+    return hit
+
+
+def config5_phases(dev) -> dict:
+    """Phase 33 (see the module docstring): config 5 without its meshes on
+    K1, then on its stand-in assets on the staged path (K2, K3). Returns
+    the launches of K1, K2 and K3 of its renders (reset just before each
+    render and read just after)."""
+    from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import drone_demo
+    from cs397raytracingsp22_tpu_torch.tools import compare_reference_render as crr
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    key = threefry.key_words(0)
+    ref_img = crr.load_png(crr.DEFAULT_REFERENCE)
+    spec = f"{CONFIG5['width']}²x{CONFIG5['spp']}spp depth {CONFIG5['path_depth']}"
+
+    def regions(img, gate):
+        res = crr.compare(img, ref_img, gate, verbose=False)
+        line = ", ".join(f"{k} {d:.2f}{'' if g else ' (info)'}{'' if ok or not g else ' FAIL'}"
+                         for k, (_, _, d, ok, g) in res.items())
+        return res, line
+
+    # ---- 33a. the analytic part on K1 ----
+    sca = drone_demo.build(include_meshes=False, **CONFIG5)
+    sda = sca.compile(device=dev)
+    cama = sca.camera
+    if not bounce.scene_is_simple(sda) or sda.meshes:
+        raise AssertionError("config 5 without its meshes must be K1's scene")
+    ncha, (o, d, uids) = chunk0(sda, cama, key)
+    rad_full, _ = bounce.path_trace_cuda(sda, o, d, uids, key, cama.path_depth,
+                                         cama.max_trace_dist)
+    n_s, (n_bad, err_a, seg_diff) = check_full_launch(
+        bounce, integrator, sda, o, d, uids, key, cama.path_depth, cama.max_trace_dist, rad_full)
+    log("config5", f"analytic part (22 primitives, 2 sphere volumes) {spec}, chunk 0 of {ncha}: "
+        f"one K1 launch of {o.shape[0]} rays; every {SAMPLE_STRIDE}th ray ({n_s}) traced alone is "
+        f"bit-identical to the launch's rows; {n_s - n_bad}/{n_s} within rtol {RTOL} atol {ATOL} "
+        f"of the plain version, max |diff| {err_a:.3g}, segment diff {seg_diff}")
+    del o, d, uids, rad_full
+    bounce.LAUNCHES = 0  # the analytic render's count starts here
+    img_a, st_a = driver.render_to_image(sca, device=dev, seed=0, verbose=False, scene_data=sda)
+    k1 = bounce.LAUNCHES  # read just after
+    if k1 < 1 or img_a.max() == 0:
+        raise AssertionError(f"config 5's analytic render launched K1 {k1} times, image max "
+                             f"{img_a.max()}")
+    _, line = regions(img_a, ())
+    log("config5", f"analytic part {spec} via render_to_image: {st_a.wall_seconds:.4f} s, "
+        f"{st_a.chunks} chunks, {st_a.path_segments} segments "
+        f"({st_a.path_segments / st_a.wall_seconds / 1e6:.2f} Mrays/s); K1 launches {k1}; image "
+        f"u8 mean {img_a.mean():.2f}; region |delta| against the JAX full-spec render (info: no "
+        f"meshes): {line}")
+    del sca, sda
+
+    # ---- 33b. the stand-ins on the staged path ----
+    sc = drone_demo.build(**CONFIG5)
+    t0 = time.perf_counter()
+    sd = sc.compile(device=dev)
+    compile_s = time.perf_counter() - t0
+    cam = sc.camera
+    sizes = [m.tri_verts.shape[0] for m in sd.meshes]
+    if sd.dense_mesh_ids != (0, 1) or sizes[2] != 32512:
+        raise AssertionError(f"config 5's stand-ins: meshes {sizes}, dense {sd.dense_mesh_ids}")
+    nch, (o, d, uids) = chunk0(sd, cam, key)
+    n = o.shape[0]
+    k2_in, k3_in, idx = staged_bounce_parity(
+        "config5", f"stand-in config 5 {spec} chunk 0 of {nch}", sd, cam, o, d, uids, key,
+        texel_stride=max(16, n // 65536))
+    mesh = sd.meshes[2]
+    ms2, ms3 = k2_ms(sd, k2_in), cuda_ms(lambda: tri_scan_big.tri_scan_big_cuda(mesh, *k3_in), 10)
+    k2_b, k2_by, w2 = k2_bound_of(sd, k2_in, idx)
+    k3_b, k3_by, _ = k3_bound(mesh, k3_in, idx)
+    log("config5", f"stand-in config 5 chunk 0 bounce 0 ({n} rays): K2 {ms2:.4f} ms "
+        f"({w2['tris']:.2f} dense-mesh triangles a sampled ray over the drone's and cube's "
+        f"{sizes[0] + sizes[1]}; bound {k2_b:.4f} ms, {k2_by}; {k2_b / ms2:.1%}); K3 on the "
+        f"{sizes[2]}-triangle sphere {ms3:.4f} ms (bound {k3_b:.4f} ms, {k3_by}; "
+        f"{k3_b / ms3:.1%}); scene compile {compile_s:.2f} s")
+    # ROADMAP C4: the reference's absolute |det| >= 1e-4 (kept by both
+    # packages) on the sphere's thin triangles, counted on camera rays
+    rows = torch.arange(0, n, 256, device=dev)
+    o_obj, d_obj = isect.object_rays(mesh, k2_in[0][rows], k2_in[1][rows])
+    reach, kept = (mesh_hits(mesh, o_obj, d_obj, eps) for eps in (0.0, bvhlib.MT_EPSILON))
+    log("config5", f"MT epsilon (ROADMAP C4) on every 256th camera ray ({rows.numel()}): "
+        f"{int(reach.sum())} reach the {sizes[2]}-triangle sphere with |det| >= 0, "
+        f"{int((reach & ~kept).sum())} of them lose it to |det| >= {bvhlib.MT_EPSILON}")
+    del k2_in, k3_in
+    nch, (o, d, uids) = chunk0(sd, cam, key)
+    log("config5", f"stand-in config 5 chunk 0 of {nch}: "
+        + staged_check("config 5 chunk", sd, cam, o, d, uids, key))
+    del o, d, uids
+    render = lambda: driver.render_to_image(sc, device=dev, seed=0, verbose=False,  # noqa: E731
+                                            scene_data=sd)
+    render()  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # counts start here
+    img, st = render()
+    k1_s, k2, k3 = bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read after
+    peak = torch.cuda.max_memory_allocated()
+    if k1_s or k2 < 1 or k3 < 1 or st.mean_radiance <= 0.0:
+        raise AssertionError(f"stand-in config 5 launched K1 {k1_s}, K2 {k2}, K3 {k3} times, "
+                             f"mean radiance {st.mean_radiance}")
+    tr = device_trace("config5", render, {"K2": "scene_intersect_kernel", "K3": "bvh_"},
+                      spans=("bounce_rng", "raygen", "mesh_resolve"))
+    _, line = regions(img, ())
+    log("config5", f"stand-in config 5 {spec} via render_to_image: {st.chunks} chunks of "
+        f"{st.primary_rays // st.chunks} rays, {st.path_segments} segments; {st.wall_seconds:.4f} "
+        f"s per image = {st.path_segments / st.wall_seconds / 1e6:.2f} Mrays/s of segments "
+        f"(steady window {st.segment_mrays_per_sec:.2f}); K2 launches {k2}, K3 {k3}, K1 {k1_s}; "
+        f"peak device memory {peak / 2**30:.2f} GiB; non-finite pixels {st.nonfinite_pixels}; "
+        f"mean HDR radiance of a sample {st.mean_radiance:.5f}; image u8 mean {img.mean():.2f}; "
+        f"{tr['kernels']} kernels an image, device busy {tr['busy_ms']:.3f} ms in a "
+        f"{tr['span_ms']:.3f} ms span (idle share {tr['idle']:.2%}); "
+        + ", ".join(f"{k} {v:.3f} ms ({tr['shares'][k]:.1%} of busy)"
+                    for k, v in tr["parts"].items())
+        + f"; region |delta| (u8) against the JAX full-spec render (info at {CONFIG5['spp']} spp): "
+        + line)
+    # the gate: a mean tonemapped through gamma 2 reads dark at low spp (the
+    # 64-spp image's glass_area 5.7-6.7 u8 under the 1000-spp render on
+    # every seed, K1's analytic image too); GATE_SPP keeps that under 1.6
+    scg = drone_demo.build(**dict(CONFIG5, spp=GATE_SPP))
+    bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # counts start here
+    img_g, st_g = driver.render_to_image(scg, device=dev, seed=0, verbose=False, scene_data=sd)
+    k2 += scene_intersect.LAUNCHES
+    k3 += tri_scan_big.LAUNCHES  # read just after
+    res, line = regions(img_g, crr.STAND_IN_GATE)
+    log("config5", f"stand-in config 5 at {GATE_SPP} spp ({st_g.wall_seconds:.4f} s, "
+        f"{st_g.path_segments} segments): region |delta| (u8) against "
+        f"{os.path.relpath(crr.DEFAULT_REFERENCE, ROOT)}, gated at {crr.TOLERANCE['sphere_grid']} "
+        f"on {', '.join(crr.STAND_IN_GATE)}: {line}")
+    if not crr.passed(res):
+        raise AssertionError("stand-in config 5 is beyond the JAX full-spec render's tolerance on "
+                             "a gated region")
+    return {"k1": k1, "k2": k2, "k3": k3}
+
+
+def tools_phases(dev) -> dict:
+    """Phase 34: make_artifacts' default recipes on the card, then
+    preview_checkpoint on a two-chunk config-5 render's checkpoint.
+    Returns the launches of K1, K2 and K3 of their renders."""
+    from cs397raytracingsp22_tpu_torch.ops import tonemap as tonemap_ops
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.render import driver
+    from cs397raytracingsp22_tpu_torch.scenes import drone_demo
+    from cs397raytracingsp22_tpu_torch.tools import compare_reference_render as crr
+    from cs397raytracingsp22_tpu_torch.tools import make_artifacts, preview_checkpoint
+
+    out_dir = os.path.join(ROOT, "build", "chip_smoke", "artifacts")
+    t0 = time.perf_counter()
+    bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # counts start here
+    rows = make_artifacts.run(out_dir=out_dir, device=dev, verbose=False)
+    k = {"k1": bounce.LAUNCHES, "k2": scene_intersect.LAUNCHES,
+         "k3": tri_scan_big.LAUNCHES}  # read just after
+    for name, row in rows.items():
+        log("tools", f"make_artifacts {name}: {row['stats'].wall_seconds:.4f} s, "
+            f"{row['stats'].chunks} chunks; {make_artifacts.describe(row)}")
+    if min(k.values()) < 1:
+        raise AssertionError(f"make_artifacts' default recipes launched K1, K2, K3 {k} times")
+    log("tools", f"make_artifacts: {len(rows)} recipes into {os.path.relpath(out_dir, ROOT)} in "
+        f"{time.perf_counter() - t0:.1f} s; K1 launches {k['k1']}, K2 {k['k2']}, K3 {k['k3']}")
+
+    sc = drone_demo.build(**PREVIEW_FRAME)
+    w, h, spp = (PREVIEW_FRAME[k] for k in ("width", "height", "spp"))
+    ckpt = os.path.join(ROOT, "build", "chip_smoke", "config5_ckpt.npz")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    k2, k3 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
+    img, st = driver.render_to_image(sc, device=dev, seed=0, verbose=False, checkpoint_path=ckpt,
+                                     spp_chunk=spp // 2)
+    k["k2"] += scene_intersect.LAUNCHES - k2
+    k["k3"] += tri_scan_big.LAUNCHES - k3
+    out = os.path.join(ROOT, "build", "chip_smoke", "config5_preview.png")
+    rc = preview_checkpoint.main([ckpt, out, str(w), str(h), str(sc.camera.gamma)])
+    with np.load(ckpt) as c:
+        accum, spp_done = c["accum"], int(c["spp_done"])
+    mean = torch.from_numpy((accum / spp_done).astype(np.float32).reshape(h, w, 3))
+    want = tonemap_ops.tonemap(mean, sc.camera.gamma).numpy()
+    prev = crr.load_png(out)
+    diff = np.abs(prev.astype(int) - img.astype(int))
+    if rc or spp_done != spp or not np.array_equal(prev, want) or diff.max() > 1:
+        raise AssertionError(f"preview_checkpoint: rc {rc}, spp_done {spp_done}, preview equal "
+                             f"to the accumulator's tonemap {np.array_equal(prev, want)}, max "
+                             f"|diff| from the render's image {diff.max()}")
+    log("tools", f"preview_checkpoint on a two-chunk config-5 render ({w}²x{spp}spp, spp_chunk "
+        f"{spp // 2}, {st.wall_seconds:.3f} s): spp_done {spp_done}, the PNG equals the tonemap "
+        f"of the kept accumulator; against the render's image {(diff == 0).mean():.4%} of subpixels equal, "
+        f"max |diff| {diff.max()}")
+    return k
 
 
 # ---- phases 31-32: rendering over a mesh of ranks (parallel/) ----
@@ -2442,7 +2719,7 @@ def spawn_ranks(world: int, backend: str, device: str, mesh_shape, jobs, out_dir
 def collective_host_time(name: str) -> tuple[int, float]:
     """The all_reduce calls in device_trace's trace `name` and the host
     milliseconds they took (the union of the c10d::allreduce_ spans)."""
-    with open(os.path.join(ROOT, "build", "chip_smoke", f"trace_{name}.json")) as f:
+    with open(trace_file(name)) as f:
         spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                        for e in json.load(f)["traceEvents"]
                        if e.get("ph") == "X" and e.get("name") == "c10d::allreduce_")
@@ -2861,14 +3138,20 @@ def main() -> int:
     k1_mesh, k2_mesh, k3_mesh = mesh_phases(dev)
     log("mesh", f"phases 31-32 took {time.perf_counter() - t_mesh:.1f} s; the script so far "
         f"{time.perf_counter() - t_script:.1f} s")
-    staged[0]["launches"] += nee_phong["k2"] + textured["k2"] + k2_mesh
-    staged[1]["launches"] += nee_phong["k3"] + textured["k3"] + k3_mesh
+    # ---- 33-34: config 5 on K1 and on the staged path; the tools ----
+    t_c5 = time.perf_counter()
+    c5 = config5_phases(dev)
+    tools = tools_phases(dev)
+    log("tools", f"phases 33-34 took {time.perf_counter() - t_c5:.1f} s; the script so far "
+        f"{time.perf_counter() - t_script:.1f} s")
+    staged[0]["launches"] += nee_phong["k2"] + textured["k2"] + k2_mesh + c5["k2"] + tools["k2"]
+    staged[1]["launches"] += nee_phong["k3"] + textured["k3"] + k3_mesh + c5["k3"] + tools["k3"]
     print(json.dumps({"kernels": [{
         "name": "mega_bounce",
         "route": "cuda",
         "source": "cs397raytracingsp22_tpu_torch/csrc/bounce.cu",
         "replaces": "cs397raytracingsp22_tpu/ops/pallas/bounce.py:1480",
-        "launches": launches + k1_mesh,
+        "launches": launches + k1_mesh + c5["k1"] + tools["k1"],
         "max_abs_err": max_abs_err,
         "ms": k_ms,
         "plain_ms": p_ms,

@@ -9,7 +9,8 @@ the GPU by default; `--device cpu` runs the plain torch version. A scene
 shades as its camera says (path tracing, or Phong shading with hard
 shadows); `--nee` turns on next-event estimation (render/nee.py);
 `--checkpoint PATH` keeps the HDR accumulator in PATH after every spp
-chunk (`--spp-chunk`) and resumes from it.
+chunk (`--spp-chunk`) and resumes from it. `--profile-dir DIR` writes a
+torch.profiler Chrome trace of the render into DIR (utils/profiling.py).
 
 Several devices (parallel/): `--mesh DPxSP` splits each chunk's pixels
 over DP ranks and its samples over SP. Started under torchrun, or with
@@ -79,6 +80,8 @@ def parse_args(argv):
     p.add_argument("--coordinator", help="host:port of rank 0")
     p.add_argument("--num-processes", type=int)
     p.add_argument("--process-id", type=int)
+    p.add_argument("--profile-dir", help="write a torch.profiler Chrome trace of the render into "
+                   "this directory (utils/profiling.device_trace)")
     p.add_argument("-q", "--quiet", action="store_true")
     return p.parse_args(argv)
 
@@ -114,6 +117,7 @@ def render(args) -> int:
         scene = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera, nee=True))
 
     from cs397raytracingsp22_tpu_torch.render.driver import render_to_image, save_png
+    from cs397raytracingsp22_tpu_torch.utils.profiling import device_trace
 
     mesh, rank = None, 0
     if dist.is_initialized():
@@ -121,10 +125,11 @@ def render(args) -> int:
 
         n_dp, n_sp = mesh_shape(args.mesh) if args.mesh else (None, 1)
         mesh, rank = sharding.make_device_mesh(n_dp, n_sp), dist.get_rank()
-    img, stats = render_to_image(scene, device=args.device, seed=args.seed,
-                                 pixel_chunk=args.pixel_chunk, spp_chunk=args.spp_chunk,
-                                 checkpoint_path=args.checkpoint, verbose=not args.quiet,
-                                 mesh=mesh)
+    with device_trace(args.profile_dir):
+        img, stats = render_to_image(scene, device=args.device, seed=args.seed,
+                                     pixel_chunk=args.pixel_chunk, spp_chunk=args.spp_chunk,
+                                     checkpoint_path=args.checkpoint, verbose=not args.quiet,
+                                     mesh=mesh)
     if rank:
         return 0
     save_png(img, args.output)

@@ -203,8 +203,10 @@ class Scene:
     point_light_pos: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     ambient: Tuple[float, float, float] = (0.0, 0.0, 0.0)
 
-    def compile(self, leaf_size: int = 4, device="cuda") -> SceneData:
-        return compile_scene(self, leaf_size=leaf_size, device=device)
+    def compile(self, leaf_size: int = 4, device="cuda",
+                dense_max_tris: int = bvhlib.DENSE_MESH_MAX_TRIS) -> SceneData:
+        return compile_scene(self, leaf_size=leaf_size, device=device,
+                             dense_max_tris=dense_max_tris)
 
 
 def _pad_rows(arr: np.ndarray, min_rows: int, fill: float) -> np.ndarray:
@@ -353,9 +355,13 @@ def _compile_mesh(sm: StaticMesh, mats: MaterialTableBuilder, atlas: TextureAtla
     )
 
 
-def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
+def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda",
+                  dense_max_tris: int = bvhlib.DENSE_MESH_MAX_TRIS) -> SceneData:
     """Lower a Scene into tables (numpy on the host), then onto `device`
-    (the card by default)."""
+    (the card by default). dense_max_tris bounds each dense mesh and their
+    total (the JAX package reads it from RT_DENSE_MAX_TRIS at import); a
+    budget whose dense meshes need more than TREE_MAX_NODES superleaf-tree
+    nodes raises ValueError (superleaf_trees)."""
     mats = MaterialTableBuilder()
     atlas = TextureAtlasBuilder()
     sph_center, sph_radius, sph_mat = [], [], []
@@ -470,18 +476,17 @@ def compile_scene(scene: Scene, leaf_size: int = 4, device="cuda") -> SceneData:
     )
     vol_np[len(vol_center):, :3] = 1e30
 
-    # DENSE_MESH_MAX_TRIS bounds each dense mesh and their total; the
-    # smallest meshes are admitted first, as in the JAX package, and every
-    # mesh left over is a big mesh, traversed through its BVH
+    # dense_max_tris bounds each dense mesh and their total; the smallest
+    # meshes are admitted first, as in the JAX package, and every mesh left
+    # over is a big mesh, traversed through its BVH
     cand = sorted(
-        (i for i, m in enumerate(mesh_blocks)
-         if m["tri_verts"].shape[0] <= bvhlib.DENSE_MESH_MAX_TRIS),
+        (i for i, m in enumerate(mesh_blocks) if m["tri_verts"].shape[0] <= dense_max_tris),
         key=lambda i: int(mesh_blocks[i]["tri_verts"].shape[0]),
     )
     chosen, total = [], 0
     for i in cand:
         nt_pad = (int(mesh_blocks[i]["tri_verts"].shape[0]) + 15) // 16 * 16
-        if total + nt_pad > bvhlib.DENSE_MESH_MAX_TRIS:
+        if total + nt_pad > dense_max_tris:
             break
         chosen.append(i)
         total += nt_pad

@@ -1,4 +1,5 @@
-"""The torch port, its multi-device modules (parallel/) among them,
+"""The torch port, its multi-device modules (parallel/), config 5
+(scenes/drone_demo.py), its tools and utils/profiling.py among them,
 imports without JAX, Triton or a CUDA device, and joins no process group."""
 
 import json
@@ -19,11 +20,14 @@ from cs397raytracingsp22_tpu_torch.ops.kernels import bw_scan, dtype_rate, vpu_p
 from cs397raytracingsp22_tpu_torch.parallel import multihost, sharding
 from cs397raytracingsp22_tpu_torch.render import driver, integrator, nee
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, cornell, teapot
-from cs397raytracingsp22_tpu_torch.scenes import kitchen_sink, textured_spheres
+from cs397raytracingsp22_tpu_torch.scenes import drone_demo, kitchen_sink, textured_spheres
 from cs397raytracingsp22_tpu_torch.tools import bench_mxu_scan, compare_k1, compare_k4, profile_split
 from cs397raytracingsp22_tpu_torch.tools import vpu_peak as vpu_peak_tool
 from cs397raytracingsp22_tpu_torch.tools import vpu_peak_shape, vpu_peak_smem, walk_counts
-from cs397raytracingsp22_tpu_torch.utils import subdivide
+from cs397raytracingsp22_tpu_torch.tools import bench_config4_e2e, bench_teapot_6k
+from cs397raytracingsp22_tpu_torch.tools import compare_reference_render, make_artifacts
+from cs397raytracingsp22_tpu_torch.tools import preview_checkpoint
+from cs397raytracingsp22_tpu_torch.utils import profiling, subdivide
 import torch
 print(json.dumps({
     "jax": any(m == "jax" or m.startswith("jax.") for m in sys.modules),

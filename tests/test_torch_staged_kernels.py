@@ -267,3 +267,30 @@ def test_kitchen_sink_fused_on_card_matches_plain(cuda):
         for f in ("t", "point", "normal", "albedo"):
             torch.testing.assert_close(getattr(fused, f)[m], getattr(plain, f)[m], rtol=1e-4,
                                        atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.gpu
+def test_config5_stand_ins_k2_k3_match_plain_on_card(cuda):
+    """Config 5 on its stand-in assets (scenes/drone_demo.py): K2 over the
+    analytic part, the cube and the drone (dense, their materials
+    synthesized from textures), and K3 over the 32,512-triangle sphere,
+    each against its plain version on the camera rays of a 32×32 × 2 spp
+    chunk (t_max of K3 cut to K2's t, as the staged path does)."""
+    from cs397raytracingsp22_tpu_torch.scenes import drone_demo
+
+    scene = drone_demo.build(16, 16, spp=1)
+    sd = scene.compile(device=cuda)
+    assert [m.tri_verts.shape[0] for m in sd.meshes] == [1536, 12, 32512]
+    assert sd.dense_mesh_ids == (0, 1)
+    o, d, t_max, u_vol = (x.to(cuda) for x in
+                          bounce_rays(scene.compile(device="cpu"), scene.camera, (0,))[0])
+    t_min = torch.full_like(t_max, integrator.PATH_T_MIN)
+    ins = (o, d, t_min, t_max, u_vol[:, :sd.vol_center.shape[0]].contiguous())
+    out = scene_intersect.scene_intersect_cuda(sd, *ins)
+    k2_compare(out, scene_intersect.scene_intersect_plain(sd, *ins), "K2 config 5")
+    mesh = sd.meshes[2]
+    o_obj, d_obj = (x.contiguous() for x in isect.object_rays(mesh, o, d))
+    ins3 = (o_obj, d_obj, t_min, torch.minimum(t_max, out[0]).contiguous())
+    out3 = tri_scan_big.tri_scan_big_cuda(mesh, *ins3)
+    k3_compare(out3, tri_scan_big.tri_scan_big_plain(mesh, *ins3), "K3 config 5")
+    assert int(out3[0].sum()) > 0, "camera rays reach the sphere"
