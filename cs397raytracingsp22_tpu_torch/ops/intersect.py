@@ -38,11 +38,11 @@ import dataclasses
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models import materials as mat
 from cs397raytracingsp22_tpu_torch.models.scene import MeshBlock, SceneData, resolve_order
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
+from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 _BIG = float("inf")
@@ -652,7 +652,7 @@ def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
 
     fields = dict(point=o + t[:, None] * d, normal=normal, frontface=ff, mat=mat_id)
     if mesh_order:
-        with record_function("mesh_resolve"):
+        with profiling.span("mesh_resolve"):
             fields = resolve_mesh_winners(scene, obj_rays, code, t, idx, u, v, fields)
     else:
         fields.update(_gather_material(scene, _table_ids(scene, fields.pop("mat"))))
@@ -804,7 +804,8 @@ def resolve_mesh_winners(scene: SceneData, obj_rays: dict, code, t, idx, u, v,
 
 def intersect_scene(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:
     """The fused path (K2 + K3) for CUDA tensors, the plain spec for CPU
-    tensors."""
-    if o.device.type == "cuda":
-        return intersect_scene_fused(scene, o, d, t_min, t_max, u_vol)
-    return intersect_scene_plain(scene, o, d, t_min, t_max, u_vol)
+    tensors. Profiler traces show the call as the span "render.intersect"."""
+    with profiling.span("render.intersect"):
+        if o.device.type == "cuda":
+            return intersect_scene_fused(scene, o, d, t_min, t_max, u_vol)
+        return intersect_scene_plain(scene, o, d, t_min, t_max, u_vol)

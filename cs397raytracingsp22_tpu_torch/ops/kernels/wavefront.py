@@ -36,12 +36,12 @@ import ctypes
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
 from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, check_tensor, scene_is_simple
 from cs397raytracingsp22_tpu_torch.render import integrator
+from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
@@ -129,7 +129,7 @@ def stable_partition(alive: torch.Tensor, rows: torch.Tensor):
     cumsum positions, one scatter). Returns (rows, alive) permuted; the new
     alive is 1 on the first (live count) rows. All on the device, no host
     read. Profiler traces show it as the span "wavefront_partition"."""
-    with record_function("wavefront_partition"):
+    with profiling.span("wavefront_partition"):
         n = alive.shape[0]
         live = alive != 0
         n_live = torch.cumsum(live, 0, dtype=torch.int64)  # live rows up to and including i

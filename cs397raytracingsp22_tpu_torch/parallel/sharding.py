@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from cs397raytracingsp22_tpu_torch.models.camera import Camera
+from cs397raytracingsp22_tpu_torch.utils import profiling
 
 
 def make_device_mesh(n_dp: Optional[int] = None, n_sp: int = 1):
@@ -122,9 +123,10 @@ def make_sharded_render_chunk(mesh, camera: Camera, spp: int, n_chains: int = 1)
         rad, segs = driver._dispatch_with_retry(driver.render_chunk, (
             scene, camera, pixel_ids[lo:hi], rng_key, sample_offset + sp * spp_local,
             spp_local, n_chains))
-        parts = torch.zeros((n_sp, n_px, 3), dtype=rad.dtype, device=rad.device)
-        parts[sp, lo:hi] = rad
-        return sum_over_ranks(parts), segs
+        with profiling.span("render.allreduce"):
+            parts = torch.zeros((n_sp, n_px, 3), dtype=rad.dtype, device=rad.device)
+            parts[sp, lo:hi] = rad
+            return sum_over_ranks(parts), segs
 
     return chunk
 

@@ -44,14 +44,13 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models.camera import Camera, ShadingMode
 from cs397raytracingsp22_tpu_torch.models.scene import Scene, SceneData, resolve_device
 from cs397raytracingsp22_tpu_torch.ops import tonemap as tonemap_ops
 from cs397raytracingsp22_tpu_torch.ops.kernels import bounce as bounce_kernel
 from cs397raytracingsp22_tpu_torch.render import integrator
-from cs397raytracingsp22_tpu_torch.utils import threefry
+from cs397raytracingsp22_tpu_torch.utils import profiling, threefry
 
 # work budget of one chunk in ray·primitive·bounce units (driver.py:471);
 # 32× that for big-mesh scenes, whose staged executor pays per-bounce host
@@ -121,7 +120,7 @@ class RenderStats:
 def _gen_chunk_rays(camera: Camera, pixel_ids, rng_key, sample_offset, spp: int, n_chains: int):
     """Camera rays and chain uids for one chunk: (N, 3), (N, 3), (N,) int32.
     Profiler traces show the work as the span "raygen"."""
-    with record_function("raygen"):
+    with profiling.span("raygen"):
         o, d = camera.generate_rays(rng_key, pixel_ids, spp=spp, sample_offset=sample_offset)
     o = o.reshape(-1, 3)
     d = d.reshape(-1, 3)
@@ -164,7 +163,8 @@ def render_chunk(
         radiance, segments = integrator.path_trace_nee(*args)
     elif bounce_kernel.scene_is_simple(scene):
         # K1 for CUDA tensors, its plain version for CPU tensors
-        radiance, segments = bounce_kernel.path_trace_cuda(*args)
+        with profiling.span("render.k1"):
+            radiance, segments = bounce_kernel.path_trace_cuda(*args)
     else:
         radiance, segments = integrator.path_trace_shrink(*args)
     radiance = radiance.reshape(n_px, spp * n_chains, 3)
@@ -367,6 +367,13 @@ def render_to_image(
     time in sp order, the order in which one device adds its spp chunks.
     (A float sum regrouped over ranks could not promise more.)
     """
+    with profiling.span("render.image"):
+        return _render_to_image(scene, device, seed, pixel_chunk, spp_chunk, checkpoint_path,
+                                verbose, scene_data, mesh)
+
+
+def _render_to_image(scene, device, seed, pixel_chunk, spp_chunk, checkpoint_path, verbose,
+                     scene_data, mesh):
     device = resolve_device(device)
     cam = scene.camera
     w, h = cam.screen_width, cam.screen_height
@@ -489,18 +496,19 @@ def render_to_image(
     for s0 in range(spp_done, spp, spp_chunk):
         s_count = min(spp_chunk, spp - s0)
         for ci in range(n_chunks):
-            parts, segs = dispatch(lane + ci, s0, s_count)
-            # the sp partials one at a time, in sp order: the order in which
-            # one device adds its spp chunks
-            for part in parts:
-                pieces[ci] = part if pieces[ci] is None else pieces[ci] + part
-            seg_total = seg_total + segs
-            stats.chunks += 1
-            # ids past n_px (a ragged tail's padding) are traced, not counted
-            n_valid = -(-(n_px_total - ci) // n_chunks)
-            clock.chunk_done(seg_total, n_valid * s_count * n_chains)
+            with profiling.span("render.chunk"):
+                parts, segs = dispatch(lane + ci, s0, s_count)
+                # the sp partials one at a time, in sp order: the order in which
+                # one device adds its spp chunks
+                for part in parts:
+                    pieces[ci] = part if pieces[ci] is None else pieces[ci] + part
+                seg_total = seg_total + segs
+                stats.chunks += 1
+                # ids past n_px (a ragged tail's padding) are traced, not counted
+                n_valid = -(-(n_px_total - ci) // n_chunks)
+                clock.chunk_done(seg_total, n_valid * s_count * n_chains)
         if checkpoint_path and rank == 0:
-            with clock.paused():
+            with clock.paused(), profiling.span("render.checkpoint"):
                 np.savez(
                     checkpoint_path,
                     accum=_raster(pieces, n_px_total).cpu().numpy().astype(np.float64),
@@ -509,20 +517,22 @@ def render_to_image(
                     # the estimator: a resume with the other --nee would blend two
                     nee=np.int64(int(bool(cam.nee))),
                 )
-    clock.finish(stats)
-    # the segments after the first chunk and in all; under a mesh each rank
-    # counted its own shards, summed over the ranks here, once a render
-    seg_counts = torch.stack([
-        seg_total if clock.first_segments is None else clock.first_segments, seg_total])
-    if mesh is not None:
-        sharding.sum_over_ranks(seg_counts)
-    first_segs, stats.path_segments = seg_counts.tolist()
-    if clock.done > 1:
-        stats.steady_segments = stats.path_segments - first_segs
-    accum = _raster(pieces, n_px_total)
-    stats.mean_radiance = float(accum.mean()) / max(spp, 1)
-    stats.nonfinite_pixels = int((~torch.isfinite(accum)).any(dim=1).sum())
-    img = _finalize_image(pieces, n_px_total, spp, cam.gamma).cpu().numpy().reshape(h, w, 3)
+    with profiling.span("render.finish"):
+        clock.finish(stats)
+        # the segments after the first chunk and in all; under a mesh each rank
+        # counted its own shards, summed over the ranks here, once a render
+        seg_counts = torch.stack([
+            seg_total if clock.first_segments is None else clock.first_segments, seg_total])
+        if mesh is not None:
+            with profiling.span("render.allreduce"):
+                sharding.sum_over_ranks(seg_counts)
+        first_segs, stats.path_segments = seg_counts.tolist()
+        if clock.done > 1:
+            stats.steady_segments = stats.path_segments - first_segs
+        accum = _raster(pieces, n_px_total)
+        stats.mean_radiance = float(accum.mean()) / max(spp, 1)
+        stats.nonfinite_pixels = int((~torch.isfinite(accum)).any(dim=1).sum())
+        img = _finalize_image(pieces, n_px_total, spp, cam.gamma).cpu().numpy().reshape(h, w, 3)
     stats.wall_seconds = time.perf_counter() - clock.t_start
     stats.primary_rays = n_px_total * (spp - spp_done) * n_chains
     if verbose:

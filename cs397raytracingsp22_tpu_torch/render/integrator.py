@@ -29,12 +29,12 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bsdf
 from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene, intersect_scene_plain
 from cs397raytracingsp22_tpu_torch.render import nee
+from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import sampling
 from cs397raytracingsp22_tpu_torch.utils import threefry
@@ -57,7 +57,7 @@ def _bounce_draws(scene: SceneData, rng_key, uids: torch.Tensor, site):
     4..4+V) and one per general volume (the G slots after them; each slot
     is independent, so they move no sphere-volume draw). Profiler traces
     show them as the span "bounce_rng"."""
-    with record_function("bounce_rng"):
+    with profiling.span("bounce_rng"):
         n_vol = scene.vol_center.shape[0]
         u = threefry.bounce_uniforms(rng_key, uids, site, 4 + n_vol + scene.n_gvols)
         ball = sampling.ball_vec_from_uniform(u[:, 0:3])
@@ -85,21 +85,22 @@ def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_
     rad = rad + torch.where(live_miss[:, None], thr * background_color(d), 0.0)
 
     # hit: emission + scatter (tracing.rs:307-322)
-    new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
-    # dot term |new_dir·n| clamped to [0, 1]; 1 for zero-normal volume
-    # hits (tracing.rs:313)
-    has_normal = vm.magnitude2(hit.normal) > 0.0
-    dot_term = torch.where(
-        has_normal,
-        torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
-        torch.ones_like(inv_pdf),
-    )
-    factor = (dot_term * inv_pdf)[:, None] * att
+    with profiling.span("render.shade"):
+        new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
+        # dot term |new_dir·n| clamped to [0, 1]; 1 for zero-normal volume
+        # hits (tracing.rs:313)
+        has_normal = vm.magnitude2(hit.normal) > 0.0
+        dot_term = torch.where(
+            has_normal,
+            torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
+            torch.ones_like(inv_pdf),
+        )
+        factor = (dot_term * inv_pdf)[:, None] * att
 
-    rad = rad + torch.where(live_hit[:, None], thr * hit.emission, 0.0)
-    thr = torch.where(live_hit[:, None], thr * factor, thr)
-    o = torch.where(live_hit[:, None], hit.point, o)
-    d = torch.where(live_hit[:, None], new_dir, d)
+        rad = rad + torch.where(live_hit[:, None], thr * hit.emission, 0.0)
+        thr = torch.where(live_hit[:, None], thr * factor, thr)
+        o = torch.where(live_hit[:, None], hit.point, o)
+        d = torch.where(live_hit[:, None], new_dir, d)
     segs = alive.sum()
     return o, d, thr, rad, live_hit, segs
 
@@ -150,7 +151,8 @@ def _compact(alive: torch.Tensor, pos: torch.Tensor, rad: torch.Tensor, out: tor
     radiance goes to `out` at their caller positions, and the live rows'
     indices come back (with the live count, the one host read)."""
     perm = torch.argsort((~alive).to(torch.int32), stable=True)
-    n_alive = int(alive.sum())  # the one host sync of the bounce
+    with profiling.span("render.live_count"):
+        n_alive = int(alive.sum())  # the one host sync of the bounce
     gone = perm[n_alive:]
     out[pos[gone]] = rad[gone]
     return perm[:n_alive], n_alive
@@ -191,18 +193,19 @@ def path_trace_shrink(
     out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(path_depth):
-        o, d, thr, rad, alive, segs = _bounce_update(
-            scene, o, d, thr, rad, alive, uids, rng_key, rnglib.SITE_BOUNCE0 + depth,
-            max_trace_dist, intersect=intersect_scene,
-        )
-        segments = segments + segs
-        if depth == path_depth - 1:
-            break
-        keep, n_alive = _compact(alive, pos, rad, out)
-        o, d, thr, rad, uids, pos = o[keep], d[keep], thr[keep], rad[keep], uids[keep], pos[keep]
-        alive = alive[keep]
-        if n_alive == 0:
-            break
+        with profiling.span("render.bounce"):
+            o, d, thr, rad, alive, segs = _bounce_update(
+                scene, o, d, thr, rad, alive, uids, rng_key, rnglib.SITE_BOUNCE0 + depth,
+                max_trace_dist, intersect=intersect_scene,
+            )
+            segments = segments + segs
+            if depth == path_depth - 1:
+                break
+            keep, n_alive = _compact(alive, pos, rad, out)
+            o, d, thr, rad, uids = o[keep], d[keep], thr[keep], rad[keep], uids[keep]
+            pos, alive = pos[keep], alive[keep]
+            if n_alive == 0:
+                break
     out[pos] = rad
     return out, segments
 
@@ -233,30 +236,31 @@ def _nee_bounce_update(scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, de
     emit_ok = live_hit & ~prev_nee
     rad = rad + torch.where(emit_ok[:, None], thr * hit.emission, 0.0)
 
-    new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
-    has_normal = vm.magnitude2(hit.normal) > 0.0
-    dot_term = torch.where(
-        has_normal,
-        torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
-        torch.ones_like(inv_pdf),
-    )
-    factor = (dot_term * inv_pdf)[:, None] * att
-
-    segs = alive.sum()
-    if do_nee:
-        contrib, did, shadow = nee.direct_light(
-            scene, hit, d, u_choice, live_hit, uids, rng_key, depth, PATH_T_MIN,
-            max_trace_dist, intersect=intersect,
+    with profiling.span("render.shade"):
+        new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
+        has_normal = vm.magnitude2(hit.normal) > 0.0
+        dot_term = torch.where(
+            has_normal,
+            torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
+            torch.ones_like(inv_pdf),
         )
-        rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
-        prev_nee = live_hit & did
-        segs = segs + shadow
-    else:
-        prev_nee = torch.zeros_like(alive)
+        factor = (dot_term * inv_pdf)[:, None] * att
 
-    thr = torch.where(live_hit[:, None], thr * factor, thr)
-    o = torch.where(live_hit[:, None], hit.point, o)
-    d = torch.where(live_hit[:, None], new_dir, d)
+        segs = alive.sum()
+        if do_nee:
+            contrib, did, shadow = nee.direct_light(
+                scene, hit, d, u_choice, live_hit, uids, rng_key, depth, PATH_T_MIN,
+                max_trace_dist, intersect=intersect,
+            )
+            rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
+            prev_nee = live_hit & did
+            segs = segs + shadow
+        else:
+            prev_nee = torch.zeros_like(alive)
+
+        thr = torch.where(live_hit[:, None], thr * factor, thr)
+        o = torch.where(live_hit[:, None], hit.point, o)
+        d = torch.where(live_hit[:, None], new_dir, d)
     return o, d, thr, rad, live_hit, prev_nee, segs
 
 
@@ -298,18 +302,19 @@ def path_trace_nee(
     out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(path_depth):
-        o, d, thr, rad, alive, prev_nee, segs = _nee_bounce_update(
-            scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, depth, max_trace_dist,
-            do_nee=depth < path_depth - 1, intersect=intersect,
-        )
-        segments = segments + segs
-        if depth == path_depth - 1:
-            break
-        keep, n_alive = _compact(alive, pos, rad, out)
-        o, d, thr, rad, uids, pos = o[keep], d[keep], thr[keep], rad[keep], uids[keep], pos[keep]
-        alive, prev_nee = alive[keep], prev_nee[keep]
-        if n_alive == 0:
-            break
+        with profiling.span("render.bounce"):
+            o, d, thr, rad, alive, prev_nee, segs = _nee_bounce_update(
+                scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, depth, max_trace_dist,
+                do_nee=depth < path_depth - 1, intersect=intersect,
+            )
+            segments = segments + segs
+            if depth == path_depth - 1:
+                break
+            keep, n_alive = _compact(alive, pos, rad, out)
+            o, d, thr, rad, uids = o[keep], d[keep], thr[keep], rad[keep], uids[keep]
+            pos, alive, prev_nee = pos[keep], alive[keep], prev_nee[keep]
+            if n_alive == 0:
+                break
     out[pos] = rad
     return out, segments
 

@@ -38,12 +38,11 @@ through ops/intersect.py::intersect_scene, the plain version otherwise.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from cs397raytracingsp22_tpu_torch.models import materials as mat
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.intersect import HitRecord, intersect_scene
-from cs397raytracingsp22_tpu_torch.utils import threefry
+from cs397raytracingsp22_tpu_torch.utils import profiling, threefry
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 from cs397raytracingsp22_tpu_torch.utils.rng import SITE_NEE0
 
@@ -138,7 +137,7 @@ def nee_draws(scene: SceneData, rng_key, uids: torch.Tensor, depth: int) -> torc
     light pick, two area uniforms, the shadow ray's ball length, and one
     free-flight uniform per volume-table row and per general volume.
     Profiler traces show them as the span "nee_rng"."""
-    with record_function("nee_rng"):
+    with profiling.span("nee_rng"):
         return threefry.counter_uniforms(rng_key, uids, SITE_NEE0 + depth,
                                          4 + scene.vol_center.shape[0] + scene.n_gvols)
 
@@ -165,7 +164,15 @@ def direct_light(scene: SceneData, hit: HitRecord, d_in: torch.Tensor, u_choice:
     `did` stays True when the sample is occluded or out of reach: both are
     part of the estimator whose expectation covers the emission, and
     suppressing only on success would count the plain emission again on
-    every failed sample."""
+    every failed sample. Profiler traces show the call as the span
+    "render.nee"."""
+    with profiling.span("render.nee"):
+        return _direct_light(scene, hit, d_in, u_choice, live, uids, rng_key, depth, t_min,
+                             max_trace_dist, intersect)
+
+
+def _direct_light(scene, hit, d_in, u_choice, live, uids, rng_key, depth, t_min,
+                  max_trace_dist, intersect):
     u = nee_draws(scene, rng_key, uids, depth)
     x, n_l, emission, inv_pdf = sample_light_point(scene, u[:, 0], u[:, 1], u[:, 2])
 

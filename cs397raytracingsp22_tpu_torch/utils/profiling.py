@@ -1,41 +1,59 @@
-"""Phase timing and device traces (mirrors the JAX package's
-utils/profiling.py).
+"""Layer spans and device traces (the JAX package's utils/profiling.py
+holds its own phase timer and trace).
 
-- `PhaseTimer` collects named wall-clock phases (load, compile, render,
-  tonemap) for a render's summary; a phase entered again adds to its sum.
+- `span(name)` marks a layer of the render on the profiler's timeline.
+  While a torch profiler records, it is `record_function(name)`: the span
+  lands on one timeline and one clock with the host's calls and the
+  card's kernels, and a span entered inside another nests under it. With
+  no profiler recording it returns one shared no-op context, at the cost
+  of one flag read, so the untraced render pays nothing for its spans.
 - `device_trace(log_dir)` runs the block under `torch.profiler` and writes
   a Chrome trace (viewable in Perfetto or chrome://tracing) into log_dir:
-  the host's calls and the package's record_function spans ("raygen",
-  "bounce_rng", "nee_rng", "mesh_resolve"), and on a card the kernels.
-  Without a directory it starts no profiler and costs nothing. The
-  directory is an argument (the CLI's `--profile-dir`): the port reads no
-  environment variable.
+  the host's calls, the spans, and on a card the kernels. Without a
+  directory it starts no profiler and costs nothing. The directory is an
+  argument (the CLI's `--profile-dir`): the port reads no environment
+  variable.
+
+The spans of the render path, outermost first:
+
+| span | where | encloses |
+|---|---|---|
+| `render.image` | render/driver.py::render_to_image | one image |
+| `render.chunk` | the driver's chunk loop | one chunk's dispatch (its retries) and accumulation |
+| `render.k1` | render/driver.py::render_chunk | the mega-bounce kernel's call |
+| `render.bounce` | integrator.path_trace_shrink, path_trace_nee | one bounce, its compaction included |
+| `render.intersect` | ops/intersect.py::intersect_scene | K2, K3, the general volumes, the merged resolve |
+| `render.shade` | integrator._bounce_update, _nee_bounce_update | the BSDF and the path's update |
+| `render.nee` | render/nee.py::direct_light | the shadow rays |
+| `render.live_count` | integrator._compact | the host's read of the live count (it waits for the card) |
+| `render.finish` | the driver, after the last chunk | the image's end-of-render reads, tonemap and pull |
+| `render.checkpoint` | the driver | the checkpoint's pull and write |
+| `render.allreduce` | parallel/sharding.py, the driver | a chunk's and the segment counts' exchange |
+
+and inside them the draws and the resolve: `raygen`
+(models/camera.py through the driver), `bounce_rng`, `nee_rng`,
+`mesh_resolve` and `wavefront_partition` (ops/kernels/wavefront.py).
+No span reads the card or launches a kernel.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import OrderedDict
 
 import torch
+from torch.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
 
 
-class PhaseTimer:
-    def __init__(self):
-        self.phases: "OrderedDict[str, float]" = OrderedDict()
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] = self.phases.get(name, 0.0) + (time.perf_counter() - t0)
-
-    def summary(self) -> str:
-        return " | ".join(f"{k}: {v:.2f}s" for k, v in self.phases.items())
+def span(name: str):
+    """A context that marks `name` on the profiler's timeline while a
+    profiler records, and the shared no-op context otherwise."""
+    if _recording():
+        return record_function(name)
+    return _OFF
 
 
 def trace_path(log_dir: str) -> str:
