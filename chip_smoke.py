@@ -222,6 +222,21 @@ port's tools:
      the checkpoint of a two-chunk config-5 render: its PNG the tonemap of
      the kept accumulator and within 1 u8 of the render's image. The
      script's time so far is printed after phase 34.
+ 35. draws (run right after phase 2): D1, the draws kernels
+     (csrc/draws.cu), each entry point at the main path's shapes, 1,048,576
+     and 4,194,304 rays: the bench camera's rays (64 spp), a bounce's draws
+     with 0 and 2 volume uniforms (the bench scene's and config 5's) and NEE's
+     4 and 6 uniforms; every output bit-identical to the plain version's on
+     the same rays; the kernel's ms (CUDA events) beside its bound (bytes
+     written and read once, or the Threefry blocks' integer operations at
+     INT_PEAK) and the plain version's ms. It is also the guard of the
+     device functions D1 shares with K1 and K4 (csrc/bounce.cuh's
+     threefry2x32, sincos_2pi and cbrt_fast): on the card the plain
+     versions that the later phases and the `-m gpu` tests hold K1, K4
+     and the executors to (integrator.path_trace, wavefront.step_plain)
+     draw through D1, so only this phase, run before them, and
+     tests/test_torch_draws.py hold those functions to the int64 torch
+     emulation.
 Phases 6, 7, 9, 10, 14, 17, 25-27, 28-30 and 33 first hold a full-size launch (all of the chunk's
 rays, uids and depth) to the plain version on a strided sample of its
 rays: a ray's result depends only on its own inputs, so the sample
@@ -243,7 +258,11 @@ kernels, the screen and the walk: two a call); and, for K1, K2 and K3,
 the sharded renders of phase 31, every rank's renders of phase 32, and
 the config-5 renders of phase 33 and the tools' renders of phase 34;
 K4's of the two wavefront runs of phase 14, K5's of the intersect_mesh
-call of phase 17, and P1-P5's of their tools' runs in phases 22-24. Each counter is reset just before its path
+call of phase 17, P1-P5's of their tools' runs in phases 22-24, and D1's
+(a counter an entry point) of the timed frames of phase 6 and the renders
+of phase 7 (camera rays), the timed renders of phase 10 (camera rays,
+bounce draws) and the timed NEE renders of phase 25 (all three). Each
+counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
 plain version fall outside.
 """
@@ -293,6 +312,20 @@ K4_MIN_SAME = 0.996
 # spills: 5 blocks, 20 warps, an SM; up to 96 registers a thread (allotted
 # in steps of 8) keep those 5 blocks in the SM's 65,536 registers
 K1_MAX_REGS, K1_BLOCKS = 96, 5
+# the H100's integer issue rate: an SM's 64 INT32 lanes (Hopper white
+# paper) and the 64 lanes of its FMA pipe that issue IMAD, which takes an
+# add, x 132 SMs x 1.98 GHz (the larger combined rate: whatever pipe the
+# compiler gives each add, no launch is faster); the int32 operations of one
+# Threefry-2x32-20 block in csrc/bounce.cuh that depend on a thread's
+# counter (the counter's 2 adds, 20 rounds of add, funnel-shift rotate and
+# xor, 5 key injections of 2 adds); and the key schedule's (ks2's 2 xors,
+# 5 adds of a constant), which depends on the launch's key alone, counted
+# once a thread
+INT_PEAK = 132 * 128 * 1.98e9
+THREEFRY_OPS, KEY_SCHEDULE_OPS = 2 + 20 * 3 + 5 * 2, 2 + 5
+# D1's launches on the main paths, an entry point each: what draws_read adds
+# up after each main path's window
+D1_MAIN = {"camera_rays": 0, "bounce_draws": 0, "counter_uniforms": 0}
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
 # multiplies in one Möller–Trumbore test of csrc/tri_scan.cu (q 6, det 3,
@@ -484,6 +517,72 @@ def k2_ms(sd, ins, reps: int = 10) -> float:
 
     out = scene_intersect.empty_outputs(ins[0].shape[0], ins[0].device)
     return cuda_ms(lambda: scene_intersect.launch(sd, ins, out), reps)
+
+
+def draws_reset() -> None:
+    """Zero D1's counters just before a main path runs."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import draws
+    draws.LAUNCHES.update(dict.fromkeys(draws.LAUNCHES, 0))
+
+
+def draws_read() -> None:
+    """Add D1's counters, read just after a main path ran, to D1_MAIN."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import draws
+    for entry, n in draws.LAUNCHES.items():
+        D1_MAIN[entry] += n
+
+
+def draws_phase(dev) -> list:
+    """Phase 35: D1's three entry points against their plain versions at
+    the main path's shapes; returns the kernels line's rows."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import draws
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+    from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    cam = bench_scene.build(512, 512, spp=64, path_depth=8).camera
+    key = threefry.key_words(2**33 + 5)
+    rows = []
+    for n in (1 << 20, 1 << 22):
+        ids = torch.arange(n // 64, dtype=torch.int32, device=dev) * 3  # a strided chunk
+        uids = torch.arange(n, dtype=torch.int32, device=dev) * 7919 - 2**30
+        cases = [("camera_rays", "64 spp", lambda: draws.camera_rays(cam, key, ids, 64, 64),
+                  lambda: cam.generate_rays_plain(key, ids, 64, 64), 4 * n // 64 + 24 * n, 2)]
+        for v in (0, 2):
+            site = rnglib.SITE_BOUNCE0 + 3
+            cases.append(("bounce_draws", f"{v} volume uniforms",
+                          lambda v=v, site=site: draws.bounce_draws(key, uids, site, v),
+                          lambda v=v, site=site: draws.bounce_draws_plain(key, uids, site, v),
+                          n * (4 + 12 + 4 + 4 * v), 1 + (v + 1) // 2))
+        for m in (4, 6):
+            site = rnglib.SITE_NEE0 + 3
+            cases.append(("counter_uniforms", f"{m} uniforms",
+                          lambda m=m, site=site: draws.counter_uniforms(key, uids, site, m),
+                          lambda m=m, site=site: threefry.counter_uniforms(key, uids, site, m),
+                          n * (4 + 4 * m), (m + 1) // 2))
+        for entry, what, kern, plain, n_bytes, blocks in cases:
+            got, want = kern(), plain()
+            if torch.is_tensor(got):
+                got, want = (got,), (want,)
+            for a, b in zip(got, want):
+                if not torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(
+                        torch.int32)):
+                    raise AssertionError(f"D1 {entry} ({what}, {n} rays) differs from its plain "
+                                         "version")
+            k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            t_b = n_bytes / PEAK_BYTES
+            t_o = n * (blocks * THREEFRY_OPS + KEY_SCHEDULE_OPS) / INT_PEAK
+            b_ms, by = max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "integer operations")
+            log("draws", f"D1 {entry} ({what}) on {n} rays: bit-identical to the plain version; "
+                f"{k_ms:.4f} ms (bound {b_ms:.4f} ms, {by}: {b_ms / k_ms:.1%}), plain torch "
+                f"{p_ms:.3f} ms ({p_ms / k_ms:.0f}x)")
+            if n == 1 << 22 and what in ("64 spp", "2 volume uniforms", "4 uniforms"):
+                rows.append({"name": f"draws_{entry}", "route": "cuda",
+                             "source": "cs397raytracingsp22_tpu_torch/csrc/draws.cu",
+                             "replaces": None, "launches": 0, "max_abs_err": 0.0, "ms": k_ms,
+                             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                             "library_ms": None})
+    return rows
 
 
 def bound(n_bytes: float, n_ops: float, peak: float = PEAK_FP32) -> tuple[float, str]:
@@ -766,8 +865,10 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the staged main path's counts
+    draws_reset()
     runs32 = [render32() for _ in range(3)]
     k2_launches, k3_launches = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    draws_read()
     peak = torch.cuda.max_memory_allocated()
     if k2_launches < 1 or k3_launches < 1:
         raise AssertionError("the staged main path launched K2 or K3 no time")
@@ -1933,8 +2034,10 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the NEE frame's counts start here
+    draws_reset()
     runs = [render_nee() for _ in range(2)]
     k2_nee, k3_nee = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    draws_read()
     peak = torch.cuda.max_memory_allocated()
     img, st = runs[0]
     if k2_nee != len(runs) * st.chunks * shadow_depth or k3_nee:
@@ -2925,7 +3028,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from PIL import Image
 
-    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, scene_intersect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, scene_intersect
     from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, tri_scan_big, wavefront
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import bench_scene, cornell
@@ -2946,7 +3049,11 @@ def main() -> int:
                                ("K2 no mesh", "scene_intersect", scene_intersect,
                                 {"dense": False}),
                                ("K3", "bvh_traverse", tri_scan_big, {}),
-                               ("K5", "tri_scan", tri_scan, {})):
+                               ("K5", "tri_scan", tri_scan, {}),
+                               ("D1 camera rays", "draws", draws, {"entry": "camera_rays"}),
+                               ("D1 bounce draws", "draws", draws, {"entry": "bounce_draws"}),
+                               ("D1 counter uniforms", "draws", draws,
+                                {"entry": "counter_uniforms"})):
         regs, spill = mod.kernel_attrs(**kw)
         ptxas = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -2956,7 +3063,7 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if (kid.startswith("K4") or kid in ("K1 no mesh", "K3", "K5")) and spill:
+        if (kid.startswith(("K4", "D1")) or kid in ("K1 no mesh", "K3", "K5")) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
                       ("the Cornell box (no dense mesh)", cornell.build(64, 64, spp=4))):
@@ -2972,6 +3079,8 @@ def main() -> int:
             raise AssertionError(f"K1 keeps {blocks} blocks an SM resident, not {K1_BLOCKS}")
     # ---- 19-20. the probes' registers and spills; the SASS check ----
     probe_build_and_sass(build_s)
+    # ---- 35. the draws kernels against their plain versions ----
+    draw_rows = draws_phase(dev)
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -3051,6 +3160,7 @@ def main() -> int:
         return out, seg
 
     bounce.LAUNCHES = 0  # the main path's count starts here
+    draws_reset()
     frame()  # warm
     torch.cuda.synchronize()
     reps = 3
@@ -3060,6 +3170,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / reps
     launches = bounce.LAUNCHES  # the main path's count, read just after
+    draws_read()
     segments = int(seg)
     full = torch.cat(sums)
     k1_mean = full.mean().item() / spp  # mean HDR radiance of a sample, for phase 25
@@ -3096,9 +3207,11 @@ def main() -> int:
     del o, d, uids, rad_full
     driver.render_to_image(sc64, device=dev, seed=0, verbose=False, scene_data=d64)
     bounce.LAUNCHES = 0  # the main path's count starts here again
+    draws_reset()
     runs = [driver.render_to_image(sc64, device=dev, seed=0, verbose=False, scene_data=d64)
             for _ in range(2)]
     launches += bounce.LAUNCHES
+    draws_read()
     t64 = min(st.wall_seconds for _, st in runs)
     img64, st64 = runs[0]
     if img64.max() == 0:
@@ -3158,7 +3271,8 @@ def main() -> int:
         "bound_ms": k1_bound_ms,
         "bound_by": k1_by,
         "library_ms": None,
-    }] + staged + k45 + probes}))
+    }] + staged + k45 + probes + [dict(row, launches=D1_MAIN[row["name"][6:]])
+                                  for row in draw_rows]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@ from typing import Tuple
 
 import torch
 
+from cs397raytracingsp22_tpu_torch.ops.kernels import draws
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import sampling
 from cs397raytracingsp22_tpu_torch.utils import threefry
@@ -87,8 +88,27 @@ class Camera:
           sample_offset: global index of the first sample, so chunked
             calls draw what one full-spp call would.
 
-        Returns (origins, directions), each (N, spp, 3) float32.
+        Returns (origins, directions), each (N, spp, 3) float32. CUDA
+        tensors take one launch of the draws kernel
+        (ops/kernels/draws.py::camera_rays), other tensors
+        generate_rays_plain; both give the same bits.
         """
+        if spp is None:
+            spp = self.aa_sample_count
+        if pixel_ids.is_cuda:
+            return draws.camera_rays(self, rng_key, pixel_ids.to(torch.int32), spp,
+                                     sample_offset)
+        return self.generate_rays_plain(rng_key, pixel_ids, spp, sample_offset)
+
+    def generate_rays_plain(
+        self,
+        rng_key,
+        pixel_ids: torch.Tensor,
+        spp: int | None = None,
+        sample_offset: int = 0,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """generate_rays in torch ops on pixel_ids' device: the plain
+        version of the draws kernel's camera rays."""
         if spp is None:
             spp = self.aa_sample_count
         if isinstance(rng_key, int):

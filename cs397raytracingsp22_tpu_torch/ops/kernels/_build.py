@@ -39,11 +39,13 @@ NVCC_FLAGS = (
 
 # per kernel: flags after NVCC_FLAGS
 EXTRA_FLAGS = {"scene_intersect": ("-fmad=false",), "bvh_traverse": ("-fmad=false",),
-               "tri_scan": ("-fmad=false",), "vpu_peak": ("-fmad=true",)}
-# every kernel of the package, for build_all: the render kernels K1-K5 and
-# the roofline probes P1-P3 (vpu_peak), P4 (dtype_rate) and P5 (bw_scan)
-KERNELS = ("bounce", "wavefront", "scene_intersect", "bvh_traverse", "tri_scan", "vpu_peak",
-           "dtype_rate", "bw_scan")
+               "tri_scan": ("-fmad=false",), "draws": ("-fmad=false",),
+               "vpu_peak": ("-fmad=true",)}
+# every kernel of the package, for build_all: the render kernels K1-K5, the
+# draws D1 and the roofline probes P1-P3 (vpu_peak), P4 (dtype_rate) and P5
+# (bw_scan)
+KERNELS = ("bounce", "wavefront", "scene_intersect", "bvh_traverse", "tri_scan", "draws",
+           "vpu_peak", "dtype_rate", "bw_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -116,6 +118,19 @@ def build_all(names) -> None:
             BUILD_INFO[name] = {"seconds": seconds, "log": log, "path": path}
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def check_tensor(name: str, x, dtype, shape, device) -> None:
+    """Raise unless tensor x is on `device` with `dtype`, `shape` and a
+    contiguous layout: what a kernel's wrapper checks before a launch."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def load_library(name: str) -> ctypes.CDLL:

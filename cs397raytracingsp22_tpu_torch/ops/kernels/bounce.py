@@ -18,6 +18,7 @@ import torch
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
+from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
 from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
@@ -92,17 +93,6 @@ def scene_is_simple(scene: SceneData) -> bool:
     if scene.n_spheres + scene.n_planes + scene.n_tris + scene.n_volumes > LANES:
         return False
     return all(m.mat_id >= 0 and m.tex_ids[4] < 0 for m in scene.meshes)
-
-
-def check_tensor(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def path_trace_cuda(

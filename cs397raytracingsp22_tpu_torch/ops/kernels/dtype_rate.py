@@ -24,7 +24,7 @@ import ctypes
 import torch
 
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor
+from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
 from cs397raytracingsp22_tpu_torch.ops.kernels.vpu_peak import fma_f32
 
 LAUNCHES = 0

@@ -38,7 +38,8 @@ from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 from cs397raytracingsp22_tpu_torch.ops import intersect as isect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor, staged_bytes
+from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import staged_bytes
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 LAUNCHES = 0

@@ -26,7 +26,7 @@ import torch
 from cs397raytracingsp22_tpu_torch.models.scene import MeshBlock
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor
+from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 LAUNCHES = 0

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import check_tensor
+from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
 
 LAUNCHES = 0
 

@@ -39,7 +39,8 @@ import torch
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, check_tensor, scene_is_simple
+from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, scene_is_simple
 from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
@@ -154,7 +155,7 @@ def step_plain(scene: SceneData, rows, alive, rng_key, depth: int, max_trace_dis
     (rows, alive)."""
     o, d, thr, rad, live, _ = integrator._bounce_update(
         scene, rows[:, STATE_O], rows[:, STATE_D], rows[:, STATE_THR], rows[:, STATE_RAD],
-        alive != 0, rows.view(torch.int32)[:, STATE_UID], rng_key,
+        alive != 0, rows.view(torch.int32)[:, STATE_UID].contiguous(), rng_key,
         rnglib.SITE_BOUNCE0 + depth, max_trace_dist,
     )
     out = rows.clone()

@@ -33,11 +33,10 @@ import torch
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bsdf
 from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene, intersect_scene_plain
+from cs397raytracingsp22_tpu_torch.ops.kernels import draws
 from cs397raytracingsp22_tpu_torch.render import nee
 from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
-from cs397raytracingsp22_tpu_torch.utils import sampling
-from cs397raytracingsp22_tpu_torch.utils import threefry
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 # path-trace ray epsilon (tracing.rs:305) and Phong's shadow-ray offset
@@ -55,13 +54,12 @@ def _bounce_draws(scene: SceneData, rng_key, uids: torch.Tensor, site):
     """One bounce's draws from the counter RNG: ball vector, branch
     uniform, one free-flight uniform per volume-table row (draw slots
     4..4+V) and one per general volume (the G slots after them; each slot
-    is independent, so they move no sphere-volume draw). Profiler traces
-    show them as the span "bounce_rng"."""
+    is independent, so they move no sphere-volume draw): one launch of the
+    draws kernel for CUDA tensors, the plain version for CPU tensors
+    (ops/kernels/draws.py::bounce_draws). Profiler traces show them as the
+    span "bounce_rng"."""
     with profiling.span("bounce_rng"):
-        n_vol = scene.vol_center.shape[0]
-        u = threefry.bounce_uniforms(rng_key, uids, site, 4 + n_vol + scene.n_gvols)
-        ball = sampling.ball_vec_from_uniform(u[:, 0:3])
-        return ball, u[:, 3], u[:, 4:]
+        return draws.bounce_draws(rng_key, uids, site, scene.vol_center.shape[0] + scene.n_gvols)
 
 
 def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_dist,

@@ -42,7 +42,8 @@ import torch
 from cs397raytracingsp22_tpu_torch.models import materials as mat
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.intersect import HitRecord, intersect_scene
-from cs397raytracingsp22_tpu_torch.utils import profiling, threefry
+from cs397raytracingsp22_tpu_torch.ops.kernels import draws
+from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 from cs397raytracingsp22_tpu_torch.utils.rng import SITE_NEE0
 
@@ -135,11 +136,13 @@ def sample_light_point(scene: SceneData, u_pick, u1, u2):
 def nee_draws(scene: SceneData, rng_key, uids: torch.Tensor, depth: int) -> torch.Tensor:
     """One bounce's NEE draws, (N, 4 + V + G) at site SITE_NEE0 + depth:
     light pick, two area uniforms, the shadow ray's ball length, and one
-    free-flight uniform per volume-table row and per general volume.
-    Profiler traces show them as the span "nee_rng"."""
+    free-flight uniform per volume-table row and per general volume: one
+    launch of the draws kernel for CUDA tensors, threefry.counter_uniforms
+    for CPU tensors (ops/kernels/draws.py::counter_uniforms). Profiler
+    traces show them as the span "nee_rng"."""
     with profiling.span("nee_rng"):
-        return threefry.counter_uniforms(rng_key, uids, SITE_NEE0 + depth,
-                                         4 + scene.vol_center.shape[0] + scene.n_gvols)
+        return draws.counter_uniforms(rng_key, uids, SITE_NEE0 + depth,
+                                      4 + scene.vol_center.shape[0] + scene.n_gvols)
 
 
 def direct_light(scene: SceneData, hit: HitRecord, d_in: torch.Tensor, u_choice: torch.Tensor,

@@ -3,8 +3,10 @@
 The same generator as `cs397raytracingsp22_tpu/utils/threefry.py`, bit
 for bit: renders are a pure function of (seed, ray uid, draw site), so an
 image does not depend on the chunking, the device or the backend. The
-CUDA mega-bounce kernel (csrc/bounce.cu) evaluates the same function in
-native uint32.
+CUDA mega-bounce kernel (csrc/bounce.cu) and the draws kernels
+(csrc/draws.cu, which the render paths launch for CUDA tensors) evaluate
+the same function in native uint32; the functions here are their plain
+versions.
 
 torch has no uint32 add or shifts on the CPU, so every 32-bit word is
 held in an int64 tensor and masked with 0xFFFFFFFF after each add and
