@@ -237,9 +237,20 @@ port's tools:
      draw through D1, so only this phase, run before them, and
      tests/test_torch_draws.py hold those functions to the int64 torch
      emulation.
-Phases 6, 7, 9, 10, 14, 17, 25-27, 28-30 and 33 first hold a full-size launch (all of the chunk's
-rays, uids and depth) to the plain version on a strided sample of its
-rays: a ray's result depends only on its own inputs, so the sample
+ 36. rtnw (run right after phase 35): K1's sphere tree on the final scene of
+     The Next Week (scenes/rtnw_final.py, 800² × 64 spp, depth 40, 1,006
+     spheres): on chunk 0's camera rays and the rays entering bounce 3 of
+     the plain path trace from them, K1's rows with the tree bit-identical
+     to K1's rows with its sphere scan (the gate forced open inside the
+     phase), every RTNW_STRIDE-th ray traced alone bit for bit and within
+     rtol / atol of the plain version on at least RTNW_MIN_FRAC of them,
+     segment totals within RTNW_SEG_RTOL (paths of depth 40 flip more
+     winners than phase 3's depth 8); both
+     timed; the sphere-tree node tests K1 counted, its registers and
+     resident blocks.
+Phases 6, 7, 9, 10, 14, 17, 25-27, 28-30, 33 and 36 first hold a full-size
+launch (all of the chunk's rays, uids and depth) to the plain version on a
+strided sample of its rays: a ray's result depends only on its own inputs, so the sample
 traced alone must give the same rows, bit for bit, and those rows must
 match the plain version within the kernel's tolerance (K1 and the staged
 path and K4, the NEE executor and Phong: phase 3's; K2, K3 and K5: the
@@ -323,6 +334,16 @@ K1_MAX_REGS, K1_BLOCKS = 96, 5
 # once a thread
 INT_PEAK = 132 * 128 * 1.98e9
 THREEFRY_OPS, KEY_SCHEDULE_OPS = 2 + 20 * 3 + 5 * 2, 2 + 5
+# phase 36: every RTNW_STRIDE-th ray of the final scene's chunk against the
+# plain version: within rtol / atol on at least RTNW_MIN_FRAC of them, and
+# segment totals within RTNW_SEG_RTOL. Paths of depth 40 flip a winner at a
+# grazing hit or a Fresnel draw more often than the depth-8 scenes of
+# MIN_FRAC (0.30% of the camera rays, 0.06% of the bounce-3 rays), and a
+# path goes on with zero throughput after the light quad (albedo 0), where
+# a flip changes its length and not its radiance (5.6% of the camera rays,
+# 1.3% of their segments), so depth × the rays outside does not bound the
+# segments (PERF.md §6)
+RTNW_STRIDE, RTNW_MIN_FRAC, RTNW_SEG_RTOL = 61, 0.99, 0.05
 # D1's launches on the main paths, an entry point each: what draws_read adds
 # up after each main path's window
 D1_MAIN = {"camera_rays": 0, "bounce_draws": 0, "counter_uniforms": 0}
@@ -530,6 +551,93 @@ def draws_read() -> None:
     from cs397raytracingsp22_tpu_torch.ops.kernels import draws
     for entry, n in draws.LAUNCHES.items():
         D1_MAIN[entry] += n
+
+
+def rtnw_phase(dev) -> None:
+    """Phase 36: K1's sphere tree on the final scene of The Next Week
+    (scenes/rtnw_final.py, 800² × 64 spp, depth 40: 1,006 spheres, the
+    scene takes K1 through its tree). On chunk 0's camera rays (131,072)
+    and the rays entering bounce 3 of the plain path trace from them: K1's
+    rows with the tree bit-identical to K1's rows with its sphere scan (the
+    gate forced open here: no tree, every sphere counted against enough
+    lanes), the segments equal; every SAMPLE_STRIDE-th ray traced alone
+    bit for bit and within the parity contract of the plain version; both
+    K1 builds timed on the camera rays by CUDA events; the node tests K1
+    counted and its resident blocks."""
+    from cs397raytracingsp22_tpu_torch.models import scene as scene_mod
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.scenes import rtnw_final
+    from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    depth, t_max = 40, 20000.0
+    scene = rtnw_final.build(800, 800, 64, depth)
+    sd = scene.compile(device=dev)
+    if not (bounce.scene_is_simple(sd) and sd.sph_tree_leaves):
+        raise AssertionError("the final scene does not take K1 through its sphere tree")
+    cam = scene.camera
+    key = threefry.key_words(0)
+    px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
+    n_chunks = -(-cam.screen_width * cam.screen_height // px)
+    ids = torch.arange(px, dtype=torch.int32, device=dev) * n_chunks
+    cam_rays = driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
+    o, d, uids = cam_rays
+    thr, rad = torch.ones_like(o), torch.zeros_like(o)
+    alive = torch.ones((o.shape[0],), dtype=torch.bool, device=dev)
+    for b in range(3):
+        o, d, thr, rad, alive, _ = integrator._bounce_update(
+            sd, o, d, thr, rad, alive, uids, key, rnglib.SITE_BOUNCE0 + b, t_max)
+    keep = alive.nonzero()[:, 0]
+    b3_rays = (o[keep].contiguous(), d[keep].contiguous(), uids[keep].contiguous())
+    k1 = lambda rays: bounce.path_trace_cuda(sd, *rays, key, depth, t_max)  # noqa: E731
+    before = int(bounce.sphere_node_tests(dev))
+    tree = {name: k1(rays) for name, rays in (("camera", cam_rays), ("bounce-3", b3_rays))}
+    torch.cuda.synchronize()
+    tests = int(bounce.sphere_node_tests(dev)) - before
+    tree_ms = cuda_ms(lambda: k1(cam_rays), 3)
+    regs, spill = bounce.kernel_attrs(dense=True, sph_tree=True)
+    blocks = bounce.resident_blocks(sd)
+    saved = scene_mod.SPHERE_TREE_MIN, bounce.LANES
+    scene_mod.SPHERE_TREE_MIN, bounce.LANES = 1 << 20, 4096
+    try:
+        scan = {name: k1(rays) for name, rays in (("camera", cam_rays), ("bounce-3", b3_rays))}
+        scan_ms = cuda_ms(lambda: k1(cam_rays), 3)
+        scan_blocks = bounce.resident_blocks(sd)
+    finally:
+        scene_mod.SPHERE_TREE_MIN, bounce.LANES = saved
+    for name, rays in (("camera", cam_rays), ("bounce-3", b3_rays)):
+        (rad_t, segs_t), (rad_s, segs_s) = tree[name], scan[name]
+        differ = int((rad_t != rad_s).any(dim=1).sum())
+        if differ or int(segs_t) != int(segs_s):
+            raise AssertionError(f"rtnw {name}: {differ} of {rad_t.shape[0]} K1 rows with the "
+                                 f"sphere tree differ from its sphere scan's (segments "
+                                 f"{int(segs_t)} vs {int(segs_s)})")
+        idx = torch.arange(0, rad_t.shape[0], RTNW_STRIDE, device=dev)
+        sub, (rad_s, segs_s) = sample_alone("K1 sphere tree", lambda *r: k1(r), (rad_t,), rays,
+                                            idx)
+        got, want = {}, {}
+        bounce.path_trace_cuda(sd, *sub, key, depth, t_max, stats=got)
+        ref_rad, ref_segs = integrator.path_trace(sd, *sub, key, depth, t_max, stats=want)
+        ok = torch.isclose(rad_s, ref_rad, rtol=RTOL, atol=ATOL).all(dim=1)
+        same = ok & (got["segs"] == want["segs"])
+        n, seg_diff = int(idx.numel()), abs(int(segs_s) - int(ref_segs))
+        log("rtnw", f"{name} rays ({rad_t.shape[0]}): K1 with the sphere tree bit-identical to "
+            f"its sphere scan, {int(segs_t)} segments; every {RTNW_STRIDE}th ray ({n}) traced "
+            f"alone bit for bit; against the plain version {int(ok.sum())}/{n} "
+            f"({float(ok.float().mean()):.2%}, need {RTNW_MIN_FRAC:.0%}) within rtol {RTOL} atol "
+            f"{ATOL}, {int(same.sum())}/{n} also of the same segments; segments {int(segs_s)} vs "
+            f"{int(ref_segs)} (diff {seg_diff / max(int(ref_segs), 1):.2%}, at most "
+            f"{RTNW_SEG_RTOL:.0%})")
+        if float(ok.float().mean()) < RTNW_MIN_FRAC or seg_diff > RTNW_SEG_RTOL * int(ref_segs):
+            raise AssertionError(f"rtnw {name}: K1 outside its parity contract with the plain "
+                                 "version")
+    segs = int(tree["camera"][1]) + int(tree["bounce-3"][1])
+    staged = bounce.k1_staged_bytes(sd)
+    log("rtnw", f"K1 sphere tree: {regs} registers, {spill} B local, {staged} B "
+        f"staged, {blocks} resident blocks an SM (the scan's {scan_blocks}); camera rays "
+        f"{tree_ms:.3f} ms with the tree, {scan_ms:.3f} ms with the scan; {tests} node tests "
+        f"over {segs} segments ({tests / max(segs, 1):.2f} a segment)")
 
 
 def draws_phase(dev) -> list:
@@ -3040,6 +3148,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for kid, name, mod, kw in (("K1", "bounce", bounce, {}),
                                ("K1 no mesh", "bounce", bounce, {"dense": False}),
+                               ("K1 sphere tree", "bounce", bounce, {"sph_tree": True}),
                                ("K4", "wavefront", wavefront, {}),
                                ("K4 last", "wavefront", wavefront, {"last": True}),
                                ("K4 no mesh", "wavefront", wavefront, {"dense": False}),
@@ -3063,7 +3172,8 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if (kid.startswith(("K4", "D1")) or kid in ("K1 no mesh", "K3", "K5")) and spill:
+        if (kid.startswith(("K4", "D1"))
+                or kid in ("K1 no mesh", "K1 sphere tree", "K3", "K5")) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
                       ("the Cornell box (no dense mesh)", cornell.build(64, 64, spp=4))):
@@ -3081,6 +3191,8 @@ def main() -> int:
     probe_build_and_sass(build_s)
     # ---- 35. the draws kernels against their plain versions ----
     draw_rows = draws_phase(dev)
+    # ---- 36. K1's sphere tree on the final scene of The Next Week ----
+    rtnw_phase(dev)
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8

@@ -84,6 +84,21 @@
 //   chip_smoke.py prints the resident blocks (rt_bounce_occupancy) and
 //   fails on spills or on registers beyond 96, the most that keeps 5
 //   blocks.
+// - Many spheres. A scene of SPHERE_TREE_MIN (64) spheres or more has a
+//   sphere tree (models/scene.py::sphere_tree) and launches
+//   bounce_kernel<kDense, true>, which walks it (intersect.cuh::
+//   walk_spheres) in place of the sphere scan: on the final scene of The
+//   Next Week (1,006 spheres) the scan tested every sphere on every
+//   segment, the walk ~30 nodes and ~15 spheres (PERF.md). Each block
+//   stages the tree's header and nodes (64 B a leaf of 4 spheres) after
+//   the superleaf trees in place of the table's sphere rows; the resolve
+//   reads the winner's row, and the walk a leaf's slots and indices, from
+//   device memory. Staging the slots too cost 2.6% on that scene's chunk
+//   (6.03 against 5.88 ms; the table then took 3 blocks' room less), so
+//   they stay in device memory (L1). The walk's registers (101 under
+//   __launch_bounds__(128, 4)) kept 4 blocks an SM; the tree
+//   instantiations take (128, 5): 96 registers, no spills, 5 blocks, 10%
+//   faster (5.29 ms). The node tests of a block go to one 64-bit atomic.
 
 #include "bounce.cuh"
 
@@ -110,45 +125,99 @@ struct Params {
   const float* mesh_nrm;  // (TT, 9) decoded corner normals n0 n1 n2
   const float* tree;      // (nodes, 8) superleaf trees [lo, 0, hi, 0]
   int tree_len;           // floats of tree
+  const float4* sph_table;  // ksph_tree: header, nodes, slots, indices
+  int sph_leaves;           // its leaves; 0: no sphere tree
+  unsigned long long* sph_tests;  // the sphere-tree node tests, added once a block
 };
 
-// kDense: the scene has a dense mesh (the walk is compiled in).
-template <bool kDense>
-__global__ void __launch_bounds__(kThreads, 4) bounce_kernel(const Params p) {
-  extern __shared__ __align__(16) float sm[];
-  const float4* tree = stage_tables(sm, p.scene, p.scene_len, p.tree, p.tree_len);
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.n) return;
-
-  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
-
-  PathState st;
-  st.ox = p.o[3 * i]; st.oy = p.o[3 * i + 1]; st.oz = p.o[3 * i + 2];
-  st.dx = p.d[3 * i]; st.dy = p.d[3 * i + 1]; st.dz = p.d[3 * i + 2];
-  st.tr = 1.0f; st.tg = 1.0f; st.tb = 1.0f;
-  st.rr = 0.0f; st.rg = 0.0f; st.rb = 0.0f;
-  int segs = 0;
-  const uint32_t uid = (uint32_t)p.uid[i];
-
-  for (int depth = 0; depth < p.depth; ++depth) {
-    ++segs;
-    if (!bounce_step<kDense>(p, R, uid, depth, depth == p.depth - 1, st)) break;
-  }
-
-  p.rad[3 * i] = st.rr;
-  p.rad[3 * i + 1] = st.rg;
-  p.rad[3 * i + 2] = st.rb;
-  p.segs[i] = segs;
+// The node tests of the block's threads (`v` each) added to *out with one
+// 64-bit atomic. Every thread of the block calls it.
+__device__ __forceinline__ void add_block_count(unsigned v, unsigned long long* out) {
+  __shared__ unsigned long long total;
+  if (threadIdx.x == 0) total = 0;
+  __syncthreads();
+  const unsigned w = __reduce_add_sync(0xffffffffu, v);
+  if ((threadIdx.x & 31) == 0) atomicAdd(&total, (unsigned long long)w);
+  __syncthreads();
+  if (threadIdx.x == 0) atomicAdd(out, total);
 }
 
-// The instantiation for a scene with (dense) or without dense meshes, its
-// dynamic shared memory allowed up to `smem` bytes.
-template <bool kDense>
-cudaError_t prepare(size_t smem) {
+// kDense: the scene has a dense mesh (the walk is compiled in). kSphTree:
+// the scene has a sphere tree; its header and nodes are staged after the
+// superleaf trees in place of the scene table's sphere rows, which the
+// resolve reads from device memory.
+template <bool kDense, bool kSphTree>
+__global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  const int skip = kSphTree ? kSph * p.n_sph : 0;
+  const float4* tree = stage_tables(sm, p.scene + skip, p.scene_len - skip, p.tree, p.tree_len,
+                                    p.sph_table, kSphTree ? 4 * p.sph_leaves : 0);
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  unsigned tests = 0;
+  if (i < p.n) {
+    SceneRows R = scene_rows(sm, kSphTree ? 0 : p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
+    if (kSphTree) {
+      R.sph = p.scene;
+      R.sph_tree = tree + p.tree_len / 4;
+    }
+
+    PathState st;
+    st.ox = p.o[3 * i]; st.oy = p.o[3 * i + 1]; st.oz = p.o[3 * i + 2];
+    st.dx = p.d[3 * i]; st.dy = p.d[3 * i + 1]; st.dz = p.d[3 * i + 2];
+    st.tr = 1.0f; st.tg = 1.0f; st.tb = 1.0f;
+    st.rr = 0.0f; st.rg = 0.0f; st.rb = 0.0f;
+    int segs = 0;
+    const uint32_t uid = (uint32_t)p.uid[i];
+
+    for (int depth = 0; depth < p.depth; ++depth) {
+      ++segs;
+      if (!bounce_step<kDense, kSphTree>(p, R, uid, depth, depth == p.depth - 1, st, &tests)) break;
+    }
+
+    p.rad[3 * i] = st.rr;
+    p.rad[3 * i + 1] = st.rg;
+    p.rad[3 * i + 2] = st.rb;
+    p.segs[i] = segs;
+  }
+  if constexpr (kSphTree) add_block_count(tests, p.sph_tests);
+}
+
+// Bytes of shared memory a block stages: staged_bytes without a sphere
+// tree; with one, the scene table less its sphere rows, the superleaf
+// trees, and the sphere tree's header and nodes (4 float4 a leaf).
+size_t k1_staged_bytes(int scene_len, int tree_len, int n_sph, int sph_leaves) {
+  if (sph_leaves == 0) return staged_bytes(scene_len, tree_len);
+  return staged_bytes(scene_len - kSph * n_sph, tree_len) + 64 * (size_t)sph_leaves;
+}
+
+template <bool kDense, bool kSphTree>
+cudaError_t prepare_one(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(bounce_kernel<kDense>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return cudaFuncSetAttribute(bounce_kernel<kDense, kSphTree>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// The instantiation for a scene with (dense) or without dense meshes and
+// with (sph_tree) or without a sphere tree, its dynamic shared memory
+// allowed up to `smem` bytes; `fn` receives the kernel.
+template <class Fn>
+cudaError_t with_kernel(bool dense, bool sph_tree, size_t smem, Fn fn) {
+  cudaError_t e;
+  if (dense && sph_tree) {
+    if ((e = prepare_one<true, true>(smem)) != cudaSuccess) return e;
+    return fn(bounce_kernel<true, true>);
+  }
+  if (dense) {
+    if ((e = prepare_one<true, false>(smem)) != cudaSuccess) return e;
+    return fn(bounce_kernel<true, false>);
+  }
+  if (sph_tree) {
+    if ((e = prepare_one<false, true>(smem)) != cudaSuccess) return e;
+    return fn(bounce_kernel<false, true>);
+  }
+  if ((e = prepare_one<false, false>(smem)) != cudaSuccess) return e;
+  return fn(bounce_kernel<false, false>);
 }
 
 }  // namespace
@@ -161,29 +230,31 @@ int rt_bounce_launch(const float* o, const float* d, const int* uid, int n, floa
                      int* segs, unsigned k0, unsigned k1, int depth, float t_min,
                      float t_max, const float* scene, int scene_len, int n_sph, int n_pln,
                      int n_tri, int n_vol, int n_mat, int n_mesh, const float* mesh_tri,
-                     const float* mesh_nrm, const float* tree, int tree_len, void* stream) {
+                     const float* mesh_nrm, const float* tree, int tree_len,
+                     const float* sph_table, int sph_leaves, unsigned long long* sph_tests,
+                     void* stream) {
   if (n <= 0) return 0;
   Params p{o, d, uid, n, rad, segs, k0, k1, depth, t_min, t_max, scene, scene_len,
            n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh, reinterpret_cast<const float4*>(mesh_tri),
-           mesh_nrm, tree, tree_len};
-  const size_t smem = staged_bytes(scene_len, tree_len);
+           mesh_nrm, tree, tree_len, reinterpret_cast<const float4*>(sph_table), sph_leaves,
+           sph_tests};
+  const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
   const int blocks = (n + kThreads - 1) / kThreads;
-  cudaError_t e = n_mesh > 0 ? prepare<true>(smem) : prepare<false>(smem);
-  if (e != cudaSuccess) return (int)e;
-  if (n_mesh > 0) {
-    bounce_kernel<true><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
-  } else {
-    bounce_kernel<false><<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
-  }
-  return (int)cudaGetLastError();
+  const cudaError_t e = with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
+    return cudaGetLastError();
+  });
+  return (int)e;
 }
 
 // Registers per thread and local (spill) bytes of the compiled kernel for a
-// scene with (dense != 0) or without dense meshes.
-int rt_bounce_attrs(int dense, int* num_regs, int* local_bytes) {
+// scene with (dense != 0) or without dense meshes and with (sph_tree != 0)
+// or without a sphere tree.
+int rt_bounce_attrs(int dense, int sph_tree, int* num_regs, int* local_bytes) {
   cudaFuncAttributes a;
-  cudaError_t e = dense ? cudaFuncGetAttributes(&a, bounce_kernel<true>)
-                        : cudaFuncGetAttributes(&a, bounce_kernel<false>);
+  const cudaError_t e = with_kernel(dense != 0, sph_tree != 0, 0, [&](auto kernel) {
+    return cudaFuncGetAttributes(&a, kernel);
+  });
   if (e != cudaSuccess) return (int)e;
   *num_regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;
@@ -191,15 +262,14 @@ int rt_bounce_attrs(int dense, int* num_regs, int* local_bytes) {
 }
 
 // Blocks of the kernel resident on one SM when each stages the tables of a
-// scene with `scene_len` and `tree_len` floats and `n_mesh` dense meshes.
-int rt_bounce_occupancy(int scene_len, int tree_len, int n_mesh, int* blocks) {
-  const size_t smem = staged_bytes(scene_len, tree_len);
-  cudaError_t e = n_mesh > 0 ? prepare<true>(smem) : prepare<false>(smem);
-  if (e != cudaSuccess) return (int)e;
-  return (int)(n_mesh > 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                blocks, bounce_kernel<true>, kThreads, smem)
-                          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                                blocks, bounce_kernel<false>, kThreads, smem));
+// scene with `scene_len` and `tree_len` floats, `n_mesh` dense meshes,
+// `n_sph` spheres and a sphere tree of `sph_leaves` leaves (0: none).
+int rt_bounce_occupancy(int scene_len, int tree_len, int n_mesh, int n_sph, int sph_leaves,
+                        int* blocks) {
+  const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
+  return (int)with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+  });
 }
 
 }  // extern "C"

@@ -101,10 +101,15 @@ __device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
 // emission only (its scatter would never be traced) but still draws its
 // volume uniforms, whose counters are the spec's. Otherwise the state moves
 // on to the scattered ray and returns true. kDense false compiles out the
-// dense-mesh walk and resolve, for a scene with no dense mesh.
-template <bool kDense = true, class Args>
+// dense-mesh walk and resolve, for a scene with no dense mesh. kSphTree
+// walks the sphere tree (intersect.cuh::walk_spheres: its staged nodes
+// R.sph_tree, and from `a` its leaves sph_leaves and its table sph_table in
+// device memory) in place of the sphere scan, adding its node tests to
+// *sph_tests; only K1 instantiates it.
+template <bool kDense = true, bool kSphTree = false, class Args>
 __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, uint32_t uid,
-                                            int depth, bool last, PathState& s) {
+                                            int depth, bool last, PathState& s,
+                                            unsigned* sph_tests = nullptr) {
   float &ox = s.ox, &oy = s.oy, &oz = s.oz, &dx = s.dx, &dy = s.dy, &dz = s.dz;
   float &tr = s.tr, &tg = s.tg, &tb = s.tb, &rr = s.rr, &rg = s.rg, &rb = s.rb;
   const float tmin = a.t_min, tmax = a.t_max;
@@ -113,7 +118,14 @@ __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, u
   // ---------------- nearest hit (intersect.cuh) ----------------
   Nearest h = nearest_none();
   const float a2 = dx * dx + dy * dy + dz * dz;
-  scan_spheres(R.sph, a.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
+  if constexpr (kSphTree) {
+    const float4* slots = a.sph_table + 4 * a.sph_leaves;  // after the header and nodes
+    walk_spheres(R.sph_tree, a.sph_leaves, slots,
+                 reinterpret_cast<const float*>(slots + kSphLeaf * a.sph_leaves), ox, oy, oz, dx,
+                 dy, dz, a2, tmin, tmax, h, *sph_tests);
+  } else {
+    scan_spheres(R.sph, a.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
+  }
   scan_planes(R.pln, a.n_pln, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
   scan_triangles(R.tri, a.n_tri, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
   uint32_t w0 = 0, w1 = 0;

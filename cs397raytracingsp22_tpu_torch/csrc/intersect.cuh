@@ -18,7 +18,8 @@
 // - mesh rays go to object space without renormalisation, so object-space
 //   mesh t is compared with world t (geometry.rs:304).
 // Möller–Trumbore rejects |det| < 1e-4 (geometry.rs:335) and divides
-// exactly (no fast math).
+// exactly (no fast math). K1 walks a scene's sphere tree (walk_spheres)
+// in place of scan_spheres from 64 spheres on, with the scan's result.
 
 #pragma once
 
@@ -70,6 +71,7 @@ struct SceneRows {
   const float* mat;
   const float* msh;
   const float4* tree;  // the dense meshes' superleaf trees, two float4 a node
+  const float4* sph_tree;  // the staged sphere tree's header and nodes (K1), or null
 };
 
 __device__ __forceinline__ SceneRows scene_rows(const float* table, int n_sph, int n_pln,
@@ -83,7 +85,25 @@ __device__ __forceinline__ SceneRows scene_rows(const float* table, int n_sph, i
   r.mat = r.vol + kVol * n_vol;
   r.msh = r.mat + kMat * n_mat;
   r.tree = tree;
+  r.sph_tree = nullptr;
   return r;
+}
+
+// The root of sphere (cx, cy, cz, r) that the scan keeps: t1 when t1 >=
+// t_min, else t2; false when the ray's line misses the sphere.
+__device__ __forceinline__ bool sphere_root(float cx, float cy, float cz, float r, float ox,
+                                            float oy, float oz, float dx, float dy, float dz,
+                                            float a2, float tmin, float& t) {
+  const float fx = ox - cx, fy = oy - cy, fz = oz - cz;
+  const float b = 2.0f * (fx * dx + fy * dy + fz * dz);
+  const float c = (fx * fx + fy * fy + fz * fz) - r * r;
+  const float disc = b * b - 4.0f * a2 * c;
+  if (!(disc >= 0.0f)) return false;
+  const float sq = sqrtf(disc);
+  const float t1 = (-b - sq) / (2.0f * a2);
+  const float t2 = (-b + sq) / (2.0f * a2);
+  t = t1 >= tmin ? t1 : t2;
+  return true;
 }
 
 __device__ __forceinline__ void scan_spheres(const float* sph, int n, float ox, float oy, float oz,
@@ -91,18 +111,78 @@ __device__ __forceinline__ void scan_spheres(const float* sph, int n, float ox, 
                                              float tmax, Nearest& h) {
   for (int s = 0; s < n; ++s) {
     const float* S = sph + kSph * s;
-    const float fx = ox - S[0], fy = oy - S[1], fz = oz - S[2];
-    const float b = 2.0f * (fx * dx + fy * dy + fz * dz);
-    const float c = (fx * fx + fy * fy + fz * fz) - S[3] * S[3];
-    const float disc = b * b - 4.0f * a2 * c;
-    if (disc >= 0.0f) {
-      const float sq = sqrtf(disc);
-      const float t1 = (-b - sq) / (2.0f * a2);
-      const float t2 = (-b + sq) / (2.0f * a2);
-      const float t = t1 >= tmin ? t1 : t2;
-      if (t >= tmin && t <= tmax && t < h.t) { h.t = t; h.cls = kClsSphere; h.idx = s; }
+    float t;
+    if (sphere_root(S[0], S[1], S[2], S[3], ox, oy, oz, dx, dy, dz, a2, tmin, t) && t >= tmin &&
+        t <= tmax && t < h.t) {
+      h.t = t; h.cls = kClsSphere; h.idx = s;
     }
   }
+}
+
+// The sphere tree (models/scene.py::sphere_tree) in place of scan_spheres,
+// for scenes of SPHERE_TREE_MIN spheres or more: `nodes` the staged header
+// and nodes (node k at nodes[2k], nodes[2k + 1]), `g` its leaves, `slots`
+// and `ids` each leaf's kSphLeaf sphere rows [c, r] and scene indices in
+// device memory. A stackless preorder walk, as scan_dense_mesh's: node k is
+// entered when the ray meets its box, grown by `pad` on every side, within
+// [tmin, min(running best, tmax)]; a leaf tests its spheres with
+// sphere_root and keeps the least (t, index), so the result is the scan's,
+// ties to the lowest index included. The walk is the first class, so the
+// running best holds only spheres.
+//
+// The pad makes the cull safe against rounding. A sphere's computed root
+// can lie off the sphere: where the ray grazes it, the rounding of b² -
+// 4ac (~eps·|f|² with f = o - c) moves the root along the ray by up to
+// ~sqrt(eps)·|f| and the accepted line up to ~eps·|f|²/r outside the
+// sphere. On 16 million float32 grazing rays (radii 0.5 to 100, |o - c| up
+// to 6,000, directions of length 0.01 to 3) the root lay at most 5.7e-4 ·
+// (|o|_inf + reach) outside the sphere's box, with reach = max |c|_inf + r
+// over the scene's spheres (the header's first float), so kSphPad = 2^-9
+// of that leaves 3.4 times the worst reading. An ancestor's box holds its
+// leaf's exactly, and (lo - (o + pad)) * inv is monotone in lo, so a leaf
+// whose grown box passes is never culled by an ancestor. `tests` counts the
+// nodes tested.
+constexpr int kSphLeaf = 4;
+constexpr float kSphPad = 1.0f / 512.0f;
+
+__device__ __forceinline__ void walk_spheres(const float4* nodes, int g, const float4* slots,
+                                             const float* ids, float ox, float oy, float oz,
+                                             float dx, float dy, float dz, float a2, float tmin,
+                                             float tmax, Nearest& h, unsigned& tests) {
+  const float pad = kSphPad * (fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz)) + nodes[0].x);
+  const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
+  // (lo - pad) - o as lo - (o + pad), (hi + pad) - o as hi - (o - pad)
+  const float lx = ox + pad, ly = oy + pad, lz = oz + pad;
+  const float ux = ox - pad, uy = oy - pad, uz = oz - pad;
+  int k = 1;
+  do {
+    ++tests;
+    const float4 lo = nodes[2 * k], hi = nodes[2 * k + 1];
+    const float t0x = (lo.x - lx) * ix, t1x = (hi.x - ux) * ix;
+    const float t0y = (lo.y - ly) * iy, t1y = (hi.y - uy) * iy;
+    const float t0z = (lo.z - lz) * iz, t1z = (hi.z - uz) * iz;
+    const float near_t =
+        fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fmaxf(fminf(t0z, t1z), tmin));
+    const float far_t =
+        fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fminf(fmaxf(t0z, t1z), fminf(h.t, tmax)));
+    if (far_t >= near_t) {
+      if (k < g) {
+        k *= 2;  // an inner node: enter its first child
+        continue;
+      }
+      for (int j = kSphLeaf * (k - g); j < kSphLeaf * (k - g + 1); ++j) {
+        const int s = (int)__ldg(ids + j);
+        if (s < 0) break;  // the leaf's empty slots come last
+        const float4 S = __ldg(slots + j);
+        float t;
+        if (sphere_root(S.x, S.y, S.z, S.w, ox, oy, oz, dx, dy, dz, a2, tmin, t) && t >= tmin &&
+            t <= tmax && (t < h.t || (t == h.t && s < h.idx))) {
+          h.t = t; h.cls = kClsSphere; h.idx = s;
+        }
+      }
+    }
+    k = (k >> (__ffs(~k) - 1)) + 1;  // past k's subtree
+  } while (k != 1);
 }
 
 __device__ __forceinline__ void scan_planes(const float* pln, int n, float ox, float oy, float oz,
@@ -371,16 +451,20 @@ __host__ __device__ constexpr size_t staged_bytes(int len, int tree_len) {
   return sizeof(float) * (size_t)(tree_offset(len) + tree_len);
 }
 
-// Stage the scene table (`len` floats) and the superleaf trees (`tree_len`
-// floats, 16-byte aligned in device memory) into shared memory `sm` (16-byte
-// aligned). All threads of the block take part; ends with a barrier.
-// Returns the staged trees.
+// Stage the scene table (`len` floats), the superleaf trees (`tree_len`
+// floats, 16-byte aligned in device memory) and `extra_rows` float4 of
+// `extra` after them into shared memory `sm` (16-byte aligned). All threads
+// of the block take part; ends with a barrier. Returns the staged trees;
+// the extra rows follow them at tree_len / 4.
 __device__ __forceinline__ const float4* stage_tables(float* sm, const float* table, int len,
-                                                      const float* tree, int tree_len) {
+                                                      const float* tree, int tree_len,
+                                                      const float4* extra = nullptr,
+                                                      int extra_rows = 0) {
   for (int k = threadIdx.x; k < len; k += blockDim.x) sm[k] = table[k];
   float4* dst = reinterpret_cast<float4*>(sm + tree_offset(len));
   const float4* src = reinterpret_cast<const float4*>(tree);
   for (int k = threadIdx.x; k < tree_len / 4; k += blockDim.x) dst[k] = __ldg(src + k);
+  for (int k = threadIdx.x; k < extra_rows; k += blockDim.x) dst[tree_len / 4 + k] = __ldg(extra + k);
   __syncthreads();
   return dst;
 }

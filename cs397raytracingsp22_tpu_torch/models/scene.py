@@ -37,6 +37,7 @@ from cs397raytracingsp22_tpu_torch.models.geometry import (
 )
 from cs397raytracingsp22_tpu_torch.models.materials import MaterialTableBuilder
 from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
+from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils.texture import TextureAtlasBuilder
 
 SceneObject = Union[Sphere, Triangle, Plane, ConvexVolume, StaticMesh]
@@ -149,6 +150,9 @@ class SceneData:
     kmesh_nrm: torch.Tensor
     ksl_tree: torch.Tensor
     kmesh_tri4: torch.Tensor
+    # the sphere tree that K1 walks in place of its sphere scan, one inert
+    # row below SPHERE_TREE_MIN spheres (sphere_tree)
+    ksph_tree: torch.Tensor
     # the staged path's merged mesh resolve (pack_kernel_tables): per
     # triangle of every mesh in resolve order [corner normals, corner uvs,
     # tangent] (ΣT, 18), per mesh [normal matrix, R, t] (M, 21) and the
@@ -181,6 +185,11 @@ class SceneData:
     @property
     def device(self) -> torch.device:
         return self.mat_type.device
+
+    @property
+    def sph_tree_leaves(self) -> int:
+        """Leaves of the sphere tree (ksph_tree), 0 when there is none."""
+        return sphere_tree_leaves(self.n_spheres)
 
     def to(self, device) -> "SceneData":
         out = {}
@@ -594,13 +603,18 @@ _STATIC = ("n_spheres", "n_planes", "n_tris", "n_volumes", "n_gvols", "gvol_eps"
            "kmesh_ranges", "ksl_ranges", "dense_mesh_ids", "mat_types_present", "n_lt_tri",
            "n_lt_sph", "nee_ok")
 # built by pack_kernel_tables, never passed in
-PACKED = ("kscene", "kmesh_nrm", "ksl_tree", "kmesh_tri4", "kmesh_res", "kmesh_xfm", "kmesh_tex")
+PACKED = ("kscene", "kmesh_nrm", "ksl_tree", "kmesh_tri4", "kmesh_res", "kmesh_xfm", "kmesh_tex",
+          "ksph_tree")
 
 SUPERLEAF = 16  # kmesh_tri rows under one superleaf box
 # the superleaf trees of all dense meshes: 2S - 1 nodes for S superleaves,
 # and DENSE_MESH_MAX_TRIS caps the scene at 512 superleaves
 TREE_MAX_NODES = 2 * (bvhlib.DENSE_MESH_MAX_TRIS // SUPERLEAF) - 1
 TREE_ROW = 8  # floats a node: lo.xyz, 0, hi.xyz, 0 (two 16-byte loads)
+# the sphere tree: built from this many spheres on (below it K1 scans them),
+# SPHERE_LEAF sphere slots a leaf
+SPHERE_TREE_MIN = 64
+SPHERE_LEAF = 4
 
 
 def superleaf_tree(boxes: np.ndarray) -> np.ndarray:
@@ -656,6 +670,67 @@ def superleaf_trees(ksl_bounds: np.ndarray, ksl_ranges) -> np.ndarray:
     if ksl_tree.shape[0] > TREE_MAX_NODES:
         raise ValueError(f"{ksl_tree.shape[0]} superleaf tree nodes, more than {TREE_MAX_NODES}")
     return ksl_tree
+
+
+def sphere_tree_leaves(n_spheres: int) -> int:
+    """Leaves G of the sphere tree of a scene with `n_spheres` spheres: the
+    least power of two with G · SPHERE_LEAF >= n_spheres, or 0 (no tree)
+    below SPHERE_TREE_MIN spheres."""
+    if n_spheres < SPHERE_TREE_MIN:
+        return 0
+    return 1 << (-(-n_spheres // SPHERE_LEAF) - 1).bit_length()
+
+
+def sphere_tree(spheres: np.ndarray) -> np.ndarray:
+    """ksph_tree: the tree K1 walks over the spheres (S, 4) [c, r] in place
+    of its sphere scan, as (rows, 4) float32; one inert zero row below
+    SPHERE_TREE_MIN spheres.
+
+    A complete binary tree over G = sphere_tree_leaves(S) leaves in heap
+    order (node k has children 2k and 2k + 1, leaves G .. 2G - 1): a median
+    split on the widest centroid axis of node k's spheres, ceil and floor
+    halves, gives its children theirs, so every leaf holds 2 to SPHERE_LEAF
+    spheres, and its box is the union of theirs, [c - r, c + r]; an inner
+    node holds the exact float32 union of its children's boxes
+    (superleaf_tree). Rows: [reach, G, SPHERE_LEAF, 0] with reach = max
+    |c|_inf + r (rounded up), a zero row, node k at rows 2k (lo, 0) and
+    2k + 1 (hi, 0); then the leaves' slots, SPHERE_LEAF a leaf, each [c, r]
+    as the scene table holds it; then each slot's sphere index (-1 for an
+    empty slot), four a row. K1 stages rows 0 .. 4G - 1 and reads the
+    slots and indices from device memory."""
+    n = spheres.shape[0]
+    g = sphere_tree_leaves(n)
+    if g == 0:
+        return np.zeros((1, 4), np.float32)
+    rows = np.asarray(spheres, np.float32)
+    cent = rows[:, :3].astype(np.float64)
+    ids = np.full(g * SPHERE_LEAF, -1, np.int64)
+    leaf_of = np.zeros(n, np.int64)
+
+    def split(sel: np.ndarray, k: int) -> None:
+        if k >= g:
+            ids[(k - g) * SPHERE_LEAF:(k - g) * SPHERE_LEAF + sel.size] = np.sort(sel)
+            leaf_of[sel] = k - g
+            return
+        c = cent[sel]
+        axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+        part = sel[np.argsort(c[:, axis], kind="stable")]
+        half = (sel.size + 1) // 2
+        split(part[:half], 2 * k)
+        split(part[half:], 2 * k + 1)
+
+    split(np.arange(n), 1)
+    lo_s, hi_s = rows[:, :3] - rows[:, 3:4], rows[:, :3] + rows[:, 3:4]
+    boxes = np.zeros((g, 6), np.float32)
+    for leaf in range(g):
+        mine = leaf_of == leaf
+        boxes[leaf] = np.concatenate([lo_s[mine].min(axis=0), hi_s[mine].max(axis=0)])
+    reach = np.float32(np.max(np.abs(cent).max(axis=1) + rows[:, 3].astype(np.float64)))
+    header = np.array([[np.nextafter(reach, np.float32(np.inf)), g, SPHERE_LEAF, 0.0],
+                       [0.0, 0.0, 0.0, 0.0]], np.float32)
+    slots = np.where((ids >= 0)[:, None], rows[np.maximum(ids, 0)], np.float32(0.0))
+    return np.concatenate([header, superleaf_tree(boxes).reshape(-1, 4), slots,
+                           ids.astype(np.float32).reshape(-1, 4)]).astype(np.float32)
 
 
 def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
@@ -730,8 +805,10 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     kmesh_res = _pad_rows(np.concatenate(res), 1, 0.0)
     kmesh_xfm = _pad_rows(np.concatenate(xfm), 1, 0.0)
     kmesh_tex = _pad_rows(np.concatenate(tex), 1, -1)
+    with profiling.span("scene.sphere_tree"):
+        ksph_tree = sphere_tree(f(a["ksph_f"])[:ns])
     return (kscene, kmesh_nrm, superleaf_trees(a["ksl_bounds"], meta["ksl_ranges"]), kmesh_tri4,
-            kmesh_res, kmesh_xfm, kmesh_tex)
+            kmesh_res, kmesh_xfm, kmesh_tex, ksph_tree)
 
 
 def resolve_order(dense_mesh_ids, n_meshes: int) -> list[int]:

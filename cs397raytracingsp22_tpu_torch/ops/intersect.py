@@ -489,6 +489,76 @@ def walk_dense_mesh(scene: SceneData, k: int, o_obj, d_obj, t_min, t_max) -> Mes
     return MeshWalk(row >= 0, best, row, u, v, nodes, 16 * leaves.sum(dim=1), leaves)
 
 
+class SphereWalk(NamedTuple):
+    """The nearest sphere hits by the sphere-tree walk."""
+
+    hit: torch.Tensor  # (N,) bool
+    t: torch.Tensor  # (N,) the nearest t, inf on a miss
+    idx: torch.Tensor  # (N,) int32 the sphere's index, 0 on a miss
+    nodes: torch.Tensor  # (N,) int64 tree nodes tested
+    spheres: torch.Tensor  # (N,) int64 spheres tested
+
+
+SPHERE_PAD = 2.0 ** -9  # csrc/intersect.cuh::kSphPad
+
+
+def walk_spheres(scene: SceneData, o, d, t_min, t_max) -> SphereWalk:
+    """The plain version of csrc/intersect.cuh::walk_spheres on the scene's
+    sphere tree (models/scene.py::sphere_tree), for world rays o, d (N, 3)
+    and t_min, t_max (scalars or (N,)): the stackless preorder walk, each
+    node's box grown by SPHERE_PAD · (|o|_inf + the tree's reach) and tested
+    within [t_min, min(best, t_max)], and at each leaf reached its spheres
+    by intersect_spheres' arithmetic, a hit kept when (t, index) is below
+    the best so far. It gives intersect_spheres' (t, index) on every ray,
+    ties to the lowest index included; the tests hold it to that. No card
+    path calls it."""
+    g = scene.sph_tree_leaves
+    if not g:
+        raise ValueError("the scene has no sphere tree")
+    n, dev = o.shape[0], o.device
+    tbl = scene.ksph_tree
+    leaf = 4 * g  # the slots' first row
+    ids = tbl[leaf + leaf:].reshape(-1).to(torch.int64)
+    t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,))
+    t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,))
+    pad = vm.as_f32(SPHERE_PAD, o) * (o.abs().amax(dim=1) + tbl[0, 0])
+    lo_o, hi_o = o + pad[:, None], o - pad[:, None]
+    inv = 1.0 / d
+    best = torch.full((n,), _BIG, dtype=torch.float32, device=dev)
+    idx = torch.zeros((n,), dtype=torch.int64, device=dev)
+    nodes = torch.zeros((n,), dtype=torch.int64, device=dev)
+    spheres = torch.zeros_like(nodes)
+    entered = torch.zeros((n, 2 * g), dtype=torch.bool, device=dev)  # by heap index
+    for j in tree_preorder(g):
+        tested = torch.ones((n,), dtype=torch.bool, device=dev) if j == 1 else entered[:, j // 2]
+        nodes += tested
+        t0, t1 = (tbl[2 * j, :3] - lo_o) * inv, (tbl[2 * j + 1, :3] - hi_o) * inv
+        near, fa = torch.fmin(t0, t1), torch.fmax(t0, t1)
+        lo_t = torch.fmax(torch.fmax(near[:, 0], near[:, 1]), torch.fmax(near[:, 2], t_min))
+        hi_t = torch.fmin(torch.fmin(fa[:, 0], fa[:, 1]),
+                          torch.fmin(fa[:, 2], torch.fmin(best, t_max)))
+        entered[:, j] = tested & (hi_t >= lo_t)
+        if j < g:
+            continue
+        sel = entered[:, j].nonzero()[:, 0]
+        for slot in range(4 * (j - g), 4 * (j - g + 1)):
+            sph = int(ids[slot])
+            if sph < 0:
+                break
+            spheres[sel] += 1
+            row = tbl[leaf + slot]
+            ok, r1, r2 = _sphere_roots(o[sel][:, None, :], d[sel][:, None, :], row[None, :3],
+                                       row[None, 3])
+            t = torch.where(r1 >= t_min[sel, None], r1, r2)[:, 0]
+            b, i = best[sel], idx[sel]
+            keep = (ok[:, 0] & (t >= t_min[sel]) & (t <= t_max[sel])
+                    & ((t < b) | ((t == b) & (sph < i))))
+            best[sel] = torch.where(keep, t, b)
+            idx[sel] = torch.where(keep, sph, i)
+    hit = best < _BIG
+    return SphereWalk(hit, best, torch.where(hit, idx, 0).to(torch.int32), nodes, spheres)
+
+
 def tree_entered(tree: torch.Tensor, s: int, o_obj, inv, t_min, far, live) -> torch.Tensor:
     """(N, 2s - 1) bool: the nodes of a superleaf tree over s superleaves
     (rows in heap order) that a walk culling against the fixed far bound

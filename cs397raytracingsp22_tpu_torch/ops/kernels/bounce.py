@@ -22,8 +22,11 @@ from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
 from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
-LANES = 128  # the kernel's gates: analytic primitives and materials
+LANES = 128  # the kernel's gates: materials, and planes, triangles and volumes
+# shared memory a block may stage on the H100 (227 KiB)
+MAX_STAGED_BYTES = 232448
 LAUNCHES = 0
+_SPH_TESTS: dict = {}  # sphere_node_tests' count a device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,7 +34,8 @@ _ARGTYPES = [
     _P, _P, _P, _I, _P, _P,  # o, d, uid, n, rad, segs
     ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_float, ctypes.c_float,  # k0 k1 depth t_min t_max
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
-    _P, _P, _P, _I, _P,  # mesh_tri (kmesh_tri4), mesh_nrm, tree, tree_len, stream
+    _P, _P, _P, _I,  # mesh_tri (kmesh_tri4), mesh_nrm, tree, tree_len
+    _P, _I, _P, _P,  # sph_table (ksph_tree), sph_leaves, sph_tests, stream
 ]
 TABLES = ("kscene", "kmesh_tri4", "kmesh_nrm", "ksl_tree")  # the scene tables K1 and K4 read
 
@@ -41,38 +45,53 @@ def library() -> ctypes.CDLL:
     lib = _build.load_library("bounce")
     lib.rt_bounce_launch.argtypes = _ARGTYPES
     lib.rt_bounce_launch.restype = _I
-    lib.rt_bounce_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_bounce_attrs.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rt_bounce_attrs.restype = _I
-    lib.rt_bounce_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.rt_bounce_occupancy.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.rt_bounce_occupancy.restype = _I
     return lib
 
 
-def kernel_attrs(dense: bool = True) -> tuple[int, int]:
+def kernel_attrs(dense: bool = True, sph_tree: bool = False) -> tuple[int, int]:
     """(registers per thread, local spill bytes) of the compiled kernel:
     the instantiation for scenes with a dense mesh, or without (dense
-    False), which leaves the superleaf walk out."""
+    False), which leaves the superleaf walk out, and with a sphere tree
+    (sph_tree True) or the sphere scan."""
     regs, local = _I(), _I()
-    rc = library().rt_bounce_attrs(int(dense), ctypes.byref(regs), ctypes.byref(local))
+    rc = library().rt_bounce_attrs(int(dense), int(sph_tree), ctypes.byref(regs),
+                                   ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
     return regs.value, local.value
 
 
 def staged_bytes(scene: SceneData) -> int:
-    """Shared memory a block of K1, K2 or K4 stages for `scene`: the scene
-    table, padded to 16 bytes, then the superleaf trees
-    (csrc/intersect.cuh::staged_bytes)."""
+    """Shared memory a block of K1 (without a sphere tree), K2 or K4
+    stages for `scene`: the scene table, padded to 16 bytes, then the
+    superleaf trees (csrc/intersect.cuh::staged_bytes)."""
     return 4 * ((scene.kscene.numel() + 3) // 4 * 4 + scene.ksl_tree.numel())
 
 
+def k1_staged_bytes(scene: SceneData) -> int:
+    """Shared memory a block of K1 stages for `scene`: staged_bytes, or,
+    with a sphere tree, the scene table less its sphere rows, the
+    superleaf trees, and the sphere tree's header and nodes after them
+    (csrc/bounce.cu::k1_staged_bytes)."""
+    g = scene.sph_tree_leaves
+    if not g:
+        return staged_bytes(scene)
+    table = int(scene.kscene.numel()) - 5 * scene.n_spheres
+    return 4 * ((table + 3) // 4 * 4 + int(scene.ksl_tree.numel())) + 64 * g
+
+
 def resident_blocks(scene: SceneData) -> int:
-    """Blocks of K1 resident on one SM when each stages `scene`'s scene
-    table and superleaf trees, for the instantiation `scene` launches
+    """Blocks of K1 resident on one SM when each stages `scene`'s tables
+    (k1_staged_bytes), for the instantiation `scene` launches
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     blocks = _I()
     rc = library().rt_bounce_occupancy(int(scene.kscene.numel()), int(scene.ksl_tree.numel()),
-                                       len(scene.dense_mesh_ids), ctypes.byref(blocks))
+                                       len(scene.dense_mesh_ids), scene.n_spheres,
+                                       scene.sph_tree_leaves, ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed with CUDA error {rc}")
     return blocks.value
@@ -81,18 +100,37 @@ def resident_blocks(scene: SceneData) -> int:
 def scene_is_simple(scene: SceneData) -> bool:
     """True when K1 can run the scene (bounce.py:285 in the JAX package):
     every mesh dense with an explicit material and no normal map, no
-    general-boundary volume, at most 128 materials and at most 128
-    analytic primitives. K1 reads neither textures nor general volumes:
-    the staged path renders those scenes."""
+    general-boundary volume, at most 128 materials, at most 128 planes,
+    triangles and volumes together, the spheres among them unless the
+    scene has a sphere tree (models/scene.py::sphere_tree), and tables
+    that fit a block's shared memory (k1_staged_bytes, 227 KiB). K1 reads
+    neither textures nor general volumes: the staged path renders those
+    scenes."""
     if len(scene.dense_mesh_ids) != len(scene.meshes):
         return False
     if scene.n_gvols:
         return False
     if int(scene.mat_type.shape[0]) > LANES:
         return False
-    if scene.n_spheres + scene.n_planes + scene.n_tris + scene.n_volumes > LANES:
+    counted = 0 if scene.sph_tree_leaves else scene.n_spheres
+    if counted + scene.n_planes + scene.n_tris + scene.n_volumes > LANES:
+        return False
+    if k1_staged_bytes(scene) > MAX_STAGED_BYTES:
         return False
     return all(m.mat_id >= 0 and m.tex_ids[4] < 0 for m in scene.meshes)
+
+
+def sphere_node_tests(device: torch.device) -> torch.Tensor:
+    """The (1,) int64 count on `device` to which K1 adds the sphere-tree
+    node tests of each launch on a scene with a sphere tree (one 64-bit
+    atomic add a block); it only grows. The driver reads it around a
+    render (RenderStats.sphere_node_tests)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _SPH_TESTS:
+        _SPH_TESTS[device] = torch.zeros((1,), dtype=torch.int64, device=device)
+    return _SPH_TESTS[device]
 
 
 def path_trace_cuda(
@@ -109,8 +147,10 @@ def path_trace_cuda(
     """Trace N ray chains with K1.
 
     o, d: (N, 3) float32; uids: (N,) int32; rng_key: int seed or (2,) key
-    words. The kernel reads the scene's packed tables (TABLES:
-    models/scene.py::pack_kernel_tables).
+    words. The kernel reads the scene's packed tables (TABLES and
+    ksph_tree: models/scene.py::pack_kernel_tables); on a scene with a
+    sphere tree it walks the tree in place of its sphere scan and adds its
+    node tests to sphere_node_tests(device).
     Returns (radiance (N, 3) float32, segments int64 scalar tensor).
     stats: when a dict, receives "segs", the (N,) int64 segments of each
     chain (and on the CPU the plain version's other counts).
@@ -132,7 +172,7 @@ def path_trace_cuda(
     check_tensor("o", o, torch.float32, (n, 3), dev)
     check_tensor("d", d, torch.float32, (n, 3), dev)
     check_tensor("uids", uids, torch.int32, (n,), dev)
-    for key in TABLES:
+    for key in TABLES + ("ksph_tree",):
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
     if n >= 2**31 // 3:
@@ -144,6 +184,8 @@ def path_trace_cuda(
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((n,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    g = scene.sph_tree_leaves
+    tests = sphere_node_tests(dev).data_ptr() if g else None
     with torch.cuda.device(dev):
         rc = lib.rt_bounce_launch(
             o.data_ptr(), d.data_ptr(), uids.data_ptr(), n, rad.data_ptr(), segs.data_ptr(),
@@ -152,7 +194,8 @@ def path_trace_cuda(
             scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
             scene.kmesh_tri4.data_ptr(), scene.kmesh_nrm.data_ptr(),
-            scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()), stream,
+            scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()),
+            scene.ksph_tree.data_ptr(), g, tests, stream,
         )
     if rc != 0:
         raise RuntimeError(f"mega-bounce kernel launch failed with CUDA error {rc}")

@@ -419,8 +419,8 @@ def path_trace_wavefront(
     CPU tensors run the plain version (path_trace_wavefront_plain, which
     traces from integrator.PATH_T_MIN). CUDA tensors launch K4 once per
     bounce, compacting inside the launch; a scene beyond K1's gates,
-    anything the kernel does not take, a failed build or a failed launch
-    raises.
+    anything the kernel does not take (a scene with a sphere tree among
+    them), a failed build or a failed launch raises.
     """
     if o.device.type == "cpu":
         return path_trace_wavefront_plain(scene, o, d, uids, rng_key, path_depth,
@@ -429,6 +429,9 @@ def path_trace_wavefront(
         raise ValueError(f"path_trace_wavefront takes CPU or CUDA tensors, got {o.device}")
     if not scene_is_simple(scene):
         raise ValueError("scene exceeds the wavefront kernel's gates (scene_is_simple)")
+    if scene.sph_tree_leaves:
+        raise ValueError("the wavefront kernel scans spheres; a scene with a sphere tree "
+                         "(models/scene.py::sphere_tree) takes K1")
     dev = o.device
     n = o.shape[0]
     check_tensor("o", o, torch.float32, (n, 3), dev)

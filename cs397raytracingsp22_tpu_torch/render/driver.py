@@ -94,6 +94,9 @@ class RenderStats:
     # pixels whose HDR sum holds a NaN or inf (a mapped normal over a
     # triangle whose uv determinant is 0 gives the reference's NaN)
     nonfinite_pixels: int = 0
+    # the sphere-tree nodes K1 tested (ops/kernels/bounce.py::
+    # sphere_node_tests); 0 on a scene without a sphere tree and on the CPU
+    sphere_node_tests: int = 0
 
     @property
     def primary_mrays_per_sec(self) -> float:
@@ -490,6 +493,11 @@ def _render_to_image(scene, device, seed, pixel_chunk, spp_chunk, checkpoint_pat
                         device=str(device), device_count=n_dp * n_sp)
     _sync(device)
     seg_total = torch.zeros((), dtype=torch.int64, device=device)
+    # K1's sphere-tree node tests: its count on the card, read before and after
+    node_tests = None
+    if scene_data.sph_tree_leaves and seg_total.device.type == "cuda":
+        counter = bounce_kernel.sphere_node_tests(seg_total.device)
+        node_tests = (counter, counter.clone())
     lane = torch.arange(pixel_chunk, dtype=torch.int32, device=device) * n_chunks
     n_spp_chunks = max(1, -(-(spp - spp_done) // spp_chunk))
     clock = _Clock(device, n_spp_chunks * n_chunks, verbose)
@@ -521,12 +529,15 @@ def _render_to_image(scene, device, seed, pixel_chunk, spp_chunk, checkpoint_pat
         clock.finish(stats)
         # the segments after the first chunk and in all; under a mesh each rank
         # counted its own shards, summed over the ranks here, once a render
-        seg_counts = torch.stack([
-            seg_total if clock.first_segments is None else clock.first_segments, seg_total])
+        counts = [seg_total if clock.first_segments is None else clock.first_segments, seg_total]
+        if node_tests is not None:
+            counts.append(node_tests[0][0] - node_tests[1][0])
+        seg_counts = torch.stack(counts)
         if mesh is not None:
             with profiling.span("render.allreduce"):
                 sharding.sum_over_ranks(seg_counts)
-        first_segs, stats.path_segments = seg_counts.tolist()
+        first_segs, stats.path_segments, *tests = seg_counts.tolist()
+        stats.sphere_node_tests = tests[0] if tests else 0
         if clock.done > 1:
             stats.steady_segments = stats.path_segments - first_segs
         accum = _raster(pieces, n_px_total)

@@ -33,7 +33,9 @@ The spans of the render path, outermost first:
 and inside them the draws and the resolve: `raygen`
 (models/camera.py through the driver), `bounce_rng`, `nee_rng`,
 `mesh_resolve` and `wavefront_partition` (ops/kernels/wavefront.py).
-No span reads the card or launches a kernel.
+Outside a render, `scene.sphere_tree` marks the scene compile's build of
+the sphere tree (models/scene.py::pack_kernel_tables). No span reads the
+card or launches a kernel.
 """
 
 from __future__ import annotations
