@@ -237,6 +237,16 @@ port's tools:
      draw through D1, so only this phase, run before them, and
      tests/test_torch_draws.py hold those functions to the int64 torch
      emulation.
+ 37. resolve (run right after phase 36): R1, the merged-resolve kernel
+     (csrc/resolve.cu), on the resolve calls of config 5's chunk 0 at bounce
+     0 and bounce 2 (path_trace_shrink on the stand-ins: three meshes,
+     textures, normal maps, synthesized materials) and of the bench teapot's
+     NEE chunk 0 at bounce 0 and its shadow rays (path_trace_nee): every
+     output bit-identical to ops/intersect.py::resolve_mesh_winners on the
+     same card (NaN where it has NaN), R1's ms (CUDA events) beside its
+     bound (bytes: what each ray needs read once, the outputs written once)
+     and the plain version's ms. Phase 2 prints R1's registers and fails on
+     spills.
  36. rtnw (run right after phase 35): K1's sphere tree on the final scene of
      The Next Week (scenes/rtnw_final.py, 800² × 64 spp, depth 40, 1,006
      spheres): on chunk 0's camera rays and the rays entering bounce 3 of
@@ -272,7 +282,10 @@ K4's of the two wavefront runs of phase 14, K5's of the intersect_mesh
 call of phase 17, P1-P5's of their tools' runs in phases 22-24, and D1's
 (a counter an entry point) of the timed frames of phase 6 and the renders
 of phase 7 (camera rays), the timed renders of phase 10 (camera rays,
-bounce draws) and the timed NEE renders of phase 25 (all three). Each
+bounce draws) and the timed NEE renders of phase 25 (all three); R1's
+(one per intersect_scene call on a scene with meshes) of the windows of
+K2's in this process: phases 10, 25-29, 31, 33 and 34 (phase 32's ranks
+do not report it). Each
 counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
 plain version fall outside.
@@ -347,6 +360,8 @@ RTNW_STRIDE, RTNW_MIN_FRAC, RTNW_SEG_RTOL = 61, 0.99, 0.05
 # D1's launches on the main paths, an entry point each: what draws_read adds
 # up after each main path's window
 D1_MAIN = {"camera_rays": 0, "bounce_draws": 0, "counter_uniforms": 0}
+# R1's launches on the main paths: what r1_read adds up after each window
+R1_MAIN = [0]
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
 # multiplies in one Möller–Trumbore test of csrc/tri_scan.cu (q 6, det 3,
@@ -553,6 +568,18 @@ def draws_read() -> None:
         D1_MAIN[entry] += n
 
 
+def r1_reset() -> None:
+    """Zero R1's counter just before a main path runs."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve
+    resolve.LAUNCHES["resolve"] = 0
+
+
+def r1_read() -> None:
+    """Add R1's counter, read just after a main path ran, to R1_MAIN."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve
+    R1_MAIN[0] += resolve.LAUNCHES["resolve"]
+
+
 def rtnw_phase(dev) -> None:
     """Phase 36: K1's sphere tree on the final scene of The Next Week
     (scenes/rtnw_final.py, 800² × 64 spp, depth 40: 1,006 spheres, the
@@ -638,6 +665,142 @@ def rtnw_phase(dev) -> None:
         f"staged, {blocks} resident blocks an SM (the scan's {scan_blocks}); camera rays "
         f"{tree_ms:.3f} ms with the tree, {scan_ms:.3f} ms with the scan; {tests} node tests "
         f"over {segs} segments ({tests / max(segs, 1):.2f} a segment)")
+
+
+# phase 37's NEE frame: the bench.nee cell's
+RESOLVE_NEE_FRAME = dict(width=512, height=512, spp=64, path_depth=8)
+
+
+class _Captured(Exception):
+    """Raised by resolve_phase's recorder once it holds the calls it needs."""
+
+
+def resolve_inputs(run, calls: tuple) -> dict:
+    """The inputs of the merged-resolve calls numbered `calls` (in the
+    order a render path makes them) while run() runs, each as (scene, ins)
+    with ins the launch's (o, d, code, t, idx, u, v, fields), cloned; run()
+    is stopped after the last."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve
+
+    real, got, count = resolve.resolve_winners, {}, [0]
+
+    def recorder(scene, *ins):
+        if count[0] in calls:
+            got[count[0]] = (scene, tuple(x.clone() for x in ins[:7])
+                             + ({k: x.clone() for k, x in ins[7].items()},))
+        count[0] += 1
+        if len(got) == len(calls):
+            raise _Captured
+        return real(scene, *ins)
+
+    resolve.resolve_winners = recorder
+    try:
+        run()
+    except _Captured:
+        pass
+    finally:
+        resolve.resolve_winners = real
+    return got
+
+
+def resolve_bytes(sd, ins) -> int:
+    """The bytes a resolve over these inputs needs, each once: a mesh
+    winner's code, ray, t, idx, u, v (44 B), the words of its kmesh_res row
+    that its mesh needs (36 B of corner normals, 24 B of corner uvs where it
+    samples a texel, 12 B of tangent under a normal map) and 3 B a texel it
+    samples (slot 4 where bound; slots 0-3 where bound and its material is
+    synthesized); any other ray's code, point, normal, front face and
+    material id (33 B); every ray's 65 B of outputs; the tables once."""
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+
+    code, m = ins[2], len(sd.meshes)
+    j = code.long() - isect.CODE_MESH0
+    is_mesh = (j >= 0) & (j < m)
+    bound = sd.kmesh_tex[:m, 0::3] >= 0  # (M, 5): the slots each mesh binds
+    synth = sd.kmesh_xfm[:m, 35] < 0
+    texels = bound[:, :4].sum(dim=1) * synth + bound[:, 4]  # a winner of each mesh samples
+    row = 36 + 24 * (texels > 0) + 12 * bound[:, 4]
+    jm = j[is_mesh]
+    n_mesh = int(is_mesh.sum())
+    tables = sum(x.numel() * x.element_size() for x in (sd.kmesh_xfm, sd.kmesh_tex))
+    return (n_mesh * 44 + int(row[jm].sum()) + 3 * int(texels[jm].sum())
+            + (code.numel() - n_mesh) * 33 + code.numel() * 65 + tables
+            + 40 * int(sd.mat_type.shape[0]))
+
+
+def resolve_phase(dev) -> dict:
+    """Phase 37: R1 against resolve_mesh_winners on the resolve calls of
+    config 5's chunk 0 (bounces 0 and 2) and of the NEE bench chunk 0
+    (bounce 0 and its shadow rays); returns the kernels line's row (config
+    5's bounce 0)."""
+    import dataclasses
+
+    from cs397raytracingsp22_tpu_torch.models.scene import resolve_order
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve
+    from cs397raytracingsp22_tpu_torch.render import integrator
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene, drone_demo
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    key = threefry.key_words(2**33 + 37)
+    sc5 = drone_demo.build(**CONFIG5)
+    sc6 = bench_scene.build(**RESOLVE_NEE_FRAME)
+    sc6 = dataclasses.replace(sc6, camera=dataclasses.replace(sc6.camera, nee=True))
+    cases = []
+    for sc, name, executor, calls in (
+            (sc5, "config 5", integrator.path_trace_shrink, {0: "bounce 0", 2: "bounce 2"}),
+            (sc6, "bench NEE", integrator.path_trace_nee, {0: "bounce 0", 1: "shadow rays"})):
+        sd = sc.compile(device=dev)
+        cam = sc.camera
+        _, (o, d, uids) = chunk0(sd, cam, key)
+        got = resolve_inputs(lambda: executor(sd, o, d, uids, key, cam.path_depth,
+                                              cam.max_trace_dist), tuple(calls))
+        cases += [(f"{name} {calls[c]}", sd, got[c][1]) for c in sorted(calls)]
+        del o, d, uids
+    row = None
+    for what, sd, ins in cases:
+        o, d = ins[0], ins[1]
+        obj = {mi: isect.object_rays(sd.meshes[mi], o, d)
+               for mi in resolve_order(sd.dense_mesh_ids, len(sd.meshes))}
+        plain = lambda: isect.resolve_mesh_winners(sd, obj, *ins[2:])  # noqa: E731
+        before = resolve.LAUNCHES["resolve"]
+        out, want = resolve.resolve_winners(sd, *ins), plain()
+        torch.cuda.synchronize()
+        if resolve.LAUNCHES["resolve"] != before + 1:
+            raise AssertionError(f"R1 {what}: the resolve did not launch R1 once")
+        for f, (dtype, _) in resolve.OUTPUTS.items():
+            a, b = out[f], want[f]
+            if a.dtype != dtype or a.shape != b.shape:
+                raise AssertionError(f"R1 {what}: {f} is {a.dtype} {tuple(a.shape)}, the plain "
+                                     f"version's {b.dtype} {tuple(b.shape)}")
+            if dtype == torch.float32:
+                same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+            else:
+                same = a == b
+            if not bool(same.all()):
+                bad = int((~same).reshape(a.shape[0], -1).any(dim=1).sum())
+                raise AssertionError(f"R1 {what}: {f} differs from the plain version on {bad} of "
+                                     f"{a.shape[0]} rays")
+        n = ins[2].numel()
+        n_mesh = int(((ins[2] >= isect.CODE_MESH0) & (ins[2] < isect.CODE_MESH0
+                                                      + len(sd.meshes))).sum())
+        k_ms = cuda_ms(lambda: resolve.launch(sd, ins, out), 20)
+        p_ms = cuda_ms(plain, 3)
+        b_ms, by = bound(resolve_bytes(sd, ins), 0)
+        cfg = resolve.launch_config(sd, n)
+        nan = int(out["normal"].isnan().any(dim=1).sum())
+        log("resolve", f"R1 {what} ({n} rays, {n_mesh} mesh winners, instantiation "
+            f"{cfg['variant']}, grid {cfg['grid']} x {cfg['threads']}, {cfg['blocks_per_sm']} "
+            f"blocks an SM, {cfg['smem_bytes']} B staged): every output bit-identical to "
+            f"resolve_mesh_winners ({nan} NaN normals in both); {k_ms:.4f} ms (bound "
+            f"{b_ms:.4f} ms, {by}: {b_ms / k_ms:.1%}), plain torch {p_ms:.3f} ms "
+            f"({p_ms / k_ms:.0f}x)")
+        if row is None:
+            row = {"name": "resolve", "route": "cuda",
+                   "source": "cs397raytracingsp22_tpu_torch/csrc/resolve.cu", "replaces": None,
+                   "launches": 0, "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return row
 
 
 def draws_phase(dev) -> list:
@@ -974,9 +1137,11 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the staged main path's counts
     draws_reset()
+    r1_reset()
     runs32 = [render32() for _ in range(3)]
     k2_launches, k3_launches = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
     draws_read()
+    r1_read()
     peak = torch.cuda.max_memory_allocated()
     if k2_launches < 1 or k3_launches < 1:
         raise AssertionError("the staged main path launched K2 or K3 no time")
@@ -2143,9 +2308,11 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the NEE frame's counts start here
     draws_reset()
+    r1_reset()
     runs = [render_nee() for _ in range(2)]
     k2_nee, k3_nee = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
     draws_read()
+    r1_read()
     peak = torch.cuda.max_memory_allocated()
     img, st = runs[0]
     if k2_nee != len(runs) * st.chunks * shadow_depth or k3_nee:
@@ -2185,11 +2352,13 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the 32k NEE chunk's counts start here
+    r1_reset()
     t0 = time.perf_counter()
     rad_full, segs = integrator.path_trace_nee(sd32, o, d, uids, key, depth, cam32.max_trace_dist)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k2_32, k3_32 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    r1_read()
     peak = torch.cuda.max_memory_allocated()
     if k2_32 != shadow_depth or k3_32 != 2 * shadow_depth:  # K3: its screen and its walk a call
         raise AssertionError(f"the 32k NEE chunk launched K2 {k2_32} and K3 {k3_32} times, not "
@@ -2228,8 +2397,10 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     render_phong()  # warm
     torch.cuda.synchronize()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the Phong frame's counts start here
+    r1_reset()
     runs = [render_phong() for _ in range(2)]
     k2_ph, k3_ph = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    r1_read()
     img, st = runs[0]
     if k2_ph != len(runs) * 2 * st.chunks or k3_ph:
         raise AssertionError(f"the Phong frame launched K2 {k2_ph} and K3 {k3_ph} times, not "
@@ -2434,8 +2605,10 @@ def textured_phases(dev) -> dict:
                                               scene_data=sdk)
     render_k()  # warm
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the kitchen sink's counts start here
+    r1_reset()
     img_k, st_k = render_k()
     k2_k, k3_k = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    r1_read()
     if k2_k < 1 or k3_k < 1 or img_k.max() == 0:
         raise AssertionError(f"the kitchen-sink render launched K2 {k2_k} and K3 {k3_k} times, "
                              f"image max {img_k.max()}")
@@ -2486,8 +2659,10 @@ def textured_phases(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # config 4's counts start here
+    r1_reset()
     runs = [render4() for _ in range(2)]
     k2_4, k3_4 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
+    r1_read()
     peak = torch.cuda.max_memory_allocated()
     img4, st4 = runs[0]
     if k2_4 < 1 or k3_4:
@@ -2518,12 +2693,14 @@ def textured_phases(dev) -> dict:
     shadow_depth = 2 * cam4.path_depth - 1
     torch.cuda.synchronize()
     scene_intersect.LAUNCHES = 0  # config 4's NEE chunk's count starts here
+    r1_reset()
     t0 = time.perf_counter()
     rad_n, segs_n = integrator.path_trace_nee(sd4, o, d, uids, key, cam4.path_depth,
                                               cam4.max_trace_dist)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k2_n = scene_intersect.LAUNCHES  # read just after
+    r1_read()
     if k2_n != shadow_depth:
         raise AssertionError(f"config 4's NEE chunk launched K2 {k2_n} times, not {shadow_depth}")
     idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
@@ -2719,8 +2896,10 @@ def config5_phases(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # counts start here
+    r1_reset()
     img, st = render()
     k1_s, k2, k3 = bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read after
+    r1_read()
     peak = torch.cuda.max_memory_allocated()
     if k1_s or k2 < 1 or k3 < 1 or st.mean_radiance <= 0.0:
         raise AssertionError(f"stand-in config 5 launched K1 {k1_s}, K2 {k2}, K3 {k3} times, "
@@ -2745,9 +2924,11 @@ def config5_phases(dev) -> dict:
     # every seed, K1's analytic image too); GATE_SPP keeps that under 1.6
     scg = drone_demo.build(**dict(CONFIG5, spp=GATE_SPP))
     bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # counts start here
+    r1_reset()
     img_g, st_g = driver.render_to_image(scg, device=dev, seed=0, verbose=False, scene_data=sd)
     k2 += scene_intersect.LAUNCHES
     k3 += tri_scan_big.LAUNCHES  # read just after
+    r1_read()
     res, line = regions(img_g, crr.STAND_IN_GATE)
     log("config5", f"stand-in config 5 at {GATE_SPP} spp ({st_g.wall_seconds:.4f} s, "
         f"{st_g.path_segments} segments): region |delta| (u8) against "
@@ -2773,9 +2954,11 @@ def tools_phases(dev) -> dict:
     out_dir = os.path.join(ROOT, "build", "chip_smoke", "artifacts")
     t0 = time.perf_counter()
     bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # counts start here
+    r1_reset()
     rows = make_artifacts.run(out_dir=out_dir, device=dev, verbose=False)
     k = {"k1": bounce.LAUNCHES, "k2": scene_intersect.LAUNCHES,
          "k3": tri_scan_big.LAUNCHES}  # read just after
+    r1_read()
     for name, row in rows.items():
         log("tools", f"make_artifacts {name}: {row['stats'].wall_seconds:.4f} s, "
             f"{row['stats'].chunks} chunks; {make_artifacts.describe(row)}")
@@ -2790,10 +2973,12 @@ def tools_phases(dev) -> dict:
     if os.path.exists(ckpt):
         os.remove(ckpt)
     k2, k3 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
+    r1_reset()
     img, st = driver.render_to_image(sc, device=dev, seed=0, verbose=False, checkpoint_path=ckpt,
                                      spp_chunk=spp // 2)
     k["k2"] += scene_intersect.LAUNCHES - k2
     k["k3"] += tri_scan_big.LAUNCHES - k3
+    r1_read()
     out = os.path.join(ROOT, "build", "chip_smoke", "config5_preview.png")
     rc = preview_checkpoint.main([ckpt, out, str(w), str(h), str(sc.camera.gamma)])
     with np.load(ckpt) as c:
@@ -2965,9 +3150,11 @@ def mesh_phases(dev) -> list:
 
     def zero():
         bounce.LAUNCHES = scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0
+        r1_reset()
 
     def read():
         got = [bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES]
+        r1_read()
         for i, n in enumerate(got):
             counts[i] += n
         return got
@@ -3136,8 +3323,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from PIL import Image
 
-    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, scene_intersect
-    from cs397raytracingsp22_tpu_torch.ops.kernels import tri_scan, tri_scan_big, wavefront
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, resolve
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.ops.kernels import wavefront
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import bench_scene, cornell
     from cs397raytracingsp22_tpu_torch.utils import threefry
@@ -3162,7 +3350,9 @@ def main() -> int:
                                ("D1 camera rays", "draws", draws, {"entry": "camera_rays"}),
                                ("D1 bounce draws", "draws", draws, {"entry": "bounce_draws"}),
                                ("D1 counter uniforms", "draws", draws,
-                                {"entry": "counter_uniforms"})):
+                                {"entry": "counter_uniforms"}),
+                               ("R1", "resolve", resolve, {}),
+                               ("R1 bare", "resolve", resolve, {"which": 0})):
         regs, spill = mod.kernel_attrs(**kw)
         ptxas = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -3172,7 +3362,7 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if (kid.startswith(("K4", "D1"))
+        if (kid.startswith(("K4", "D1", "R1"))
                 or kid in ("K1 no mesh", "K1 sphere tree", "K3", "K5")) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
@@ -3193,6 +3383,8 @@ def main() -> int:
     draw_rows = draws_phase(dev)
     # ---- 36. K1's sphere tree on the final scene of The Next Week ----
     rtnw_phase(dev)
+    # ---- 37. the merged-resolve kernel against its plain version ----
+    resolve_row = resolve_phase(dev)
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -3384,7 +3576,8 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
     }] + staged + k45 + probes + [dict(row, launches=D1_MAIN[row["name"][6:]])
-                                  for row in draw_rows]}))
+                                  for row in draw_rows]
+        + [dict(resolve_row, launches=R1_MAIN[0])]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -155,8 +155,9 @@ class SceneData:
     ksph_tree: torch.Tensor
     # the staged path's merged mesh resolve (pack_kernel_tables): per
     # triangle of every mesh in resolve order [corner normals, corner uvs,
-    # tangent] (ΣT, 18), per mesh [normal matrix, R, t] (M, 21) and the
-    # int32 atlas [offset, width, height] of each texture slot (M, 15)
+    # tangent] (ΣT, 18), per mesh [normal matrix, R, t, inverse R, inverse
+    # t, first kmesh_res row, triangles, material id] (M, 36) and the int32
+    # atlas [offset, width, height] of each texture slot (M, 15)
     kmesh_res: torch.Tensor
     kmesh_xfm: torch.Tensor
     kmesh_tex: torch.Tensor
@@ -750,8 +751,11 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     reads a row as three 16-byte loads. kmesh_res and kmesh_xfm: the
     staged path's merged mesh resolve (ops/intersect.py::resolve_mesh_winners)
     over the meshes in resolve_order: per triangle [corner normals, corner
-    uvs, tangent] (ΣT, 18) and per mesh [normal matrix, R, t] (M, 21),
-    float32 copies of the mesh tables, and kmesh_tex, per mesh the int32
+    uvs, tangent] (ΣT, 18) and per mesh [normal matrix, R, t, inverse R,
+    inverse t, first kmesh_res row, triangles, material id (-1: synthesized
+    from the textures)] (M, 36), float32 copies of the mesh tables (the
+    plain version reads the first 21 columns, the resolve kernel R1 all;
+    ids and counts are exact in float32), and kmesh_tex, per mesh the int32
     atlas [offset, width, height] of each of the five texture slots (-1
     where a slot is unbound) (M, 15); one inert row each without a mesh.
     """
@@ -789,16 +793,18 @@ def pack_kernel_tables(arrays: dict, meta: dict) -> tuple[np.ndarray, ...]:
     kscene = np.concatenate([r.reshape(-1) for r in rows]).astype(np.float32)
     kmesh_tri = f(a["kmesh_tri"])
     kmesh_tri4 = np.concatenate([kmesh_tri, np.zeros((kmesh_tri.shape[0], 3), np.float32)], 1)
-    res, xfm = [np.zeros((0, 18), np.float32)], [np.zeros((0, 21), np.float32)]
-    tex = [np.zeros((0, 15), np.int32)]
+    res, xfm = [np.zeros((0, 18), np.float32)], [np.zeros((0, 36), np.float32)]
+    tex, first = [np.zeros((0, 15), np.int32)], 0
     for mi in resolve_order(meta["dense_mesh_ids"], len(a["meshes"])):
         m = a["meshes"][mi]
         nt = np.shape(m["tri_normals"])[0]
         res.append(np.concatenate([f(m["tri_normals"]).reshape(nt, 9),
                                    f(m["tri_uvs"]).reshape(nt, 6), f(m["tri_tangent"])], 1))
-        fwd = f(m["transform"])
+        fwd, bwd = f(m["transform"]), f(m["inv_transform"])
         xfm.append(np.concatenate([f(m["normal_mat"]).reshape(-1), fwd[:3, :3].reshape(-1),
-                                   fwd[:3, 3]])[None, :])
+                                   fwd[:3, 3], bwd[:3, :3].reshape(-1), bwd[:3, 3],
+                                   f([first, nt, meta["mesh_mat_ids"][mi]])])[None, :])
+        first += nt
         slots = [(int(a["tex_offset"][i]), int(a["tex_width"][i]), int(a["tex_height"][i]))
                  if i >= 0 else (-1, -1, -1) for i in m["tex_ids"]]
         tex.append(np.asarray([sum(slots, ())], np.int32))

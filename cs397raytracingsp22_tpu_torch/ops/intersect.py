@@ -10,7 +10,8 @@ Mirrors `cs397raytracingsp22_tpu/ops/intersect.py`:
   analytic class and the dense meshes), then the big-mesh traversal
   kernel K3 per mesh beyond the dense budget (ops/kernels/tri_scan_big.py)
   with the running best t as its far bound, the general-boundary volumes,
-  and one merged resolve of the mesh winners (`resolve_mesh_winners`:
+  and one merged resolve of the mesh winners (the kernel R1,
+  ops/kernels/resolve.py, whose plain version is `resolve_mesh_winners`:
   smooth normals, texcoords, texture sampling, normal maps and the
   materials synthesized from textures);
 - `intersect_scene` picks the fused path for CUDA tensors and the plain
@@ -681,11 +682,11 @@ def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
     only at a strictly smaller t; so does each general volume after them
     (its winner code CODE_GVOL0 + g). K2 writes a dense mesh's material id
     for its winners, -1 for a material synthesized from textures: the ids
-    are clipped to the table before the gather, and the resolve overwrites
-    every mesh winner. The wrappers launch their kernels for CUDA tensors
-    and run their plain versions for CPU tensors.
+    are clipped to the table before the gather, and the resolve (R1)
+    overwrites every mesh winner. The wrappers launch their kernels for CUDA
+    tensors and run their plain versions for CPU tensors.
     """
-    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve, scene_intersect, tri_scan_big
 
     n = o.shape[0]
     o, d = o.contiguous(), d.contiguous()
@@ -697,9 +698,8 @@ def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
 
     n_dense = len(scene.dense_mesh_ids)
     mesh_order = resolve_order(scene.dense_mesh_ids, len(scene.meshes))
-    obj_rays = {mi: object_rays(scene.meshes[mi], o, d) for mi in mesh_order}
     for j, mi in enumerate(mesh_order[n_dense:]):
-        o_obj, d_obj = obj_rays[mi]
+        o_obj, d_obj = object_rays(scene.meshes[mi], o, d)
         hit_m, t_m, tri_m, u_m, v_m = tri_scan_big.tri_scan_big_cuda(
             scene.meshes[mi], o_obj.contiguous(), d_obj.contiguous(), t_min,
             torch.minimum(t_max, t))
@@ -723,7 +723,7 @@ def intersect_scene_fused(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRec
     fields = dict(point=o + t[:, None] * d, normal=normal, frontface=ff, mat=mat_id)
     if mesh_order:
         with profiling.span("mesh_resolve"):
-            fields = resolve_mesh_winners(scene, obj_rays, code, t, idx, u, v, fields)
+            fields = resolve.resolve_winners(scene, o, d, code, t, idx, u, v, fields)
     else:
         fields.update(_gather_material(scene, _table_ids(scene, fields.pop("mat"))))
     return HitRecord(valid=valid, t=torch.where(valid, t, torch.full_like(t, _BIG)), **fields)
@@ -844,7 +844,7 @@ def resolve_mesh_winners(scene: SceneData, obj_rays: dict, code, t, idx, u, v,
     def mat3(r, p):  # rows r (N, 9) row-major times p, apply_mat4_vector's order
         return r[:, 0::3] * p[:, 0:1] + r[:, 1::3] * p[:, 1:2] + r[:, 2::3] * p[:, 2:3]
 
-    xfm = _per_ray(list(scene.kmesh_xfm[:len(order)]), win.masks, (21,))
+    xfm = _per_ray(list(scene.kmesh_xfm[:len(order), :21]), win.masks, (21,))
     is_mesh = win.is_mesh
     out = dict(
         point=torch.where(is_mesh[:, None],
