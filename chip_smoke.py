@@ -123,7 +123,7 @@ Then the paths of next-event estimation (render/nee.py) and Phong shading,
 whose camera, bounce and shadow rays K2 intersects (and K3 on a big mesh):
  25. the NEE frame: the bench scene with teapot_6k at 512² × 64 spp,
      depth 8, Camera(nee=True), through render_to_image: chunk 0 through
-     the NEE executor (integrator.path_trace_nee) held to the plain one
+     the NEE executor (integrator.path_trace_shrink, nee=True) held to the plain one
      (intersect_scene_plain on the card) on a strided sample; a warm render
      that writes a checkpoint and a resume from it that traces nothing and
      gives the same image; two timed renders (seconds, segments with the
@@ -241,7 +241,7 @@ port's tools:
      (csrc/resolve.cu), on the resolve calls of config 5's chunk 0 at bounce
      0 and bounce 2 (path_trace_shrink on the stand-ins: three meshes,
      textures, normal maps, synthesized materials) and of the bench teapot's
-     NEE chunk 0 at bounce 0 and its shadow rays (path_trace_nee): every
+     NEE chunk 0 at bounce 0 and its shadow rays (nee=True): every
      output bit-identical to ops/intersect.py::resolve_mesh_winners on the
      same card (NaN where it has NaN), R1's ms (CUDA events) beside its
      bound (bytes: what each ray needs read once, the outputs written once)
@@ -256,8 +256,7 @@ port's tools:
      rtol / atol of the plain version on at least RTNW_MIN_FRAC of them,
      segment totals within RTNW_SEG_RTOL (paths of depth 40 flip more
      winners than phase 3's depth 8); both
-     timed; the sphere-tree node tests K1 counted, its registers and
-     resident blocks.
+     timed; K1's registers and resident blocks.
 Phases 6, 7, 9, 10, 14, 17, 25-27, 28-30, 33 and 36 first hold a full-size
 launch (all of the chunk's rays, uids and depth) to the plain version on a
 strided sample of its rays: a ray's result depends only on its own inputs, so the sample
@@ -589,13 +588,13 @@ def rtnw_phase(dev) -> None:
     gate forced open here: no tree, every sphere counted against enough
     lanes), the segments equal; every SAMPLE_STRIDE-th ray traced alone
     bit for bit and within the parity contract of the plain version; both
-    K1 builds timed on the camera rays by CUDA events; the node tests K1
-    counted and its resident blocks."""
+    K1 builds timed on the camera rays by CUDA events; its resident
+    blocks."""
     from cs397raytracingsp22_tpu_torch.models import scene as scene_mod
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
     from cs397raytracingsp22_tpu_torch.ops.kernels import bounce
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import rtnw_final
-    from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
     from cs397raytracingsp22_tpu_torch.utils import threefry
 
     depth, t_max = 40, 20000.0
@@ -613,15 +612,14 @@ def rtnw_phase(dev) -> None:
     thr, rad = torch.ones_like(o), torch.zeros_like(o)
     alive = torch.ones((o.shape[0],), dtype=torch.bool, device=dev)
     for b in range(3):
-        o, d, thr, rad, alive, _ = integrator._bounce_update(
-            sd, o, d, thr, rad, alive, uids, key, rnglib.SITE_BOUNCE0 + b, t_max)
+        o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+            sd, o, d, thr, rad, alive, uids, key, b, t_max,
+            intersect=isect.intersect_scene_plain)
     keep = alive.nonzero()[:, 0]
     b3_rays = (o[keep].contiguous(), d[keep].contiguous(), uids[keep].contiguous())
     k1 = lambda rays: bounce.path_trace_cuda(sd, *rays, key, depth, t_max)  # noqa: E731
-    before = int(bounce.sphere_node_tests(dev))
     tree = {name: k1(rays) for name, rays in (("camera", cam_rays), ("bounce-3", b3_rays))}
     torch.cuda.synchronize()
-    tests = int(bounce.sphere_node_tests(dev)) - before
     tree_ms = cuda_ms(lambda: k1(cam_rays), 3)
     regs, spill = bounce.kernel_attrs(dense=True, sph_tree=True)
     blocks = bounce.resident_blocks(sd)
@@ -659,12 +657,10 @@ def rtnw_phase(dev) -> None:
         if float(ok.float().mean()) < RTNW_MIN_FRAC or seg_diff > RTNW_SEG_RTOL * int(ref_segs):
             raise AssertionError(f"rtnw {name}: K1 outside its parity contract with the plain "
                                  "version")
-    segs = int(tree["camera"][1]) + int(tree["bounce-3"][1])
     staged = bounce.k1_staged_bytes(sd)
     log("rtnw", f"K1 sphere tree: {regs} registers, {spill} B local, {staged} B "
         f"staged, {blocks} resident blocks an SM (the scan's {scan_blocks}); camera rays "
-        f"{tree_ms:.3f} ms with the tree, {scan_ms:.3f} ms with the scan; {tests} node tests "
-        f"over {segs} segments ({tests / max(segs, 1):.2f} a segment)")
+        f"{tree_ms:.3f} ms with the tree, {scan_ms:.3f} ms with the scan")
 
 
 # phase 37's NEE frame: the bench.nee cell's
@@ -747,14 +743,14 @@ def resolve_phase(dev) -> dict:
     sc6 = bench_scene.build(**RESOLVE_NEE_FRAME)
     sc6 = dataclasses.replace(sc6, camera=dataclasses.replace(sc6.camera, nee=True))
     cases = []
-    for sc, name, executor, calls in (
-            (sc5, "config 5", integrator.path_trace_shrink, {0: "bounce 0", 2: "bounce 2"}),
-            (sc6, "bench NEE", integrator.path_trace_nee, {0: "bounce 0", 1: "shadow rays"})):
+    for sc, name, calls in (
+            (sc5, "config 5", {0: "bounce 0", 2: "bounce 2"}),
+            (sc6, "bench NEE", {0: "bounce 0", 1: "shadow rays"})):
         sd = sc.compile(device=dev)
         cam = sc.camera
         _, (o, d, uids) = chunk0(sd, cam, key)
-        got = resolve_inputs(lambda: executor(sd, o, d, uids, key, cam.path_depth,
-                                              cam.max_trace_dist), tuple(calls))
+        got = resolve_inputs(lambda: integrator.path_trace_shrink(
+            sd, o, d, uids, key, cam.path_depth, cam.max_trace_dist, nee=cam.nee), tuple(calls))
         cases += [(f"{name} {calls[c]}", sd, got[c][1]) for c in sorted(calls)]
         del o, d, uids
     row = None
@@ -1082,8 +1078,8 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
                     if b == 0:
                         k2_in = inputs
             if b < 2:  # on to the next bounce through the staged path (K2 + K3)
-                o, d, thr, rad, alive, _ = integrator._bounce_update(
-                    sd, o, d, thr, rad, alive, uid32, key, site, max_dist,
+                o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+                    sd, o, d, thr, rad, alive, uid32, key, b, max_dist,
                     intersect=isect.intersect_scene)
         del o, d, thr, rad, alive
 
@@ -2238,12 +2234,12 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
         """The strided sample traced alone, bit for bit; then against the
         plain executor (intersect_scene_plain on the card)."""
         idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
-        run = lambda o_, d_, u_: integrator.path_trace_nee(  # noqa: E731
-            sd, o_, d_, u_, key, cam.path_depth, cam.max_trace_dist)
+        run = lambda o_, d_, u_: integrator.path_trace_shrink(  # noqa: E731
+            sd, o_, d_, u_, key, cam.path_depth, cam.max_trace_dist, nee=True)
         sub, (rad_s, segs_s) = sample_alone(what, run, (rad_full,), (o, d, uids), idx)
-        ref, ref_segs = integrator.path_trace_nee(sd, *sub, key, cam.path_depth,
-                                                  cam.max_trace_dist,
-                                                  intersect=isect.intersect_scene_plain)
+        ref, ref_segs = integrator.path_trace_shrink(sd, *sub, key, cam.path_depth,
+                                                     cam.max_trace_dist, nee=True,
+                                                     intersect=isect.intersect_scene_plain)
         n_bad, err, seg_diff = compare(rad_s, segs_s, ref, ref_segs, shadow_depth)
         return (f"every {SAMPLE_STRIDE}th ray ({idx.numel()}) traced alone is bit-identical to "
                 f"the run's rows; {idx.numel() - n_bad}/{idx.numel()} within rtol {RTOL} atol "
@@ -2258,7 +2254,8 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     if not sd.nee_ok or sd.n_lt_tri != 2:
         raise AssertionError("the bench scene's two light triangles must make it NEE-able")
     nch, (o, d, uids) = chunk0(sd, cam, key)
-    rad_full, _ = integrator.path_trace_nee(sd, o, d, uids, key, depth, cam.max_trace_dist)
+    rad_full, _ = integrator.path_trace_shrink(sd, o, d, uids, key, depth, cam.max_trace_dist,
+                                               nee=True)
     msg = nee_sample_check("NEE chunk", sd, cam, o, d, uids, rad_full)
     log("parity-nee", f"bench teapot_6k {width}²x{spp}spp depth {depth} with NEE, chunk 0 of "
         f"{nch}: one run of the NEE executor on {o.shape[0]} rays (K2 on every bounce and "
@@ -2272,7 +2269,8 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
             calls.append(a)
         return isect.intersect_scene(*a)
 
-    integrator.path_trace_nee(sd, o, d, uids, key, depth, cam.max_trace_dist, intersect=record)
+    integrator.path_trace_shrink(sd, o, d, uids, key, depth, cam.max_trace_dist, nee=True,
+                                 intersect=record)
     n = o.shape[0]
     idx = torch.arange(0, n, SAMPLE_STRIDE, device=dev)
     parts = []
@@ -2354,7 +2352,8 @@ def nee_phong_phases(dev, k1_mean: float, width: int, height: int, spp: int, dep
     scene_intersect.LAUNCHES = tri_scan_big.LAUNCHES = 0  # the 32k NEE chunk's counts start here
     r1_reset()
     t0 = time.perf_counter()
-    rad_full, segs = integrator.path_trace_nee(sd32, o, d, uids, key, depth, cam32.max_trace_dist)
+    rad_full, segs = integrator.path_trace_shrink(sd32, o, d, uids, key, depth,
+                                                  cam32.max_trace_dist, nee=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k2_32, k3_32 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES  # read just after
@@ -2548,8 +2547,8 @@ def staged_bounce_parity(phase: str, what: str, sd, cam, o, d, uids, key,
                 f"{int((alone[1] >= isect.CODE_MESH0).sum())} dense mesh, "
                 f"{int(alone3[0].sum())} big mesh")
         if b < 2:
-            o, d, thr, rad, alive, _ = integrator._bounce_update(
-                sd, o, d, thr, rad, alive, uids, key, site, cam.max_trace_dist,
+            o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+                sd, o, d, thr, rad, alive, uids, key, b, cam.max_trace_dist,
                 intersect=isect.intersect_scene)
     return k2_in, k3_in, idx
 
@@ -2695,8 +2694,8 @@ def textured_phases(dev) -> dict:
     scene_intersect.LAUNCHES = 0  # config 4's NEE chunk's count starts here
     r1_reset()
     t0 = time.perf_counter()
-    rad_n, segs_n = integrator.path_trace_nee(sd4, o, d, uids, key, cam4.path_depth,
-                                              cam4.max_trace_dist)
+    rad_n, segs_n = integrator.path_trace_shrink(sd4, o, d, uids, key, cam4.path_depth,
+                                                 cam4.max_trace_dist, nee=True)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     k2_n = scene_intersect.LAUNCHES  # read just after
@@ -2704,12 +2703,12 @@ def textured_phases(dev) -> dict:
     if k2_n != shadow_depth:
         raise AssertionError(f"config 4's NEE chunk launched K2 {k2_n} times, not {shadow_depth}")
     idx = torch.arange(0, o.shape[0], SAMPLE_STRIDE, device=dev)
-    run = lambda o_, d_, u_: integrator.path_trace_nee(  # noqa: E731
-        sd4, o_, d_, u_, key, cam4.path_depth, cam4.max_trace_dist)
+    run = lambda o_, d_, u_: integrator.path_trace_shrink(  # noqa: E731
+        sd4, o_, d_, u_, key, cam4.path_depth, cam4.max_trace_dist, nee=True)
     sub, (rad_s, segs_s) = sample_alone("config 4 NEE chunk", run, (rad_n,), (o, d, uids), idx)
-    ref, ref_segs = integrator.path_trace_nee(sd4, *sub, key, cam4.path_depth,
-                                              cam4.max_trace_dist,
-                                              intersect=isect.intersect_scene_plain)
+    ref, ref_segs = integrator.path_trace_shrink(sd4, *sub, key, cam4.path_depth,
+                                                 cam4.max_trace_dist, nee=True,
+                                                 intersect=isect.intersect_scene_plain)
     n_bad, err, _ = compare(rad_s, segs_s, ref, ref_segs, shadow_depth)
     log("config4-frame", f"stand-in config 4 with NEE, chunk 0 of {nch4}: {o.shape[0]} rays, "
         f"{int(segs_n)} segments (shadow rays included) in {secs:.4f} s "

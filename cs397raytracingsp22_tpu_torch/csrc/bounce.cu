@@ -98,7 +98,7 @@
 //   they stay in device memory (L1). The walk's registers (101 under
 //   __launch_bounds__(128, 4)) kept 4 blocks an SM; the tree
 //   instantiations take (128, 5): 96 registers, no spills, 5 blocks, 10%
-//   faster (5.29 ms). The node tests of a block go to one 64-bit atomic.
+//   faster (5.29 ms).
 
 #include "bounce.cuh"
 
@@ -127,20 +127,7 @@ struct Params {
   int tree_len;           // floats of tree
   const float4* sph_table;  // ksph_tree: header, nodes, slots, indices
   int sph_leaves;           // its leaves; 0: no sphere tree
-  unsigned long long* sph_tests;  // the sphere-tree node tests, added once a block
 };
-
-// The node tests of the block's threads (`v` each) added to *out with one
-// 64-bit atomic. Every thread of the block calls it.
-__device__ __forceinline__ void add_block_count(unsigned v, unsigned long long* out) {
-  __shared__ unsigned long long total;
-  if (threadIdx.x == 0) total = 0;
-  __syncthreads();
-  const unsigned w = __reduce_add_sync(0xffffffffu, v);
-  if ((threadIdx.x & 31) == 0) atomicAdd(&total, (unsigned long long)w);
-  __syncthreads();
-  if (threadIdx.x == 0) atomicAdd(out, total);
-}
 
 // kDense: the scene has a dense mesh (the walk is compiled in). kSphTree:
 // the scene has a sphere tree; its header and nodes are staged after the
@@ -154,7 +141,6 @@ __global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(cons
                                     p.sph_table, kSphTree ? 4 * p.sph_leaves : 0);
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned tests = 0;
   if (i < p.n) {
     SceneRows R = scene_rows(sm, kSphTree ? 0 : p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
     if (kSphTree) {
@@ -172,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(cons
 
     for (int depth = 0; depth < p.depth; ++depth) {
       ++segs;
-      if (!bounce_step<kDense, kSphTree>(p, R, uid, depth, depth == p.depth - 1, st, &tests)) break;
+      if (!bounce_step<kDense, kSphTree>(p, R, uid, depth, depth == p.depth - 1, st)) break;
     }
 
     p.rad[3 * i] = st.rr;
@@ -180,7 +166,6 @@ __global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(cons
     p.rad[3 * i + 2] = st.rb;
     p.segs[i] = segs;
   }
-  if constexpr (kSphTree) add_block_count(tests, p.sph_tests);
 }
 
 // Bytes of shared memory a block stages: staged_bytes without a sphere
@@ -231,13 +216,11 @@ int rt_bounce_launch(const float* o, const float* d, const int* uid, int n, floa
                      float t_max, const float* scene, int scene_len, int n_sph, int n_pln,
                      int n_tri, int n_vol, int n_mat, int n_mesh, const float* mesh_tri,
                      const float* mesh_nrm, const float* tree, int tree_len,
-                     const float* sph_table, int sph_leaves, unsigned long long* sph_tests,
-                     void* stream) {
+                     const float* sph_table, int sph_leaves, void* stream) {
   if (n <= 0) return 0;
   Params p{o, d, uid, n, rad, segs, k0, k1, depth, t_min, t_max, scene, scene_len,
            n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh, reinterpret_cast<const float4*>(mesh_tri),
-           mesh_nrm, tree, tree_len, reinterpret_cast<const float4*>(sph_table), sph_leaves,
-           sph_tests};
+           mesh_nrm, tree, tree_len, reinterpret_cast<const float4*>(sph_table), sph_leaves};
   const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
   const int blocks = (n + kThreads - 1) / kThreads;
   const cudaError_t e = with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {

@@ -104,12 +104,10 @@ __device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
 // dense-mesh walk and resolve, for a scene with no dense mesh. kSphTree
 // walks the sphere tree (intersect.cuh::walk_spheres: its staged nodes
 // R.sph_tree, and from `a` its leaves sph_leaves and its table sph_table in
-// device memory) in place of the sphere scan, adding its node tests to
-// *sph_tests; only K1 instantiates it.
+// device memory) in place of the sphere scan; only K1 instantiates it.
 template <bool kDense = true, bool kSphTree = false, class Args>
 __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, uint32_t uid,
-                                            int depth, bool last, PathState& s,
-                                            unsigned* sph_tests = nullptr) {
+                                            int depth, bool last, PathState& s) {
   float &ox = s.ox, &oy = s.oy, &oz = s.oz, &dx = s.dx, &dy = s.dy, &dz = s.dz;
   float &tr = s.tr, &tg = s.tg, &tb = s.tb, &rr = s.rr, &rg = s.rg, &rb = s.rb;
   const float tmin = a.t_min, tmax = a.t_max;
@@ -122,7 +120,7 @@ __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, u
     const float4* slots = a.sph_table + 4 * a.sph_leaves;  // after the header and nodes
     walk_spheres(R.sph_tree, a.sph_leaves, slots,
                  reinterpret_cast<const float*>(slots + kSphLeaf * a.sph_leaves), ox, oy, oz, dx,
-                 dy, dz, a2, tmin, tmax, h, *sph_tests);
+                 dy, dz, a2, tmin, tmax, h);
   } else {
     scan_spheres(R.sph, a.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
   }

@@ -140,15 +140,14 @@ __device__ __forceinline__ void scan_spheres(const float* sph, int n, float ox, 
 // over the scene's spheres (the header's first float), so kSphPad = 2^-9
 // of that leaves 3.4 times the worst reading. An ancestor's box holds its
 // leaf's exactly, and (lo - (o + pad)) * inv is monotone in lo, so a leaf
-// whose grown box passes is never culled by an ancestor. `tests` counts the
-// nodes tested.
+// whose grown box passes is never culled by an ancestor.
 constexpr int kSphLeaf = 4;
 constexpr float kSphPad = 1.0f / 512.0f;
 
 __device__ __forceinline__ void walk_spheres(const float4* nodes, int g, const float4* slots,
                                              const float* ids, float ox, float oy, float oz,
                                              float dx, float dy, float dz, float a2, float tmin,
-                                             float tmax, Nearest& h, unsigned& tests) {
+                                             float tmax, Nearest& h) {
   const float pad = kSphPad * (fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz)) + nodes[0].x);
   const float ix = 1.0f / dx, iy = 1.0f / dy, iz = 1.0f / dz;
   // (lo - pad) - o as lo - (o + pad), (hi + pad) - o as hi - (o - pad)
@@ -156,7 +155,6 @@ __device__ __forceinline__ void walk_spheres(const float4* nodes, int g, const f
   const float ux = ox - pad, uy = oy - pad, uz = oz - pad;
   int k = 1;
   do {
-    ++tests;
     const float4 lo = nodes[2 * k], hi = nodes[2 * k + 1];
     const float t0x = (lo.x - lx) * ix, t1x = (hi.x - ux) * ix;
     const float t0y = (lo.y - ly) * iy, t1y = (hi.y - uy) * iy;

@@ -26,7 +26,6 @@ LANES = 128  # the kernel's gates: materials, and planes, triangles and volumes
 # shared memory a block may stage on the H100 (227 KiB)
 MAX_STAGED_BYTES = 232448
 LAUNCHES = 0
-_SPH_TESTS: dict = {}  # sphere_node_tests' count a device
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,7 +34,7 @@ _ARGTYPES = [
     ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_float, ctypes.c_float,  # k0 k1 depth t_min t_max
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
     _P, _P, _P, _I,  # mesh_tri (kmesh_tri4), mesh_nrm, tree, tree_len
-    _P, _I, _P, _P,  # sph_table (ksph_tree), sph_leaves, sph_tests, stream
+    _P, _I, _P,  # sph_table (ksph_tree), sph_leaves, stream
 ]
 TABLES = ("kscene", "kmesh_tri4", "kmesh_nrm", "ksl_tree")  # the scene tables K1 and K4 read
 
@@ -120,19 +119,6 @@ def scene_is_simple(scene: SceneData) -> bool:
     return all(m.mat_id >= 0 and m.tex_ids[4] < 0 for m in scene.meshes)
 
 
-def sphere_node_tests(device: torch.device) -> torch.Tensor:
-    """The (1,) int64 count on `device` to which K1 adds the sphere-tree
-    node tests of each launch on a scene with a sphere tree (one 64-bit
-    atomic add a block); it only grows. The driver reads it around a
-    render (RenderStats.sphere_node_tests)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    if device not in _SPH_TESTS:
-        _SPH_TESTS[device] = torch.zeros((1,), dtype=torch.int64, device=device)
-    return _SPH_TESTS[device]
-
-
 def path_trace_cuda(
     scene: SceneData,
     o: torch.Tensor,
@@ -149,8 +135,7 @@ def path_trace_cuda(
     o, d: (N, 3) float32; uids: (N,) int32; rng_key: int seed or (2,) key
     words. The kernel reads the scene's packed tables (TABLES and
     ksph_tree: models/scene.py::pack_kernel_tables); on a scene with a
-    sphere tree it walks the tree in place of its sphere scan and adds its
-    node tests to sphere_node_tests(device).
+    sphere tree it walks the tree in place of its sphere scan.
     Returns (radiance (N, 3) float32, segments int64 scalar tensor).
     stats: when a dict, receives "segs", the (N,) int64 segments of each
     chain (and on the CPU the plain version's other counts).
@@ -184,8 +169,6 @@ def path_trace_cuda(
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((n,), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    g = scene.sph_tree_leaves
-    tests = sphere_node_tests(dev).data_ptr() if g else None
     with torch.cuda.device(dev):
         rc = lib.rt_bounce_launch(
             o.data_ptr(), d.data_ptr(), uids.data_ptr(), n, rad.data_ptr(), segs.data_ptr(),
@@ -195,7 +178,7 @@ def path_trace_cuda(
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
             scene.kmesh_tri4.data_ptr(), scene.kmesh_nrm.data_ptr(),
             scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()),
-            scene.ksph_tree.data_ptr(), g, tests, stream,
+            scene.ksph_tree.data_ptr(), scene.sph_tree_leaves, stream,
         )
     if rc != 0:
         raise RuntimeError(f"mega-bounce kernel launch failed with CUDA error {rc}")

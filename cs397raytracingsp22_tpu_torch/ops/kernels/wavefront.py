@@ -6,7 +6,7 @@ loop: per bounce one step over the whole width, then a stable dead-last
 partition of the ray state (bounce.py:1658 `_stable_partition`), and at
 the end the radiance put back in the caller's order. Its plain version
 here, `path_trace_wavefront_plain`, is that loop with
-render/integrator.py::_bounce_update as the step and `stable_partition`.
+render/integrator.py::bounce_update as the step and `stable_partition`.
 CPU tensors run it.
 
 For CUDA tensors `path_trace_wavefront` launches csrc/wavefront.cu
@@ -38,12 +38,12 @@ import numpy as np
 import torch
 
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
+from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene_plain
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
 from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
 from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, scene_is_simple
 from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import profiling
-from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
 LAUNCHES = 0
@@ -151,12 +151,12 @@ def radiance_in_caller_order(rows: torch.Tensor) -> torch.Tensor:
 
 def step_plain(scene: SceneData, rows, alive, rng_key, depth: int, max_trace_dist: float):
     """One bounce of every row by the plain version
-    (integrator._bounce_update on intersect_scene_plain). Returns new
+    (integrator.bounce_update on intersect_scene_plain). Returns new
     (rows, alive)."""
-    o, d, thr, rad, live, _ = integrator._bounce_update(
+    o, d, thr, rad, live, _, _ = integrator.bounce_update(
         scene, rows[:, STATE_O], rows[:, STATE_D], rows[:, STATE_THR], rows[:, STATE_RAD],
-        alive != 0, rows.view(torch.int32)[:, STATE_UID].contiguous(), rng_key,
-        rnglib.SITE_BOUNCE0 + depth, max_trace_dist,
+        alive != 0, rows.view(torch.int32)[:, STATE_UID].contiguous(), rng_key, depth,
+        max_trace_dist, intersect=intersect_scene_plain,
     )
     out = rows.clone()
     out[:, STATE_O], out[:, STATE_D], out[:, STATE_THR], out[:, STATE_RAD] = o, d, thr, rad

@@ -14,14 +14,14 @@ device's timeline.
 `render_chunk` routes as the JAX package's render_chunk_core does:
 - Phong shading to integrator.phong_trace (two scene intersections a ray:
   the camera ray and the shadow ray);
-- `Camera(nee=True)` to integrator.path_trace_nee, the next-event
-  estimator (render/nee.py), on any scene: the mega-bounce kernel computes
-  the reference estimator only;
+- `Camera(nee=True)` to the staged executor integrator.path_trace_shrink
+  with nee=True, the next-event estimator (render/nee.py), on any scene:
+  the mega-bounce kernel computes the reference estimator only;
 - a scene that passes `scene_is_simple` to the mega-bounce kernel
   (ops/kernels/bounce.py; its plain version for CPU tensors);
 - any other scene (a mesh beyond the dense budget, a normal map, a
   material synthesized from textures, a general-boundary volume) to the
-  staged executor (integrator.path_trace_shrink).
+  staged executor.
 Phong, NEE and the staged executor intersect through
 ops/intersect.py::intersect_scene: the scene-intersection kernel K2 (and
 the big-mesh kernel K3 per big mesh) for CUDA tensors, their plain
@@ -94,9 +94,6 @@ class RenderStats:
     # pixels whose HDR sum holds a NaN or inf (a mapped normal over a
     # triangle whose uv determinant is 0 gives the reference's NaN)
     nonfinite_pixels: int = 0
-    # the sphere-tree nodes K1 tested (ops/kernels/bounce.py::
-    # sphere_node_tests); 0 on a scene without a sphere tree and on the CPU
-    sphere_node_tests: int = 0
 
     @property
     def primary_mrays_per_sec(self) -> float:
@@ -162,14 +159,12 @@ def render_chunk(
         radiance = integrator.phong_trace(scene, o, d, uids, rng_key, camera.eyepoint,
                                           camera.max_trace_dist)
         segments = torch.tensor(o.shape[0], dtype=torch.int64, device=o.device)
-    elif camera.nee:
-        radiance, segments = integrator.path_trace_nee(*args)
-    elif bounce_kernel.scene_is_simple(scene):
+    elif camera.nee or not bounce_kernel.scene_is_simple(scene):
+        radiance, segments = integrator.path_trace_shrink(*args, nee=camera.nee)
+    else:
         # K1 for CUDA tensors, its plain version for CPU tensors
         with profiling.span("render.k1"):
             radiance, segments = bounce_kernel.path_trace_cuda(*args)
-    else:
-        radiance, segments = integrator.path_trace_shrink(*args)
     radiance = radiance.reshape(n_px, spp * n_chains, 3)
     return radiance.sum(dim=1) / n_chains, segments
 
@@ -493,11 +488,6 @@ def _render_to_image(scene, device, seed, pixel_chunk, spp_chunk, checkpoint_pat
                         device=str(device), device_count=n_dp * n_sp)
     _sync(device)
     seg_total = torch.zeros((), dtype=torch.int64, device=device)
-    # K1's sphere-tree node tests: its count on the card, read before and after
-    node_tests = None
-    if scene_data.sph_tree_leaves and seg_total.device.type == "cuda":
-        counter = bounce_kernel.sphere_node_tests(seg_total.device)
-        node_tests = (counter, counter.clone())
     lane = torch.arange(pixel_chunk, dtype=torch.int32, device=device) * n_chunks
     n_spp_chunks = max(1, -(-(spp - spp_done) // spp_chunk))
     clock = _Clock(device, n_spp_chunks * n_chunks, verbose)
@@ -529,15 +519,12 @@ def _render_to_image(scene, device, seed, pixel_chunk, spp_chunk, checkpoint_pat
         clock.finish(stats)
         # the segments after the first chunk and in all; under a mesh each rank
         # counted its own shards, summed over the ranks here, once a render
-        counts = [seg_total if clock.first_segments is None else clock.first_segments, seg_total]
-        if node_tests is not None:
-            counts.append(node_tests[0][0] - node_tests[1][0])
-        seg_counts = torch.stack(counts)
+        seg_counts = torch.stack(
+            [seg_total if clock.first_segments is None else clock.first_segments, seg_total])
         if mesh is not None:
             with profiling.span("render.allreduce"):
                 sharding.sum_over_ranks(seg_counts)
-        first_segs, stats.path_segments, *tests = seg_counts.tolist()
-        stats.sphere_node_tests = tests[0] if tests else 0
+        first_segs, stats.path_segments = seg_counts.tolist()
         if clock.done > 1:
             stats.steady_segments = stats.path_segments - first_segs
         accum = _raster(pieces, n_px_total)

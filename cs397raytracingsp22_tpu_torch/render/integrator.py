@@ -13,14 +13,13 @@ version of the mega-bounce kernel: `ops/kernels/bounce.py::path_trace_cuda`
 runs it for CPU tensors, and the kernel is held against it on the card.
 
 `path_trace_shrink` is the staged executor (scenes beyond the mega-bounce
-kernel's gates): the same estimator one bounce at a time through
-`intersect_scene` (the scene-intersection and big-mesh kernels for CUDA
-tensors), compacting the wavefront to its live rays after every bounce.
-
-`path_trace_nee` is the next-event estimator (render/nee.py) under the
-same compaction, and `phong_trace` the reference's Phong shading with hard
-shadows. Both take `intersect=`: `intersect_scene` (K2, and K3 per big
-mesh, for CUDA tensors; the plain version for CPU tensors) by default,
+kernel's gates, and next-event estimation with `nee=True`): the same
+estimator one bounce at a time, compacting the wavefront to its live rays
+after every bounce. `bounce_update` is the one bounce body all of them
+share, with or without NEE (render/nee.py), and `phong_trace` the
+reference's Phong shading with hard shadows. The executors take
+`intersect=`: `intersect_scene` (K2, and K3 per big mesh, for CUDA
+tensors; the plain version for CPU tensors) by default,
 `intersect_scene_plain` for their plain versions on the card.
 """
 
@@ -62,12 +61,25 @@ def _bounce_draws(scene: SceneData, rng_key, uids: torch.Tensor, site):
         return draws.bounce_draws(rng_key, uids, site, scene.vol_center.shape[0] + scene.n_gvols)
 
 
-def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_dist,
-                   intersect=intersect_scene_plain):
-    """The estimator body for ONE bounce (tracing.rs:300-324), shared by
-    path_trace (plain intersection) and path_trace_shrink (intersect_scene).
-    Returns (o, d, thr, rad, live_hit, segments this bounce)."""
-    ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, site)
+def bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, depth, max_trace_dist, *,
+                  intersect, prev_nee=None, do_nee=False):
+    """The estimator body for ONE bounce (tracing.rs:300-324; with NEE,
+    integrator.py:420 in the JAX package), shared by path_trace,
+    path_trace_shrink and K4's plain step.
+
+    intersect: intersect_scene_plain (the plain version on any device) or
+    intersect_scene (K2, and K3 per big mesh, for CUDA tensors).
+    prev_nee: None, or (N,) flags of the rays whose previous vertex took a
+    NEE sample: the emission they find here is what that sample covered,
+    and is suppressed. do_nee: add the direct-light term (render/nee.py);
+    False with NEE off and on NEE's last bounce, which keeps the
+    expectation of the depth-limited plain estimator. NEE draws at the
+    sites of the plain estimator, so it changes the estimator, not the
+    sampled paths.
+
+    Returns (o, d, thr, rad, live_hit, prev_nee, segments this bounce: the
+    live rays, and the shadow rays shot); prev_nee is None unless do_nee."""
+    ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, rnglib.SITE_BOUNCE0 + depth)
     # dead rays get an empty [t_min, 0] window: every test rejects
     t_max = torch.where(
         alive,
@@ -81,9 +93,12 @@ def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_
 
     # miss: background·throughput, then die (tracing.rs:306)
     rad = rad + torch.where(live_miss[:, None], thr * background_color(d), 0.0)
+    segs = alive.sum()
 
     # hit: emission + scatter (tracing.rs:307-322)
     with profiling.span("render.shade"):
+        emit = live_hit if prev_nee is None else live_hit & ~prev_nee
+        rad = rad + torch.where(emit[:, None], thr * hit.emission, 0.0)
         new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
         # dot term |new_dir·n| clamped to [0, 1]; 1 for zero-normal volume
         # hits (tracing.rs:313)
@@ -95,12 +110,20 @@ def _bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, site, max_trace_
         )
         factor = (dot_term * inv_pdf)[:, None] * att
 
-        rad = rad + torch.where(live_hit[:, None], thr * hit.emission, 0.0)
+        prev_nee = None
+        if do_nee:
+            contrib, did, shadow = nee.direct_light(
+                scene, hit, d, u_choice, live_hit, uids, rng_key, depth, PATH_T_MIN,
+                max_trace_dist, intersect=intersect,
+            )
+            rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
+            prev_nee = live_hit & did
+            segs = segs + shadow
+
         thr = torch.where(live_hit[:, None], thr * factor, thr)
         o = torch.where(live_hit[:, None], hit.point, o)
         d = torch.where(live_hit[:, None], new_dir, d)
-    segs = alive.sum()
-    return o, d, thr, rad, live_hit, segs
+    return o, d, thr, rad, live_hit, prev_nee, segs
 
 
 def path_trace(
@@ -136,9 +159,9 @@ def path_trace(
     for depth in range(path_depth):
         if stats is not None:
             stats["segs"] = stats.get("segs", 0) + alive.to(torch.int64)
-        o, d, thr, rad, alive, segs = _bounce_update(
-            scene, o, d, thr, rad, alive, uids, rng_key,
-            rnglib.SITE_BOUNCE0 + depth, max_trace_dist, intersect=intersect,
+        o, d, thr, rad, alive, _, segs = bounce_update(
+            scene, o, d, thr, rad, alive, uids, rng_key, depth, max_trace_dist,
+            intersect=intersect,
         )
         segments = segments + segs
     return rad, segments
@@ -168,117 +191,23 @@ def path_trace_shrink(
     rng_key,
     path_depth: int,
     max_trace_dist: float,
+    *,
+    nee: bool = False,
+    intersect=intersect_scene,
 ):
-    """path_trace one bounce at a time through intersect_scene, the
-    wavefront compacted to its live rays after every bounce.
+    """path_trace one bounce at a time, the wavefront compacted to its live
+    rays after every bounce; with nee, the next-event estimator
+    (render/nee.py) under the same compaction, one executor for what the
+    JAX package splits in two (path_trace_nee and path_trace_nee_shrink).
 
     After a bounce a stable partition puts the dead rays last, the live
     count is read on the host (one sync per bounce), the dead rows retire
     their radiance into the output at their caller position, and the next
-    bounce runs on exactly the live rows. The RNG follows each ray's uid,
-    so the radiance is the same, bit for bit, as path_trace's with the same
-    intersection, in whatever order the rays come.
-
-    Returns (radiance (N, 3) float32 in the caller's order, segments int64
-    scalar tensor).
-    """
-    n = o.shape[0]
-    dev = o.device
-    thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
-    rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    pos = torch.arange(n, device=dev)
-    out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    segments = torch.zeros((), dtype=torch.int64, device=dev)
-    for depth in range(path_depth):
-        with profiling.span("render.bounce"):
-            o, d, thr, rad, alive, segs = _bounce_update(
-                scene, o, d, thr, rad, alive, uids, rng_key, rnglib.SITE_BOUNCE0 + depth,
-                max_trace_dist, intersect=intersect_scene,
-            )
-            segments = segments + segs
-            if depth == path_depth - 1:
-                break
-            keep, n_alive = _compact(alive, pos, rad, out)
-            o, d, thr, rad, uids = o[keep], d[keep], thr[keep], rad[keep], uids[keep]
-            pos, alive = pos[keep], alive[keep]
-            if n_alive == 0:
-                break
-    out[pos] = rad
-    return out, segments
-
-
-def _nee_bounce_update(scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, depth,
-                       max_trace_dist, do_nee: bool, intersect=intersect_scene):
-    """One bounce of the NEE estimator (integrator.py:420 in the JAX
-    package). It draws at the sites of _bounce_update, so turning NEE on
-    changes the estimator, not the sampled paths; it suppresses the
-    emission found after a vertex that did NEE (prev_nee), and adds the
-    direct-light term where do_nee (False on the last bounce, which keeps
-    the expectation of the depth-limited plain estimator).
-
-    Returns (o, d, thr, rad, live_hit, prev_nee, segments this bounce:
-    the live rays and the shadow rays shot)."""
-    ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, rnglib.SITE_BOUNCE0 + depth)
-    t_max = torch.where(
-        alive,
-        torch.full_like(alive, max_trace_dist, dtype=torch.float32),
-        torch.zeros_like(alive, dtype=torch.float32),
-    )
-    hit = intersect(scene, o, d, PATH_T_MIN, t_max, u_vol)
-
-    live_hit = alive & hit.valid
-    live_miss = alive & ~hit.valid
-    rad = rad + torch.where(live_miss[:, None], thr * background_color(d), 0.0)
-    # emission, less what the previous vertex's NEE sample already covered
-    emit_ok = live_hit & ~prev_nee
-    rad = rad + torch.where(emit_ok[:, None], thr * hit.emission, 0.0)
-
-    with profiling.span("render.shade"):
-        new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
-        has_normal = vm.magnitude2(hit.normal) > 0.0
-        dot_term = torch.where(
-            has_normal,
-            torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
-            torch.ones_like(inv_pdf),
-        )
-        factor = (dot_term * inv_pdf)[:, None] * att
-
-        segs = alive.sum()
-        if do_nee:
-            contrib, did, shadow = nee.direct_light(
-                scene, hit, d, u_choice, live_hit, uids, rng_key, depth, PATH_T_MIN,
-                max_trace_dist, intersect=intersect,
-            )
-            rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
-            prev_nee = live_hit & did
-            segs = segs + shadow
-        else:
-            prev_nee = torch.zeros_like(alive)
-
-        thr = torch.where(live_hit[:, None], thr * factor, thr)
-        o = torch.where(live_hit[:, None], hit.point, o)
-        d = torch.where(live_hit[:, None], new_dir, d)
-    return o, d, thr, rad, live_hit, prev_nee, segs
-
-
-def path_trace_nee(
-    scene: SceneData,
-    o: torch.Tensor,
-    d: torch.Tensor,
-    uids: torch.Tensor,
-    rng_key,
-    path_depth: int,
-    max_trace_dist: float,
-    intersect=intersect_scene,
-):
-    """path_trace with next-event estimation (render/nee.py), one bounce at
-    a time with the compaction of path_trace_shrink: after each bounce the
-    dead rows retire and the next bounce, its shadow rays included, runs
-    on the live rows only. The suppression flag prev_nee rides the
-    compaction with the rest of the state. One executor for what the JAX
-    package splits in two (path_trace_nee and path_trace_nee_shrink);
-    both give these rays' radiance, in whatever order the rays come.
+    bounce, its shadow rays included, runs on exactly the live rows; NEE's
+    suppression flags ride the compaction with the rest of the state. The
+    RNG follows each ray's uid, so the radiance is the same, bit for bit,
+    in whatever order the rays come (without NEE, path_trace's with the
+    same intersection).
 
     intersect: intersect_scene (K2 and K3 for CUDA tensors, the plain
     version for CPU tensors) or intersect_scene_plain (the plain version
@@ -286,8 +215,9 @@ def path_trace_nee(
 
     Returns (radiance (N, 3) float32 in the caller's order, segments: an
     int64 scalar tensor counting the path segments and the shadow rays
-    shot)."""
-    if not scene.nee_ok:
+    shot).
+    """
+    if nee and not scene.nee_ok:
         raise ValueError("NEE needs every emissive object to be a standalone Triangle or "
                          "Sphere, and at least one (the scene compiled with nee_ok False)")
     n = o.shape[0]
@@ -295,22 +225,24 @@ def path_trace_nee(
     thr = torch.ones((n, 3), dtype=torch.float32, device=dev)
     rad = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
-    prev_nee = torch.zeros((n,), dtype=torch.bool, device=dev)
+    prev_nee = None
     pos = torch.arange(n, device=dev)
     out = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     segments = torch.zeros((), dtype=torch.int64, device=dev)
     for depth in range(path_depth):
         with profiling.span("render.bounce"):
-            o, d, thr, rad, alive, prev_nee, segs = _nee_bounce_update(
-                scene, o, d, thr, rad, alive, prev_nee, uids, rng_key, depth, max_trace_dist,
-                do_nee=depth < path_depth - 1, intersect=intersect,
+            o, d, thr, rad, alive, prev_nee, segs = bounce_update(
+                scene, o, d, thr, rad, alive, uids, rng_key, depth, max_trace_dist,
+                intersect=intersect, prev_nee=prev_nee, do_nee=nee and depth < path_depth - 1,
             )
             segments = segments + segs
             if depth == path_depth - 1:
                 break
             keep, n_alive = _compact(alive, pos, rad, out)
             o, d, thr, rad, uids = o[keep], d[keep], thr[keep], rad[keep], uids[keep]
-            pos, alive, prev_nee = pos[keep], alive[keep], prev_nee[keep]
+            pos, alive = pos[keep], alive[keep]
+            if prev_nee is not None:
+                prev_nee = prev_nee[keep]
             if n_alive == 0:
                 break
     out[pos] = rad

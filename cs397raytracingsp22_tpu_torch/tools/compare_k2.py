@@ -94,8 +94,8 @@ def k2_inputs(dev) -> list:
             calls.append(a)
         return isect.intersect_scene(*a)
 
-    integrator.path_trace_nee(sd, o, d, uids, key, sc.camera.path_depth,
-                              sc.camera.max_trace_dist, intersect=record)
+    integrator.path_trace_shrink(sd, o, d, uids, key, sc.camera.path_depth,
+                                 sc.camera.max_trace_dist, nee=True, intersect=record)
     n = o.shape[0]
     for name, (_, o_, d_, t0, t1, u_) in zip(("NEE bounce 0", "NEE shadow rays"), calls):
         full = [torch.broadcast_to(torch.as_tensor(t, dtype=torch.float32, device=dev), (n,))

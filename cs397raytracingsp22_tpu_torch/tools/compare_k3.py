@@ -40,7 +40,7 @@ from cs397raytracingsp22_tpu_torch.ops import intersect as isect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build, scene_intersect, tri_scan, tri_scan_big
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
 from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k
-from cs397raytracingsp22_tpu_torch.utils import rng, threefry
+from cs397raytracingsp22_tpu_torch.utils import threefry
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 SIDE, SPP = 512, 64  # the bench frame
@@ -228,9 +228,8 @@ def main() -> int:
     thr, rad = torch.ones_like(o), torch.zeros_like(o)
     alive = torch.ones((o.shape[0],), dtype=torch.bool, device=dev)
     for b in range(2):  # as chip_smoke.py's staged parity phase
-        o, d, thr, rad, alive, _ = integrator._bounce_update(
-            sd32, o, d, thr, rad, alive, uid, key, rng.SITE_BOUNCE0 + b, MAX_DIST,
-            intersect=isect.intersect_scene)
+        o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+            sd32, o, d, thr, rad, alive, uid, key, b, MAX_DIST, intersect=isect.intersect_scene)
     bounce2 = k3_inputs(sd32, o.contiguous(), d.contiguous(), alive)
     del thr, rad, alive
     aimed = k3_inputs(sd32, *aimed_rays(mesh32, o.shape[0], dev))

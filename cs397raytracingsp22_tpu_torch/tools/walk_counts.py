@@ -67,8 +67,8 @@ def walk_counts(pixels: int = 256, device="cuda") -> list[dict]:
             nodes=float(nodes.float().mean()),
             warp_nodes_max=float(nodes.view(-1, WARP).amax(dim=1).float().mean()),
             hits=int((walk.hit & alive).sum())))
-        o, d, thr, rad, alive, _ = integrator._bounce_update(
-            sd, o, d, thr, rad, alive, uid, key, site, sc.camera.max_trace_dist,
+        o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+            sd, o, d, thr, rad, alive, uid, key, b, sc.camera.max_trace_dist,
             intersect=isect.intersect_scene_plain)
     return out
 

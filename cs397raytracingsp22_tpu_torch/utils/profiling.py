@@ -21,9 +21,9 @@ The spans of the render path, outermost first:
 | `render.image` | render/driver.py::render_to_image | one image |
 | `render.chunk` | the driver's chunk loop | one chunk's dispatch (its retries) and accumulation |
 | `render.k1` | render/driver.py::render_chunk | the mega-bounce kernel's call |
-| `render.bounce` | integrator.path_trace_shrink, path_trace_nee | one bounce, its compaction included |
+| `render.bounce` | integrator.path_trace_shrink | one bounce, its compaction included |
 | `render.intersect` | ops/intersect.py::intersect_scene | K2, K3, the general volumes, the merged resolve |
-| `render.shade` | integrator._bounce_update, _nee_bounce_update | the BSDF and the path's update |
+| `render.shade` | integrator.bounce_update | after the miss term: the emission term, the BSDF, NEE and the path's update |
 | `render.nee` | render/nee.py::direct_light | the shadow rays |
 | `render.live_count` | integrator._compact | the host's read of the live count (it waits for the card) |
 | `render.finish` | the driver, after the last chunk | the image's end-of-render reads, tonemap and pull |

@@ -330,9 +330,7 @@ def _render_counts(scene, cuda, monkeypatch):
             return fn(*args, **kwargs)
         return wrapper
 
-    monkeypatch.setattr(integrator, "_bounce_update", counted("bounce", integrator._bounce_update))
-    monkeypatch.setattr(integrator, "_nee_bounce_update",
-                        counted("bounce", integrator._nee_bounce_update))
+    monkeypatch.setattr(integrator, "bounce_update", counted("bounce", integrator.bounce_update))
     monkeypatch.setattr(nee, "direct_light", counted("nee", nee.direct_light))
     before = _launches()
     _, stats = driver.render_to_image(scene, device=cuda, seed=11, verbose=False)

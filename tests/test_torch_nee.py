@@ -1,5 +1,5 @@
 """Next-event estimation in the torch port (render/nee.py,
-integrator.path_trace_nee) against the JAX package's.
+integrator.path_trace_shrink with nee=True) against the JAX package's.
 
 - the light tables, nee_ok, point_light_pos and ambient: equal to JAX's
   exactly, on scenes with triangle and sphere lights and on scenes that
@@ -275,7 +275,7 @@ def executor_run(request):
     ref_rad, ref_segs = jint.path_trace_nee(jsd, jnp.asarray(o), jnp.asarray(d),
                                             jnp.asarray(uids), key, DEPTH, MAX_DIST)
     ins = [torch.from_numpy(x) for x in (o, d, uids)]
-    rad, segs = tint.path_trace_nee(tsd, *ins, key, DEPTH, MAX_DIST)
+    rad, segs = tint.path_trace_shrink(tsd, *ins, key, DEPTH, MAX_DIST, nee=True)
     return tsd, ins, key, (rad, segs), (np.asarray(ref_rad), float(ref_segs))
 
 
@@ -296,7 +296,8 @@ def test_path_trace_nee_matches_jax(executor_run):
 def test_path_trace_nee_is_order_invariant(executor_run):
     tsd, (o, d, uids), key, (rad, segs), _ = executor_run
     perm = torch.from_numpy(np.random.default_rng(1).permutation(o.shape[0]))
-    rad_p, segs_p = tint.path_trace_nee(tsd, o[perm], d[perm], uids[perm], key, DEPTH, MAX_DIST)
+    rad_p, segs_p = tint.path_trace_shrink(tsd, o[perm], d[perm], uids[perm], key, DEPTH, MAX_DIST,
+                                           nee=True)
     assert torch.equal(rad_p, rad[perm]) and int(segs_p) == int(segs)
 
 
@@ -312,7 +313,7 @@ def test_nee_same_mean_lower_variance():
     pixel_ids = torch.arange(n_px, dtype=torch.int32) * 7 % 256
     o, d, uids = tdriver._gen_chunk_rays(scene.camera, pixel_ids, key, 0, spp, 1)
     plain, _ = tint.path_trace(data, o, d, uids, key, depth, MAX_DIST)
-    neer, _ = tint.path_trace_nee(data, o, d, uids, key, depth, MAX_DIST)
+    neer, _ = tint.path_trace_shrink(data, o, d, uids, key, depth, MAX_DIST, nee=True)
     plain = plain.numpy().reshape(n_px, spp, 3)
     neer = neer.numpy().reshape(n_px, spp, 3)
     pm, nm = plain.mean(axis=1), neer.mean(axis=1)
@@ -335,7 +336,8 @@ def test_driver_refuses_nee_where_it_is_wrong():
         data = sc.compile(device="cpu")
         ray = torch.zeros((1, 3))
         with pytest.raises(ValueError, match="nee_ok"):
-            tint.path_trace_nee(data, ray, ray + 1, torch.zeros(1, dtype=torch.int32), 0, 2, 9.0)
+            tint.path_trace_shrink(data, ray, ray + 1, torch.zeros(1, dtype=torch.int32), 0, 2,
+                                   9.0, nee=True)
 
 
 def test_nee_render_matches_jax():
@@ -372,11 +374,11 @@ def test_path_trace_nee_on_card_matches_plain(big):
     o, d, uids = tdriver._gen_chunk_rays(scene.camera, torch.arange(32 * 32, dtype=torch.int32,
                                                                     device=dev), 5, 0, 4, 1)
     k2, k3 = scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
-    rad, segs = tint.path_trace_nee(data, o, d, uids, 5, DEPTH, MAX_DIST)
+    rad, segs = tint.path_trace_shrink(data, o, d, uids, 5, DEPTH, MAX_DIST, nee=True)
     torch.cuda.synchronize()
     assert scene_intersect.LAUNCHES - k2 == 2 * DEPTH - 1
     assert tri_scan_big.LAUNCHES - k3 == ((2 * DEPTH - 1) * 2 if big else 0)
-    ref, ref_segs = tint.path_trace_nee(data, o, d, uids, 5, DEPTH, MAX_DIST,
-                                        intersect=intersect_scene_plain)
+    ref, ref_segs = tint.path_trace_shrink(data, o, d, uids, 5, DEPTH, MAX_DIST, nee=True,
+                                           intersect=intersect_scene_plain)
     assert_paths_match(rad.cpu().numpy(), segs, ref.cpu().numpy(), ref_segs,
                        depth=2 * DEPTH - 1)

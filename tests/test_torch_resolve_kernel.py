@@ -405,9 +405,8 @@ def test_rendered_rays_on_card(cuda, name, monkeypatch):
     thr, rad = torch.ones_like(o), torch.zeros_like(o)
     alive = torch.ones((o.shape[0],), dtype=torch.bool, device=cuda)
     for b in range(4):
-        o, d, thr, rad, alive, _ = integrator._bounce_update(
-            sd, o, d, thr, rad, alive, uids, 5, rnglib.SITE_BOUNCE0 + b, 100.0,
-            intersect=isect.intersect_scene)
+        o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+            sd, o, d, thr, rad, alive, uids, 5, b, 100.0, intersect=isect.intersect_scene)
     assert calls[0] == 4
     assert mesh_hits, name
 

@@ -124,8 +124,9 @@ def bounce_rays(sd, cam, bounces):
         if b in bounces:
             u_vol = integrator._bounce_draws(sd, 3, uids, site)[2]
             out[b] = (o, d, torch.where(alive, 100.0, 0.0), u_vol)
-        o, d, thr, rad, alive, _ = integrator._bounce_update(sd, o, d, thr, rad, alive, uids, 3,
-                                                             site, 100.0)
+        o, d, thr, rad, alive, _, _ = integrator.bounce_update(
+            sd, o, d, thr, rad, alive, uids, 3, b, 100.0,
+            intersect=isect.intersect_scene_plain)
     return out
 
 

@@ -320,7 +320,8 @@ def test_render_chunk_takes_the_staged_path(monkeypatch):
     calls = []
     shrink = tint.path_trace_shrink
     monkeypatch.setattr(tbounce, "path_trace_cuda", refuse)
-    monkeypatch.setattr(tint, "path_trace_shrink", lambda *a: calls.append(1) or shrink(*a))
+    monkeypatch.setattr(tint, "path_trace_shrink",
+                        lambda *a, **k: calls.append(1) or shrink(*a, **k))
     rad, segs = tdriver.render_chunk(sd, cam, torch.arange(16, dtype=torch.int32), 0, 0, 2)
     assert calls and rad.shape == (16, 3) and int(segs) >= 32
 

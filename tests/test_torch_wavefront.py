@@ -2,7 +2,7 @@
 one step per bounce, a stable dead-last partition between bounces)
 against the JAX package.
 
-On CPU tensors the port runs its plain step (integrator._bounce_update on
+On CPU tensors the port runs its plain step (integrator.bounce_update on
 intersect_scene_plain) through the same loop, partition and un-permute
 that K4 runs on the card. Tolerances:
 - the executor against the JAX integrator.path_trace: K1's contract
