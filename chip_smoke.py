@@ -247,6 +247,14 @@ port's tools:
      bound (bytes: what each ray needs read once, the outputs written once)
      and the plain version's ms. Phase 2 prints R1's registers and fails on
      spills.
+ 38. shade (run right after phase 37): S1, the per-bounce shading kernel
+     (csrc/shade.cu), on the shading calls of config 5's chunk 0 at bounce 0
+     (4,194,304 rays, the path's instantiation) and of the bench teapot's NEE
+     chunk 0 at bounce 0 (1,048,576 rays, NEE's): every output
+     bit-identical to ops/bsdf.py::shade_plain on the same card (NaN where
+     it has NaN), S1's ms (CUDA events) beside its bound (bytes: what each
+     ray needs read once, the outputs written once) and the plain version's
+     ms. Phase 2 prints S1's registers and fails on spills.
  36. rtnw (run right after phase 35): K1's sphere tree on the final scene of
      The Next Week (scenes/rtnw_final.py, 800² × 64 spp, depth 40, 1,006
      spheres): on chunk 0's camera rays and the rays entering bounce 3 of
@@ -284,7 +292,8 @@ of phase 7 (camera rays), the timed renders of phase 10 (camera rays,
 bounce draws) and the timed NEE renders of phase 25 (all three); R1's
 (one per intersect_scene call on a scene with meshes) of the windows of
 K2's in this process: phases 10, 25-29, 31, 33 and 34 (phase 32's ranks
-do not report it). Each
+do not report it); S1's (one a bounce of the staged and NEE executors) of
+the same windows. Each
 counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
 plain version fall outside.
@@ -361,6 +370,9 @@ RTNW_STRIDE, RTNW_MIN_FRAC, RTNW_SEG_RTOL = 61, 0.99, 0.05
 D1_MAIN = {"camera_rays": 0, "bounce_draws": 0, "counter_uniforms": 0}
 # R1's launches on the main paths: what r1_read adds up after each window
 R1_MAIN = [0]
+# S1's launches on the same windows (one a bounce of the staged and NEE
+# executors)
+S1_MAIN = [0]
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
 # multiplies in one Möller–Trumbore test of csrc/tri_scan.cu (q 6, det 3,
@@ -568,15 +580,18 @@ def draws_read() -> None:
 
 
 def r1_reset() -> None:
-    """Zero R1's counter just before a main path runs."""
-    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve
+    """Zero R1's and S1's counters just before a main path runs."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve, shade
     resolve.LAUNCHES["resolve"] = 0
+    shade.LAUNCHES["shade"] = 0
 
 
 def r1_read() -> None:
-    """Add R1's counter, read just after a main path ran, to R1_MAIN."""
-    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve
+    """Add R1's and S1's counters, read just after a main path ran, to
+    R1_MAIN and S1_MAIN."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve, shade
     R1_MAIN[0] += resolve.LAUNCHES["resolve"]
+    S1_MAIN[0] += shade.LAUNCHES["shade"]
 
 
 def rtnw_phase(dev) -> None:
@@ -794,6 +809,114 @@ def resolve_phase(dev) -> dict:
         if row is None:
             row = {"name": "resolve", "route": "cuda",
                    "source": "cs397raytracingsp22_tpu_torch/csrc/resolve.cu", "replaces": None,
+                   "launches": 0, "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+    return row
+
+
+def shade_bytes(hit, state: dict, nee_inputs: dict) -> int:
+    """The bytes a shading over these inputs needs, each once: every ray's
+    alive and valid flags, thr and rad (26 B) and its rad, o, d, thr and
+    live flag written (49 B); a live hit's point, normal, type, albedo, d,
+    ball and branch uniform (68 B), its roughness (Metal, Parameterized),
+    metallic (Parameterized), ior and front face (Dielectric), and its
+    emission where it counts (12 B); any other ray's o and d (24 B); a live
+    hit's NEE flag (1 B) where the flags are given; with a sample every
+    ray's flag written (1 B) and a live hit's contrib and did (13 B)."""
+    from cs397raytracingsp22_tpu_torch.models import materials as mat
+
+    live = state["alive"] & hit.valid
+    n, n_live = live.numel(), int(live.sum())
+    mt = hit.mtype[live]
+    per_type = torch.zeros(8, dtype=torch.int64, device=mt.device)
+    per_type[mat.METAL], per_type[mat.DIELECTRIC], per_type[mat.PARAMETERIZED] = 4, 5, 8
+    emit = live if nee_inputs["prev_nee"] is None else live & ~nee_inputs["prev_nee"]
+    total = (75 * n + 68 * n_live + int(per_type[mt.clamp(0, 7).long()].sum())
+             + 12 * int(emit.sum()) + 24 * (n - n_live))
+    if nee_inputs["prev_nee"] is not None:
+        total += n_live
+    if nee_inputs["contrib"] is not None:
+        total += n + 13 * n_live
+    return total
+
+
+def shade_phase(dev) -> dict:
+    """Phase 38: S1 against shade_plain on the shading calls of config 5's
+    chunk 0 (bounce 0) and of the NEE bench chunk 0 (bounce 0); returns the
+    kernels line's row (config 5's)."""
+    import dataclasses
+
+    from cs397raytracingsp22_tpu_torch.ops import bsdf
+    from cs397raytracingsp22_tpu_torch.ops.kernels import shade
+    from cs397raytracingsp22_tpu_torch.render import integrator
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene, drone_demo
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    key = threefry.key_words(2**33 + 38)
+    sc5 = drone_demo.build(**CONFIG5)
+    sc6 = bench_scene.build(**RESOLVE_NEE_FRAME)
+    sc6 = dataclasses.replace(sc6, camera=dataclasses.replace(sc6.camera, nee=True))
+    row = None
+    for sc, what in ((sc5, "config 5 bounce 0"), (sc6, "bench NEE bounce 0")):
+        sd = sc.compile(device=dev)
+        cam = sc.camera
+        _, (o, d, uids) = chunk0(sd, cam, key)
+        real, got = shade.shade_update, {}
+
+        def recorder(hit, o_, d_, thr, rad, alive, ball, u_choice, prev_nee=None, nee=None):
+            got["args"] = (hit, dict(o=o_, d=d_, thr=thr, rad=rad, alive=alive, ball=ball,
+                                     u_choice=u_choice), prev_nee, nee)
+            raise _Captured
+
+        shade.shade_update = recorder
+        try:
+            integrator.path_trace_shrink(sd, o, d, uids, key, cam.path_depth,
+                                         cam.max_trace_dist, nee=cam.nee)
+        except _Captured:
+            pass
+        finally:
+            shade.shade_update = real
+        del o, d, uids
+        hit, state, prev_nee, sample = got["args"]
+        before = shade.LAUNCHES["shade"]
+        out = shade.shade_update(hit, **state, prev_nee=prev_nee, nee=sample)
+        want = bsdf.shade_plain(hit, **state, prev_nee=prev_nee, nee=sample)
+        torch.cuda.synchronize()
+        if shade.LAUNCHES["shade"] != before + 1:
+            raise AssertionError(f"S1 {what}: the shading did not launch S1 once")
+        for name, a, b in zip(("o", "d", "thr", "rad", "live_hit", "prev_nee"), out, want):
+            if (a is None) != (b is None):
+                raise AssertionError(f"S1 {what}: {name} is {a} where the plain version's is {b}")
+            if a is None:
+                continue
+            if a.dtype != b.dtype or a.shape != b.shape:
+                raise AssertionError(f"S1 {what}: {name} is {a.dtype} {tuple(a.shape)}, the "
+                                     f"plain version's {b.dtype} {tuple(b.shape)}")
+            if a.dtype == torch.float32:
+                same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+            else:
+                same = a == b
+            if not bool(same.all()):
+                bad = int((~same).reshape(a.shape[0], -1).any(dim=1).sum())
+                raise AssertionError(f"S1 {what}: {name} differs from the plain version on {bad} "
+                                     f"of {a.shape[0]} rays")
+        contrib, did = sample if sample is not None else (None, None)
+        nee_inputs = dict(prev_nee=prev_nee, contrib=contrib, did=did)
+        bufs = dict(zip(("o_out", "d_out", "thr_out", "rad_out", "live_hit", "prev_out"), out))
+        n = state["alive"].numel()
+        n_live = int(out[4].sum())
+        k_ms = cuda_ms(lambda: shade.launch(hit, state, nee_inputs, bufs), 20)
+        p_ms = cuda_ms(lambda: bsdf.shade_plain(hit, **state, prev_nee=prev_nee, nee=sample), 3)
+        b_ms, by = bound(shade_bytes(hit, state, nee_inputs), 0)
+        regs, spill = shade.kernel_attrs(nee=sample is not None)
+        log("shade", f"S1 {what} ({n} rays, {n_live} live hits, "
+            f"{'NEE' if sample is not None else 'path'} instantiation, {regs} registers, "
+            f"{spill} B local): every output bit-identical to shade_plain; {k_ms:.4f} ms (bound "
+            f"{b_ms:.4f} ms, {by}: {b_ms / k_ms:.1%}), plain torch {p_ms:.3f} ms "
+            f"({p_ms / k_ms:.0f}x)")
+        if row is None:
+            row = {"name": "shade", "route": "cuda",
+                   "source": "cs397raytracingsp22_tpu_torch/csrc/shade.cu", "replaces": None,
                    "launches": 0, "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
                    "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     return row
@@ -3322,7 +3445,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from PIL import Image
 
-    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, resolve
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, resolve, shade
     from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan, tri_scan_big
     from cs397raytracingsp22_tpu_torch.ops.kernels import wavefront
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
@@ -3351,7 +3474,9 @@ def main() -> int:
                                ("D1 counter uniforms", "draws", draws,
                                 {"entry": "counter_uniforms"}),
                                ("R1", "resolve", resolve, {}),
-                               ("R1 bare", "resolve", resolve, {"which": 0})):
+                               ("R1 bare", "resolve", resolve, {"which": 0}),
+                               ("S1", "shade", shade, {}),
+                               ("S1 NEE", "shade", shade, {"nee": True})):
         regs, spill = mod.kernel_attrs(**kw)
         ptxas = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -3361,7 +3486,7 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if (kid.startswith(("K4", "D1", "R1"))
+        if (kid.startswith(("K4", "D1", "R1", "S1"))
                 or kid in ("K1 no mesh", "K1 sphere tree", "K3", "K5")) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
@@ -3384,6 +3509,8 @@ def main() -> int:
     rtnw_phase(dev)
     # ---- 37. the merged-resolve kernel against its plain version ----
     resolve_row = resolve_phase(dev)
+    # ---- 38. the shading kernel against its plain version ----
+    shade_row = shade_phase(dev)
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -3576,7 +3703,7 @@ def main() -> int:
         "library_ms": None,
     }] + staged + k45 + probes + [dict(row, launches=D1_MAIN[row["name"][6:]])
                                   for row in draw_rows]
-        + [dict(resolve_row, launches=R1_MAIN[0])]}))
+        + [dict(resolve_row, launches=R1_MAIN[0]), dict(shade_row, launches=S1_MAIN[0])]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

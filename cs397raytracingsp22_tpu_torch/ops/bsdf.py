@@ -2,7 +2,10 @@
 
 Mirrors `cs397raytracingsp22_tpu/ops/bsdf.py` in plain torch; the CUDA
 mega-bounce kernel (csrc/bounce.cu) evaluates the same five branches
-per ray.
+per ray. `shade_plain` is the whole of a bounce's shading around the
+scatter (the miss and emission terms, the dot term, NEE's term, the path's
+update): the plain version of the shading kernel S1 (csrc/shade.cu), which
+evaluates each ray's own branch alone, bit for bit.
 
 The reference dispatches `hit.material.scatter(&hit, &ray)` through an
 `Arc<dyn Material>` vtable per ray (materials.rs:12-15). Here all five
@@ -124,3 +127,52 @@ def scatter(
     att = pick(lam_att, met_att, die_att, par_att, iso_att)
     inv_pdf = pick(lam_ipdf, met_ipdf, die_ipdf, par_ipdf, iso_ipdf)
     return new_dir, att, inv_pdf
+
+
+def background_color(d: torch.Tensor) -> torch.Tensor:
+    """Black void (tracing.rs:266-274)."""
+    return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32, device=d.device)
+
+
+def shade_plain(hit: HitRecord, o, d, thr, rad, alive, ball, u_choice, prev_nee=None, nee=None):
+    """One bounce's shading after the intersection (tracing.rs:306-322), in
+    plain torch: the plain version of the shading kernel S1
+    (ops/kernels/shade.py::shade_update, which runs it for CPU tensors).
+
+    Misses add background·throughput, then die; live hits add their
+    emission (not where prev_nee flags a previous NEE sample that covered
+    it), scatter, and carry throughput·dot·brdf/pdf on from the hit point.
+    nee: None, or (contrib (N, 3), did (N,) bool), the bounce's NEE sample
+    (render/nee.py::direct_light): its term is added with the throughput
+    from before the update, and the flags live_hit & did come back for the
+    next vertex. The adds to the radiance come in this order: miss,
+    emission, NEE.
+
+    Returns (o, d, thr, rad, live_hit, prev_nee): prev_nee None unless nee
+    is given."""
+    live_hit = alive & hit.valid
+    live_miss = alive ^ live_hit  # alive & ~valid
+    rad = rad + torch.where(live_miss[:, None], thr * background_color(d), 0.0)
+    emit = live_hit if prev_nee is None else live_hit & ~prev_nee
+    rad = rad + torch.where(emit[:, None], thr * hit.emission, 0.0)
+    new_dir, att, inv_pdf = scatter(hit, d, ball, u_choice)
+    # dot term |new_dir·n| clamped to [0, 1]; 1 for zero-normal volume
+    # hits (tracing.rs:313)
+    has_normal = vm.magnitude2(hit.normal) > 0.0
+    dot_term = torch.where(
+        has_normal,
+        torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
+        torch.ones_like(inv_pdf),
+    )
+    factor = (dot_term * inv_pdf)[:, None] * att
+
+    prev_out = None
+    if nee is not None:
+        contrib, did = nee
+        rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
+        prev_out = live_hit & did
+
+    thr = torch.where(live_hit[:, None], thr * factor, thr)
+    o = torch.where(live_hit[:, None], hit.point, o)
+    d = torch.where(live_hit[:, None], new_dir, d)
+    return o, d, thr, rad, live_hit, prev_out

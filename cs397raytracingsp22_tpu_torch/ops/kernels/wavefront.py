@@ -151,12 +151,14 @@ def radiance_in_caller_order(rows: torch.Tensor) -> torch.Tensor:
 
 def step_plain(scene: SceneData, rows, alive, rng_key, depth: int, max_trace_dist: float):
     """One bounce of every row by the plain version
-    (integrator.bounce_update on intersect_scene_plain). Returns new
+    (integrator.bounce_update on intersect_scene_plain; the state's columns
+    packed, as the shading kernel S1 takes them on the card). Returns new
     (rows, alive)."""
+    o, d, thr, rad = (rows[:, cols].contiguous()
+                      for cols in (STATE_O, STATE_D, STATE_THR, STATE_RAD))
     o, d, thr, rad, live, _, _ = integrator.bounce_update(
-        scene, rows[:, STATE_O], rows[:, STATE_D], rows[:, STATE_THR], rows[:, STATE_RAD],
-        alive != 0, rows.view(torch.int32)[:, STATE_UID].contiguous(), rng_key, depth,
-        max_trace_dist, intersect=intersect_scene_plain,
+        scene, o, d, thr, rad, alive != 0, rows.view(torch.int32)[:, STATE_UID].contiguous(),
+        rng_key, depth, max_trace_dist, intersect=intersect_scene_plain,
     )
     out = rows.clone()
     out[:, STATE_O], out[:, STATE_D], out[:, STATE_THR], out[:, STATE_RAD] = o, d, thr, rad

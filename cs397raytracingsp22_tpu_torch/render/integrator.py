@@ -16,7 +16,10 @@ runs it for CPU tensors, and the kernel is held against it on the card.
 kernel's gates, and next-event estimation with `nee=True`): the same
 estimator one bounce at a time, compacting the wavefront to its live rays
 after every bounce. `bounce_update` is the one bounce body all of them
-share, with or without NEE (render/nee.py), and `phong_trace` the
+share, with or without NEE (render/nee.py): the draws, the intersection,
+and the shading after it, one launch of the shading kernel S1
+(ops/kernels/shade.py) for CUDA tensors and its plain version
+ops/bsdf.py::shade_plain for CPU tensors. `phong_trace` is the
 reference's Phong shading with hard shadows. The executors take
 `intersect=`: `intersect_scene` (K2, and K3 per big mesh, for CUDA
 tensors; the plain version for CPU tensors) by default,
@@ -32,7 +35,7 @@ import torch
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops import bsdf
 from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene, intersect_scene_plain
-from cs397raytracingsp22_tpu_torch.ops.kernels import draws
+from cs397raytracingsp22_tpu_torch.ops.kernels import draws, shade
 from cs397raytracingsp22_tpu_torch.render import nee
 from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
@@ -42,11 +45,6 @@ from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 # (tracing.rs:289)
 PATH_T_MIN = 0.001
 PHONG_SHADOW_OFFSET = 0.01
-
-
-def background_color(d: torch.Tensor) -> torch.Tensor:
-    """Black void (tracing.rs:266-274)."""
-    return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32, device=d.device)
 
 
 def _bounce_draws(scene: SceneData, rng_key, uids: torch.Tensor, site):
@@ -87,42 +85,22 @@ def bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, depth, max_trace_
         torch.zeros_like(alive, dtype=torch.float32),
     )
     hit = intersect(scene, o, d, PATH_T_MIN, t_max, u_vol)
-
-    live_hit = alive & hit.valid
-    live_miss = alive & ~hit.valid
-
-    # miss: background·throughput, then die (tracing.rs:306)
-    rad = rad + torch.where(live_miss[:, None], thr * background_color(d), 0.0)
     segs = alive.sum()
 
-    # hit: emission + scatter (tracing.rs:307-322)
+    # miss, emission and scatter, then the path's update (tracing.rs:306-322):
+    # NEE's sample first (its inputs come from no scatter), then one launch of
+    # the shading kernel S1 for CUDA tensors, the plain version for CPU tensors
     with profiling.span("render.shade"):
-        emit = live_hit if prev_nee is None else live_hit & ~prev_nee
-        rad = rad + torch.where(emit[:, None], thr * hit.emission, 0.0)
-        new_dir, att, inv_pdf = bsdf.scatter(hit, d, ball, u_choice)
-        # dot term |new_dir·n| clamped to [0, 1]; 1 for zero-normal volume
-        # hits (tracing.rs:313)
-        has_normal = vm.magnitude2(hit.normal) > 0.0
-        dot_term = torch.where(
-            has_normal,
-            torch.clamp(torch.abs(vm.dot(new_dir, hit.normal)), 0.0, 1.0),
-            torch.ones_like(inv_pdf),
-        )
-        factor = (dot_term * inv_pdf)[:, None] * att
-
-        prev_nee = None
+        sample = None
         if do_nee:
             contrib, did, shadow = nee.direct_light(
-                scene, hit, d, u_choice, live_hit, uids, rng_key, depth, PATH_T_MIN,
+                scene, hit, d, u_choice, alive & hit.valid, uids, rng_key, depth, PATH_T_MIN,
                 max_trace_dist, intersect=intersect,
             )
-            rad = rad + torch.where(live_hit[:, None], thr * contrib, 0.0)
-            prev_nee = live_hit & did
+            sample = (contrib, did)
             segs = segs + shadow
-
-        thr = torch.where(live_hit[:, None], thr * factor, thr)
-        o = torch.where(live_hit[:, None], hit.point, o)
-        d = torch.where(live_hit[:, None], new_dir, d)
+        o, d, thr, rad, live_hit, prev_nee = shade.shade_update(
+            hit, o, d, thr, rad, alive, ball, u_choice, prev_nee=prev_nee, nee=sample)
     return o, d, thr, rad, live_hit, prev_nee, segs
 
 
@@ -298,4 +276,4 @@ def phong_trace(
     color = shadow_w[:, None] * (
         scene.ambient + diffuse_w[:, None] * att + specular_w[:, None] * 0.4
     )
-    return torch.where(valid[:, None], color, background_color(d))
+    return torch.where(valid[:, None], color, bsdf.background_color(d))

@@ -23,7 +23,7 @@ The spans of the render path, outermost first:
 | `render.k1` | render/driver.py::render_chunk | the mega-bounce kernel's call |
 | `render.bounce` | integrator.path_trace_shrink | one bounce, its compaction included |
 | `render.intersect` | ops/intersect.py::intersect_scene | K2, K3, the general volumes, the merged resolve |
-| `render.shade` | integrator.bounce_update | after the miss term: the emission term, the BSDF, NEE and the path's update |
+| `render.shade` | integrator.bounce_update | after the intersection: NEE's sample, then the miss and emission terms, the BSDF and the path's update (the shading kernel S1's launch on the card) |
 | `render.nee` | render/nee.py::direct_light | the shadow rays |
 | `render.live_count` | integrator._compact | the host's read of the live count (it waits for the card) |
 | `render.finish` | the driver, after the last chunk | the image's end-of-render reads, tonemap and pull |
