@@ -40,9 +40,20 @@ nonzero):
      is held to traverse, the threaded walk;
  10. the staged main path at full size: scenes/bench_teapot_32k.py at
      512² × 64 spp, depth 8, through render_to_image (4 chunks of
-     4,194,304 rays), after one chunk's staged run is held to the plain
-     path on a strided sample; one warm render, then timed renders; peak
-     device memory;
+     4,194,304 rays) with K1's gate closed for the call (the scene's own
+     route is K1, which walks the teapot's BVH), after one chunk's staged
+     run is held to the plain path on a strided sample; one warm render,
+     then timed renders; peak device memory; then K1 on its own route
+     (`parity-32k-k1`): one launch of bounce_kernel_big on that chunk,
+     every K1_BIG_STRIDE-th ray traced alone bit-identical to the
+     launch's rows and held to the plain path (integrator.path_trace on
+     the card) by K1's contract with segments compared ray by ray (rtol
+     1e-3 / atol 1e-4 and the same segment count, each on >= 99.5% of
+     the sample), the launch timed beside its bound (the BVH walk's node
+     and triangle tests that the plain path counts); then the image on
+     that route (`full-32k-k1`): K1 alone launches, one a chunk, and its
+     image lies within 1 u8 of the staged one on K1_BIG_IMAGE_FRAC of
+     the subpixels;
  11. K2 and K3 timed against their plain versions on that chunk's
      bounce-0 inputs, and K3 on the bounce-2 and aimed rays; K3's
      registers, spills, resident blocks, stack depth and shared memory;
@@ -58,8 +69,8 @@ nonzero):
      counts (traverse, the row's yardstick) with the bound of the ordered
      walk's own counts (traverse_packed: slab tests, triangles, pushes)
      beside it;
- 13. a torch.profiler trace of one 32k render: device busy time, idle
-     share, and the shares of K2, K3, the compaction's sorts and the
+ 13. a torch.profiler trace of one staged 32k render: device busy time,
+     idle share, and the shares of K2, K3, the compaction's sorts and the
      package's "bounce_rng" and "raygen" spans.
 Then this slice's paths, K4 and K5:
  14. K4 against K1 on the same rays at full width, through
@@ -177,8 +188,10 @@ samples over sp, render_to_image(mesh=...)), whose ranks launch K1, K2
 and K3 on their shards:
  31. mesh-nccl: a world of one on NCCL (multihost.initialize on
      tcp://127.0.0.1, a free port) and make_device_mesh(1, 1): the bench
-     frame (512² × 64 spp, depth 8, K1) and the 32k image (4 chunks, K2 +
-     K3) through render_to_image(mesh=...), the u8 image and the HDR
+     frame (512² × 64 spp, depth 8, K1) and the 32k image (4 chunks, K1
+     walking the teapot's BVH, traced as bounce_kernel_big), each launching
+     K1 and neither K2 nor K3, through render_to_image(mesh=...), the u8
+     image and the HDR
      accumulator (the checkpoint each render writes) bit-identical to the
      one-device render's; both timed in turns (mean of 2 after a warm
      render): what the sharded path costs, with stats.device_count; one
@@ -186,13 +199,16 @@ and K3 on their shards:
      calls' host time;
  32. mesh-ranks: 4 gloo ranks on the one card (torch.multiprocessing,
      spawned after phase 2 built the kernels), mesh 2x2: the bench frame,
-     one 4,194,304-ray chunk of the 32k scene (256² × 64 spp) and the NEE
-     frame at 256² × 16 spp, every rank's image and rank 0's accumulator
+     one 4,194,304-ray chunk of the 32k scene (256² × 64 spp, K1), the NEE
+     frame at 256² × 16 spp (K2) and the 32k scene's NEE frame at the same
+     size (the staged path: K2 and K3 on the teapot), every rank's image
+     and rank 0's accumulator
      bit-identical to one device at spp_chunk / 2, no checkpoint but rank
      0's; then mesh-resume: 2 ranks (mesh 1x2) killed at the first chunk
      of their second spp chunk and resumed from the file in rank 0's
      directory only, bit-identical to the uninterrupted one-device render
-     at spp_chunk / 2; each rank's K1, K2 and K3 launches. With more than
+     at spp_chunk / 2; each rank's K1, K2 and K3 launches, of which the
+     sharded phases must hold at least one each. With more than
      one card the same renders run with one NCCL rank a card
      (mesh-nccl-cards). Four ranks sharing one card measure no scaling.
 Then config 5, the reference's demo scene (scenes/drone_demo.py), and the
@@ -277,7 +293,9 @@ Then one JSON line describing the kernels, the card's nvidia-smi line,
 and the last line {"ok": true, "device": {...}}.
 
 The launch counts in the kernels line are those of the main paths only:
-K1's of the timed frames of phase 6 and the renders of phase 7; K2's the
+K1's of the timed frames of phase 6 and the renders of phase 7 (and
+bounce_kernel_big's own row, mega_bounce_big, of the timed 32k renders of
+phase 10 on K1's route); K2's the
 sum of the timed renders of phase 10, the timed NEE renders of phase 25,
 the NEE chunk of phase 26, the timed Phong renders of phase 27, the
 kitchen-sink render of phase 28, the timed config-4 renders and its NEE
@@ -318,6 +336,12 @@ GOLDENS = {
 }
 RTOL, ATOL, MIN_FRAC = 1e-3, 1e-4, 0.995
 SAMPLE_STRIDE = 1021  # prime, so the sample covers every sub-pixel index
+# phase 10's sample of K1 on the 32k chunk (prime, 16,711 rays: the teapot
+# fills a small part of the frame), and the share of the 32k image's
+# subpixels that K1's image must keep within 1 u8 of the staged one's (K1 and
+# the staged path round apart near C4's |det| reject: 99.9982% on seed 0)
+K1_BIG_STRIDE = 251
+K1_BIG_IMAGE_FRAC = 0.9999
 # K2 and K3 against their plain versions: the same winner on >= 99.9% of
 # rays (a ray grazing an edge may flip when one rounding differs), and t,
 # u, v and the normals within rtol 1e-4 / atol 1e-5 where the winners
@@ -996,9 +1020,11 @@ def analytic_ops(data) -> int:
 def k1_bound(data, o, d, uids, key, depth, max_dist, stride):
     """(bound ms, bound_by, work) of one K1 launch on (o, d, uids): bytes =
     o, d, uids in, radiance and segment counts out, the scene tables read
-    once; operations = the tests that a strided sample's segments need
-    (every analytic primitive, and the superleaf-tree walk's node tests
-    and triangles from the plain path's stats), scaled to the launch. The
+    once, and a big mesh's BVH rows and triangle rows once; operations =
+    the tests that a strided sample's segments need (every analytic
+    primitive, the superleaf-tree walk's node tests and triangles and the
+    big mesh's BVH walk's box tests and triangles, from the plain path's
+    stats), scaled to the launch. The
     work also holds the flat superleaf scan's count ("boxes": every box
     on every segment), its operations and its bound (flat_ops, flat_ms),
     the yardstick of K1 before the tree."""
@@ -1008,14 +1034,17 @@ def k1_bound(data, o, d, uids, key, depth, max_dist, stride):
     st = {}
     _, segs = integrator.path_trace(data, o[idx], d[idx], uids[idx], key, depth, max_dist,
                                     stats=st)
-    w = {k: int(st[k].sum()) for k in ("boxes", "nodes", "tris")}
+    w = {k: int(st[k].sum()) for k in ("boxes", "nodes", "tris", "big_nodes", "big_tris")}
     w["segments"] = int(segs)
     scale = o.shape[0] / idx.numel()
-    common = w["segments"] * analytic_ops(data) + w["tris"] * OPS["mt"]
+    common = (w["segments"] * analytic_ops(data) + (w["tris"] + w["big_tris"]) * OPS["mt"]
+              + w["big_nodes"] * OPS["box"])
     ops = scale * (common + w["nodes"] * OPS["box"])
     flat_ops = scale * (common + w["boxes"] * OPS["box"])
     n_bytes = (o.shape[0] * (12 + 12 + 4 + 12 + 4)
-               + nbytes(data.kscene, data.kmesh_tri, data.kmesh_nrm, data.ksl_tree))
+               + nbytes(data.kscene, data.kmesh_tri, data.kmesh_nrm, data.ksl_tree)
+               + sum(nbytes(m.bvh_nodes, m.bvh_tri4) for i, m in enumerate(data.meshes)
+                     if i not in data.dense_mesh_ids))
     ms, by = bound(n_bytes, ops)
     w.update(rays=idx.numel(), scale=scale, ops=ops, bytes=n_bytes, flat_ops=flat_ops,
              flat_ms=bound(n_bytes, flat_ops)[0])
@@ -1118,9 +1147,9 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
     """Phases 9-11 and 13 and the bounds of K2 and K3 (see the module
     docstring): data6k is the bench scene with teapot_6k compiled at
     width x height; the 32k bench scene is built at the same size. Returns
-    the kernels line's entries of K2 and K3."""
+    the kernels line's entries of K2, K3 and K1's big-mesh instantiation."""
     from cs397raytracingsp22_tpu_torch.ops import intersect as isect
-    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan_big
+    from cs397raytracingsp22_tpu_torch.ops.kernels import bounce, scene_intersect, tri_scan_big
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
     from cs397raytracingsp22_tpu_torch.scenes import bench_teapot_32k
     from cs397raytracingsp22_tpu_torch.tools.compare_k3 import aimed_rays
@@ -1248,8 +1277,17 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         f"{int(ref_segs)}")
     del rad_full, ref_rad
 
-    def render32():
-        return driver.render_to_image(sc32, device=dev, seed=0, verbose=False, scene_data=sd32)
+    def render32(staged: bool = True):
+        """The 32k image through render_to_image: on the staged path (K1's
+        gate closed for the call), or on the scene's own route, K1."""
+        gate = bounce.scene_is_simple
+        if staged:
+            bounce.scene_is_simple = lambda scene: False
+        try:
+            return driver.render_to_image(sc32, device=dev, seed=0, verbose=False,
+                                          scene_data=sd32)
+        finally:
+            bounce.scene_is_simple = gate
 
     render32()  # warm
     torch.cuda.synchronize()
@@ -1275,6 +1313,65 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         f"= {st32.path_segments / mean32 / 1e6:.2f} Mrays/s of segments; per image K2 launches "
         f"{k2_launches // len(runs32)}, K3 launches {k3_launches // len(runs32)}; peak device "
         f"memory {peak / 2**30:.2f} GiB; image u8 max {img32.max()}, mean {img32.mean():.2f}")
+
+    if not bounce.scene_is_simple(sd32):
+        raise AssertionError("K1's gate refuses the 32k bench scene")
+    # K1 (bounce_kernel_big) on the chunk against the plain path, segments ray by ray
+    k1_full = lambda: bounce.path_trace_cuda(sd32, o32, dir32, uid32, key, depth, max_dist)  # noqa: E731
+    rad_full, _ = k1_full()
+    idx_k1 = torch.arange(0, n32, K1_BIG_STRIDE, device=dev)
+    sub = tuple(x[idx_k1].contiguous() for x in (o32, dir32, uid32))
+    st_k1, st_ref = {}, {}
+    rad_s, _ = bounce.path_trace_cuda(sd32, *sub, key, depth, max_dist, stats=st_k1)
+    if not torch.equal(rad_s, rad_full[idx_k1]):
+        raise AssertionError("K1 32k chunk: the sampled rays traced alone differ from the launch's rows")
+    ref_rad, _ = integrator.path_trace(sd32, *sub, key, depth, max_dist, stats=st_ref)
+    if not bool(torch.isfinite(rad_s).all()) or float(ref_rad.max()) <= 0.0:
+        raise AssertionError("K1 32k chunk: non-finite radiance, or a black plain path")
+    ok = torch.isclose(rad_s, ref_rad, rtol=RTOL, atol=ATOL).all(dim=1)
+    same = st_k1["segs"] == st_ref["segs"]
+    m = idx_k1.numel()
+    if float(ok.float().mean()) < MIN_FRAC or float(same.float().mean()) < MIN_FRAC:
+        raise AssertionError(f"K1 32k chunk: {int(ok.sum())}/{m} rays within rtol {RTOL} atol "
+                             f"{ATOL}, {int(same.sum())}/{m} with the plain path's segments")
+    reached = int((st_ref["big_tris"] > 0).sum())
+    k1_big_err = float((rad_s - ref_rad).abs().max())
+    k1_big_ms = cuda_ms(k1_full, 3)
+    k1_big_bound, k1_big_by, wb = k1_bound(sd32, o32, dir32, uid32, key, depth, max_dist,
+                                           SAMPLE_STRIDE)
+    k1_sub_ms = cuda_ms(lambda: bounce.path_trace_cuda(sd32, *sub, key, depth, max_dist), 3)
+    k1_big_plain_ms = cuda_ms(lambda: integrator.path_trace(sd32, *sub, key, depth, max_dist), 1)
+    log("parity-32k-k1", f"teapot_32k {width}²x{spp}spp depth {depth}, chunk 0 of {nch32}: one "
+        f"launch of bounce_kernel_big on {n32} rays; every {K1_BIG_STRIDE}th ray ({m}) traced "
+        f"alone is bit-identical to the launch's rows; {int(ok.sum())}/{m} within rtol {RTOL} "
+        f"atol {ATOL} of the plain path (integrator.path_trace on the card), {int(same.sum())}/{m} "
+        f"with its segment count, max |diff| {k1_big_err:.3g}; {reached} sampled paths test the "
+        f"teapot's triangles; K1 {k1_big_ms:.3f} ms a launch, bound {k1_big_bound:.4f} ms "
+        f"({k1_big_by}; {wb['big_nodes'] / wb['segments']:.2f} BVH boxes and "
+        f"{wb['big_tris'] / wb['segments']:.2f} teapot triangles a segment on every "
+        f"{SAMPLE_STRIDE}th ray; K1 at {k1_big_bound / k1_big_ms:.1%} of it); on the {m} "
+        f"sampled rays K1 {k1_sub_ms:.3f} ms, the plain path {k1_big_plain_ms:.1f} ms")
+    del rad_full, rad_s, ref_rad
+    render32(staged=False)  # warm
+    k1_before, k2_before, k3_before = bounce.LAUNCHES, scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES
+    runs_k1 = [render32(staged=False) for _ in range(3)]
+    k1_n = bounce.LAUNCHES - k1_before
+    if k1_n != 3 * st32.chunks or (scene_intersect.LAUNCHES, tri_scan_big.LAUNCHES) != (
+            k2_before, k3_before):
+        raise AssertionError(f"the 32k renders on their own route launched K1 {k1_n} times for "
+                             f"{3 * st32.chunks} chunks, or K2 or K3")
+    img_k1 = runs_k1[0][0]
+    diff = np.abs(img_k1.astype(np.int64) - img32.astype(np.int64))
+    if (diff <= 1).mean() < K1_BIG_IMAGE_FRAC:
+        raise AssertionError(f"K1's 32k image lies within 1 u8 of the staged one on "
+                             f"{(diff <= 1).mean():.4f} of the subpixels")
+    walls_k1 = [st.wall_seconds for _, st in runs_k1]
+    log("full-32k-k1", f"bench teapot_32k via render_to_image on its own route: {k1_n // 3} K1 "
+        f"launches an image (bounce_kernel_big, {bounce.kernel_attrs(False, False, True)[0]} "
+        f"registers), no K2 or K3; {sum(walls_k1) / 3:.4f} s per image (mean of 3: "
+        f"{', '.join(f'{w:.4f}' for w in walls_k1)}) against the staged {mean32:.4f} s; image "
+        f"within 1 u8 of the staged one on {(diff <= 1).mean():.4%} of the subpixels, mean "
+        f"|diff| {diff.mean():.4f}")
 
     # ---- 11. K2 and K3 timing at the main path's shapes ----
     k2_dev_ms = k2_ms(sd32, k2_in)
@@ -1358,6 +1455,18 @@ def staged_phases(dev, data6k, width: int, height: int, spp: int, depth: int) ->
         "plain_ms": k3_plain_ms,
         "bound_ms": k3b["chunk 0 bounce 0"][0],
         "bound_by": k3b["chunk 0 bounce 0"][1],
+        "library_ms": None,
+    }, {
+        "name": "mega_bounce_big",
+        "route": "cuda",
+        "source": "cs397raytracingsp22_tpu_torch/csrc/bounce.cu",
+        "replaces": "cs397raytracingsp22_tpu/ops/pallas/bounce.py:1480",
+        "launches": k1_n,
+        "max_abs_err": k1_big_err,
+        "ms": k1_big_ms,
+        "plain_ms": None,  # on the sample only: parity-32k-k1
+        "bound_ms": k1_big_bound,
+        "bound_by": k1_big_by,
         "library_ms": None,
     }]
 
@@ -3123,18 +3232,23 @@ def tools_phases(dev) -> dict:
 # ---- phases 31-32: rendering over a mesh of ranks (parallel/) ----
 
 # frame → (scene module, build function, its kwargs, NEE). Phase 31 renders the
-# first two through a world of one on NCCL; phase 32 renders the bench
-# frame, one 4,194,304-ray chunk of the 32k scene and the NEE frame
-# (MESH_FRAMES) over 4 gloo ranks sharing the card, and RESUME_FRAME over 2.
+# first two through a world of one on NCCL, both on K1 (NCCL_TRACE: the
+# kernel each trace must show); phase 32 renders the bench frame, one
+# 4,194,304-ray chunk of the 32k scene (K1), the NEE frame (K2) and the 32k
+# scene's NEE frame (the staged path: K2 and K3) (MESH_FRAMES) over 4 gloo
+# ranks sharing the card, and RESUME_FRAME over 2.
 NCCL_FRAMES = {
     "bench": ("bench_scene", "build", dict(width=512, height=512, spp=64, path_depth=8), False),
     "32k": ("bench_teapot_32k", "build", dict(width=512, height=512, spp=64, path_depth=8), False),
 }
+NCCL_TRACE = {"bench": {"K1": "bounce_kernel"}, "32k": {"K1": "bounce_kernel_big"}}
 MESH_FRAMES = {
     "bench": NCCL_FRAMES["bench"],
     "32k-chunk": ("bench_teapot_32k", "build", dict(width=256, height=256, spp=64, path_depth=8),
                   False),
     "nee": ("bench_scene", "build", dict(width=256, height=256, spp=16, path_depth=8), True),
+    "nee-32k": ("bench_teapot_32k", "build", dict(width=256, height=256, spp=16, path_depth=8),
+                True),
 }
 RESUME_FRAME = ("bench_scene", "build", dict(width=256, height=256, spp=16, path_depth=8), False)
 RESUME_SPP_CHUNK = 8  # two spp chunks; the render is killed at the first chunk of the second
@@ -3316,12 +3430,13 @@ def mesh_phases(dev) -> list:
             if st_one.path_segments != st_mesh.path_segments or img_mesh.max() == 0:
                 raise AssertionError(f"mesh-nccl {name}: segments {st_mesh.path_segments} against "
                                      f"{st_one.path_segments}, u8 max {img_mesh.max()}")
+            if launched[0] < 1 or launched[1] or launched[2]:
+                raise AssertionError(f"mesh-nccl {name}: the sharded renders launched K1, K2, K3 "
+                                     f"{launched} times; K1 alone renders the frame")
             one_s, mesh_s = (sum(secs[k]) / 2 for k in ("one", "mesh"))
             traces = {}
             for label, m in (("one", None), ("sharded", mesh)):
-                tr = device_trace(f"mesh_nccl_{name}_{label}", lambda: run(m),
-                                  {"K1": "bounce_kernel"} if name == "bench" else
-                                  {"K2": "scene_intersect"})
+                tr = device_trace(f"mesh_nccl_{name}_{label}", lambda: run(m), NCCL_TRACE[name])
                 calls, host_ms = collective_host_time(f"mesh_nccl_{name}_{label}")
                 traces[label] = (f"{label}: {tr['kernels']} kernels, busy {tr['busy_ms']:.3f} ms, "
                                  f"idle {tr['idle']:.2%} of a {tr['span_ms']:.3f} ms span, wall "

@@ -4,7 +4,9 @@
 
 A scene is any Python file exposing `build(**overrides) -> Scene` that
 builds with this package; without one, the bench scene with its
-32,832-triangle teapot (scenes/bench_teapot_32k.py) renders. Renders on
+32,832-triangle teapot (scenes/bench_teapot_32k.py) renders, on the
+mega-bounce kernel, which walks the teapot's BVH (with `--nee`, on the
+staged path). Renders on
 the GPU by default; `--device cpu` runs the plain torch version. A scene
 shades as its camera says (path tracing, or Phong shading with hard
 shadows); `--nee` turns on next-event estimation (render/nee.py);

@@ -5,8 +5,8 @@
 // what render/integrator.py::path_trace computes — the plain version beside
 // it is cs397raytracingsp22_tpu_torch/render/integrator.py::path_trace —
 // for scenes that pass scene_is_simple: spheres, planes, standalone
-// triangles, sphere-bounded volumes and dense meshes with an explicit
-// material.
+// triangles, sphere-bounded volumes, and dense meshes or one mesh past the
+// dense budget (a big mesh) with an explicit material.
 //
 // Shape: one thread per ray runs every bounce in a loop. Origin,
 // direction, throughput, radiance and the segment count stay in
@@ -99,6 +99,20 @@
 //   __launch_bounds__(128, 4)) kept 4 blocks an SM; the tree
 //   instantiations take (128, 5): 96 registers, no spills, 5 blocks, 10%
 //   faster (5.29 ms).
+// - Big meshes. A mesh past the dense budget (8,192 triangles) has no
+//   superleaf tree: its tree would pass what a block stages. A scene with
+//   one (and no dense mesh and no sphere tree beside it) launches
+//   bounce_kernel_big, which walks the big mesh's BVH
+//   (intersect.cuh::walk_big_mesh): the child-pair rows and triangle rows
+//   that the big-mesh kernel K3 walks (MeshBlock.bvh_nodes, bvh_tri4), read
+//   from device memory through __ldg, by the ordered walk that K3 runs
+//   (bvh_walk.cuh::bvh_walk_step), one lane a ray, nearer child first, with
+//   a stack of the tree's depth a thread in shared memory after the mesh's
+//   staged kmesh_xfm row.
+//   The resolve reads the winner's corner normals from kmesh_res. So K1
+//   adds no table of its own for them, and the staged path's tables stay
+//   as they are. The walk is per lane: a warp runs as long as its longest
+//   walk (PERF.md, PR 21).
 
 #include "bounce.cuh"
 
@@ -127,18 +141,27 @@ struct Params {
   int tree_len;           // floats of tree
   const float4* sph_table;  // ksph_tree: header, nodes, slots, indices
   int sph_leaves;           // its leaves; 0: no sphere tree
+  const float4* big_xfm;    // the big mesh's kmesh_xfm row (9 float4)
+  const float* big_res;     // kmesh_res: per triangle [corner normals, uvs, tangent]
+  const float4* big_nodes;  // the big mesh's bvh_nodes
+  const float4* big_tris;   // and bvh_tri4
+  int big_depth;            // stack entries a thread: its BVH's depth; 0: no big mesh
+  static constexpr int kStackStride = kThreads;  // a thread's stack entries kThreads apart
 };
 
-// kDense: the scene has a dense mesh (the walk is compiled in). kSphTree:
-// the scene has a sphere tree; its header and nodes are staged after the
-// superleaf trees in place of the scene table's sphere rows, which the
-// resolve reads from device memory.
-template <bool kDense, bool kSphTree>
-__global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(const Params p) {
-  extern __shared__ __align__(16) float sm[];
+// The path of ray i of a block that staged the tables, every bounce in a
+// loop. kDense: the scene has a dense mesh (the walk is compiled in).
+// kSphTree: the scene has a sphere tree; its header and nodes are staged
+// after the superleaf trees in place of the scene table's sphere rows,
+// which the resolve reads from device memory. kBig: the scene has a big
+// mesh; its kmesh_xfm row is staged after the superleaf trees, and each
+// thread's stack for its walk after that.
+template <bool kDense, bool kSphTree, bool kBig>
+__device__ __forceinline__ void trace_paths(const Params& p, float* sm) {
   const int skip = kSphTree ? kSph * p.n_sph : 0;
   const float4* tree = stage_tables(sm, p.scene + skip, p.scene_len - skip, p.tree, p.tree_len,
-                                    p.sph_table, kSphTree ? 4 * p.sph_leaves : 0);
+                                    kBig ? p.big_xfm : p.sph_table,
+                                    kBig ? 9 : (kSphTree ? 4 * p.sph_leaves : 0));
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n) {
@@ -158,7 +181,7 @@ __global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(cons
 
     for (int depth = 0; depth < p.depth; ++depth) {
       ++segs;
-      if (!bounce_step<kDense, kSphTree>(p, R, uid, depth, depth == p.depth - 1, st)) break;
+      if (!bounce_step<kDense, kSphTree, kBig>(p, R, uid, depth, depth == p.depth - 1, st)) break;
     }
 
     p.rad[3 * i] = st.rr;
@@ -168,62 +191,84 @@ __global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(cons
   }
 }
 
+template <bool kDense, bool kSphTree>
+__global__ void __launch_bounds__(kThreads, kSphTree ? 5 : 4) bounce_kernel(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  trace_paths<kDense, kSphTree, false>(p, sm);
+}
+
+// A scene with one big mesh, no dense mesh and no sphere tree: the big
+// mesh's BVH walk after the analytic classes.
+__global__ void __launch_bounds__(kThreads, 4) bounce_kernel_big(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  trace_paths<false, false, true>(p, sm);
+}
+
 // Bytes of shared memory a block stages: staged_bytes without a sphere
 // tree; with one, the scene table less its sphere rows, the superleaf
-// trees, and the sphere tree's header and nodes (4 float4 a leaf).
-size_t k1_staged_bytes(int scene_len, int tree_len, int n_sph, int sph_leaves) {
+// trees, and the sphere tree's header and nodes (4 float4 a leaf); with a
+// big mesh (big_depth > 0), staged_bytes, its kmesh_xfm row (144 B) and
+// the threads' stacks (8 B an entry).
+size_t k1_staged_bytes(int scene_len, int tree_len, int n_sph, int sph_leaves, int big_depth) {
+  if (big_depth > 0) {
+    return staged_bytes(scene_len, tree_len) + 144 + sizeof(int2) * kThreads * (size_t)big_depth;
+  }
   if (sph_leaves == 0) return staged_bytes(scene_len, tree_len);
   return staged_bytes(scene_len - kSph * n_sph, tree_len) + 64 * (size_t)sph_leaves;
 }
 
-template <bool kDense, bool kSphTree>
-cudaError_t prepare_one(size_t smem) {
+template <class Kernel>
+cudaError_t prepare_one(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(bounce_kernel<kDense, kSphTree>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 // The instantiation for a scene with (dense) or without dense meshes and
-// with (sph_tree) or without a sphere tree, its dynamic shared memory
-// allowed up to `smem` bytes; `fn` receives the kernel.
+// with (sph_tree) or without a sphere tree, or for one with a big mesh (big:
+// then neither), its dynamic shared memory allowed up to `smem` bytes;
+// `fn` receives the kernel.
 template <class Fn>
-cudaError_t with_kernel(bool dense, bool sph_tree, size_t smem, Fn fn) {
-  cudaError_t e;
-  if (dense && sph_tree) {
-    if ((e = prepare_one<true, true>(smem)) != cudaSuccess) return e;
-    return fn(bounce_kernel<true, true>);
-  }
-  if (dense) {
-    if ((e = prepare_one<true, false>(smem)) != cudaSuccess) return e;
-    return fn(bounce_kernel<true, false>);
-  }
-  if (sph_tree) {
-    if ((e = prepare_one<false, true>(smem)) != cudaSuccess) return e;
-    return fn(bounce_kernel<false, true>);
-  }
-  if ((e = prepare_one<false, false>(smem)) != cudaSuccess) return e;
-  return fn(bounce_kernel<false, false>);
+cudaError_t with_kernel(bool dense, bool sph_tree, bool big, size_t smem, Fn fn) {
+  const auto run = [&](auto kernel) {
+    const cudaError_t e = prepare_one(kernel, smem);
+    return e != cudaSuccess ? e : fn(kernel);
+  };
+  if (big) return run(bounce_kernel_big);
+  if (dense && sph_tree) return run(bounce_kernel<true, true>);
+  if (dense) return run(bounce_kernel<true, false>);
+  if (sph_tree) return run(bounce_kernel<false, true>);
+  return run(bounce_kernel<false, false>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch K1 on `stream`. Returns cudaGetLastError() after the launch (0 on
-// success); the caller raises on anything else.
+// Launch K1 on `stream`. big_depth > 0: the scene has a big mesh (and no
+// dense mesh or sphere tree), whose tables the big_ pointers give. Returns
+// cudaGetLastError() after the launch (0 on success); the caller raises on
+// anything else.
 int rt_bounce_launch(const float* o, const float* d, const int* uid, int n, float* rad,
                      int* segs, unsigned k0, unsigned k1, int depth, float t_min,
                      float t_max, const float* scene, int scene_len, int n_sph, int n_pln,
                      int n_tri, int n_vol, int n_mat, int n_mesh, const float* mesh_tri,
                      const float* mesh_nrm, const float* tree, int tree_len,
-                     const float* sph_table, int sph_leaves, void* stream) {
+                     const float* sph_table, int sph_leaves, const float* big_xfm,
+                     const float* big_res, const float* big_nodes, const float* big_tris,
+                     int big_depth, void* stream) {
   if (n <= 0) return 0;
+  if (big_depth < 0 || (big_depth > 0 && (n_mesh > 0 || sph_leaves > 0))) {
+    return (int)cudaErrorInvalidValue;
+  }
   Params p{o, d, uid, n, rad, segs, k0, k1, depth, t_min, t_max, scene, scene_len,
            n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh, reinterpret_cast<const float4*>(mesh_tri),
-           mesh_nrm, tree, tree_len, reinterpret_cast<const float4*>(sph_table), sph_leaves};
-  const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
+           mesh_nrm, tree, tree_len, reinterpret_cast<const float4*>(sph_table), sph_leaves,
+           reinterpret_cast<const float4*>(big_xfm), big_res,
+           reinterpret_cast<const float4*>(big_nodes), reinterpret_cast<const float4*>(big_tris),
+           big_depth};
+  const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves, big_depth);
   const int blocks = (n + kThreads - 1) / kThreads;
-  const cudaError_t e = with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {
+  const cudaError_t e = with_kernel(n_mesh > 0, sph_leaves > 0, big_depth > 0, smem, [&](auto kernel) {
     kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(p);
     return cudaGetLastError();
   });
@@ -232,10 +277,10 @@ int rt_bounce_launch(const float* o, const float* d, const int* uid, int n, floa
 
 // Registers per thread and local (spill) bytes of the compiled kernel for a
 // scene with (dense != 0) or without dense meshes and with (sph_tree != 0)
-// or without a sphere tree.
-int rt_bounce_attrs(int dense, int sph_tree, int* num_regs, int* local_bytes) {
+// or without a sphere tree, or with a big mesh (big != 0: then neither).
+int rt_bounce_attrs(int dense, int sph_tree, int big, int* num_regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t e = with_kernel(dense != 0, sph_tree != 0, 0, [&](auto kernel) {
+  const cudaError_t e = with_kernel(dense != 0, sph_tree != 0, big != 0, 0, [&](auto kernel) {
     return cudaFuncGetAttributes(&a, kernel);
   });
   if (e != cudaSuccess) return (int)e;
@@ -246,11 +291,12 @@ int rt_bounce_attrs(int dense, int sph_tree, int* num_regs, int* local_bytes) {
 
 // Blocks of the kernel resident on one SM when each stages the tables of a
 // scene with `scene_len` and `tree_len` floats, `n_mesh` dense meshes,
-// `n_sph` spheres and a sphere tree of `sph_leaves` leaves (0: none).
+// `n_sph` spheres, a sphere tree of `sph_leaves` leaves (0: none) and a
+// big mesh whose walk needs `big_depth` stack entries (0: none).
 int rt_bounce_occupancy(int scene_len, int tree_len, int n_mesh, int n_sph, int sph_leaves,
-                        int* blocks) {
-  const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
-  return (int)with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {
+                        int big_depth, int* blocks) {
+  const size_t smem = k1_staged_bytes(scene_len, tree_len, n_sph, sph_leaves, big_depth);
+  return (int)with_kernel(n_mesh > 0, sph_leaves > 0, big_depth > 0, smem, [&](auto kernel) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
   });
 }

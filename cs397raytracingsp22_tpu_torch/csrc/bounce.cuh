@@ -88,6 +88,47 @@ __device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
   return r0 + (1.0f - r0) * pow5(1.0f - cos_abs_term);
 }
 
+// Point and front-facing world shading normal of a mesh winner at t `best`,
+// barycentrics (bu, bv): the object-space ray (mo, md), the winner's decoded
+// corner normals N (n0 n1 n2, in device memory) and P, its mesh's normal
+// matrix, R and t (9, 9 and 3 floats, row-major, one after the other).
+__device__ __forceinline__ void resolve_mesh(const float* P, const float* N, float mox, float moy,
+                                             float moz, float mdx, float mdy, float mdz,
+                                             float best, float bu, float bv, float& px,
+                                             float& py, float& pz, float& nx, float& ny,
+                                             float& nz, bool& ff) {
+  const float w = 1.0f - bu - bv;
+  float sx = bu * __ldg(N + 3) + bv * __ldg(N + 6) + w * __ldg(N + 0);
+  float sy = bu * __ldg(N + 4) + bv * __ldg(N + 7) + w * __ldg(N + 1);
+  float sz = bu * __ldg(N + 5) + bv * __ldg(N + 8) + w * __ldg(N + 2);
+  float len = sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
+  sx /= len; sy /= len; sz /= len;
+  ff = sx * mdx + sy * mdy + sz * mdz < 0.0f;
+  if (!ff) { sx = -sx; sy = -sy; sz = -sz; }
+  const float wx = P[0] * sx + P[1] * sy + P[2] * sz;
+  const float wy = P[3] * sx + P[4] * sy + P[5] * sz;
+  const float wz = P[6] * sx + P[7] * sy + P[8] * sz;
+  len = sqrtf(wx * wx + wy * wy + wz * wz + 1e-30f);
+  nx = wx / len; ny = wy / len; nz = wz / len;
+  const float qx = mox + best * mdx, qy = moy + best * mdy, qz = moz + best * mdz;
+  px = P[9] * qx + P[10] * qy + P[11] * qz + P[18];
+  py = P[12] * qx + P[13] * qy + P[14] * qz + P[19];
+  pz = P[15] * qx + P[16] * qy + P[17] * qz + P[20];
+}
+
+// The big mesh's staged kmesh_xfm row (after the superleaf trees, which
+// follow the scene table, whose sphere rows stay: no sphere tree beside a
+// big mesh), and this thread's stack for its walk after it, entry k at
+// [k * kStackStride].
+template <class Args>
+__device__ __forceinline__ const float* big_row(const SceneRows& R, const Args& a) {
+  return reinterpret_cast<const float*>(R.tree) + a.tree_len;
+}
+template <class Args>
+__device__ __forceinline__ int2* big_stack(const SceneRows& R, const Args& a) {
+  return reinterpret_cast<int2*>(const_cast<float*>(big_row(R, a)) + kXfm) + threadIdx.x;
+}
+
 // Bounce `depth` (RNG site SITE_BOUNCE0 + depth) of ray `uid`, whose scene
 // table and superleaf trees R are staged in shared memory. `a` is the
 // calling kernel's own flat parameter block, read by field name: the RNG
@@ -105,7 +146,14 @@ __device__ __forceinline__ float fresnel(float cos_abs_term, float ir) {
 // walks the sphere tree (intersect.cuh::walk_spheres: its staged nodes
 // R.sph_tree, and from `a` its leaves sph_leaves and its table sph_table in
 // device memory) in place of the sphere scan; only K1 instantiates it.
-template <bool kDense = true, bool kSphTree = false, class Args>
+// kBig walks the scene's big mesh's BVH after the analytic classes
+// (intersect.cuh::walk_big_mesh: its staged kmesh_xfm row and the thread's
+// stack, big_row and big_stack, and from `a` the tables big_nodes and
+// big_tris, the corner normals in big_res, the stack's stride
+// kStackStride); only K1 instantiates it, for a scene with no dense mesh. The pointers are worked out here
+// and not kept in SceneRows: two more fields there moved the registers of
+// bounce_kernel<true, true>'s SASS (PERF.md, PR 21).
+template <bool kDense = true, bool kSphTree = false, bool kBig = false, class Args>
 __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, uint32_t uid,
                                             int depth, bool last, PathState& s) {
   float &ox = s.ox, &oy = s.oy, &oz = s.oz, &dx = s.dx, &dy = s.dy, &dz = s.dz;
@@ -136,6 +184,10 @@ __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, u
   for (int m = 0; kDense && m < a.n_mesh; ++m) {
     scan_dense_mesh(R.msh + kMesh * m, m, a.mesh_tri, R.tree, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
   }
+  if constexpr (kBig) {
+    walk_big_mesh<Args::kStackStride>(big_row(R, a), a.big_nodes, a.big_tris, big_stack(R, a), ox,
+                                      oy, oz, dx, dy, dz, tmin, tmax, h);
+  }
   const float best = h.t;
   const int cls = h.cls, widx = h.idx;
 
@@ -149,28 +201,27 @@ __device__ __forceinline__ bool bounce_step(const Args& a, const SceneRows& R, u
     const float* X = R.msh + kMesh * h.mesh;
     float mox, moy, moz, mdx, mdy, mdz;
     to_object(X, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);
-    const float bu = h.u, bv = h.v;
-    const float* N = a.mesh_nrm + 9 * widx;
-    const float w = 1.0f - bu - bv;
-    float sx = bu * __ldg(N + 3) + bv * __ldg(N + 6) + w * __ldg(N + 0);
-    float sy = bu * __ldg(N + 4) + bv * __ldg(N + 7) + w * __ldg(N + 1);
-    float sz = bu * __ldg(N + 5) + bv * __ldg(N + 8) + w * __ldg(N + 2);
-    float len = sqrtf(sx * sx + sy * sy + sz * sz + 1e-30f);
-    sx /= len; sy /= len; sz /= len;
-    ff = sx * mdx + sy * mdy + sz * mdz < 0.0f;
-    if (!ff) { sx = -sx; sy = -sy; sz = -sz; }
-    const float wx = X[12] * sx + X[13] * sy + X[14] * sz;
-    const float wy = X[15] * sx + X[16] * sy + X[17] * sz;
-    const float wz = X[18] * sx + X[19] * sy + X[20] * sz;
-    len = sqrtf(wx * wx + wy * wy + wz * wz + 1e-30f);
-    nx = wx / len; ny = wy / len; nz = wz / len;
-    const float qx = mox + best * mdx, qy = moy + best * mdy, qz = moz + best * mdz;
-    px = X[21] * qx + X[22] * qy + X[23] * qz + X[30];
-    py = X[24] * qx + X[25] * qy + X[26] * qz + X[31];
-    pz = X[27] * qx + X[28] * qy + X[29] * qz + X[32];
+    resolve_mesh(X + 12, a.mesh_nrm + 9 * widx, mox, moy, moz, mdx, mdy, mdz, best, h.u, h.v,
+                 px, py, pz, nx, ny, nz, ff);
     mid = (int)X[33];
   } else {
-    resolve_analytic(R, cls, widx, best, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff, mid);
+    // nested so that the instantiations without big meshes compile to the SASS they had
+    if constexpr (kBig) {
+      if (cls == kClsBig) {
+        const float* Y = big_row(R, a);
+        float mox, moy, moz, mdx, mdy, mdz;
+        to_object(Y + 21, ox, oy, oz, dx, dy, dz, mox, moy, moz, mdx, mdy, mdz);
+        // the winner's kmesh_res row: [corner normals, uvs, tangent]
+        resolve_mesh(Y, a.big_res + 18 * ((int)Y[33] + widx), mox, moy, moz, mdx, mdy, mdz, best,
+                     h.u, h.v, px, py, pz, nx, ny, nz, ff);
+        mid = (int)Y[35];
+      } else {
+        resolve_analytic(R, cls, widx, best, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff,
+                         mid);
+      }
+    } else {
+      resolve_analytic(R, cls, widx, best, ox, oy, oz, dx, dy, dz, px, py, pz, nx, ny, nz, ff, mid);
+    }
   }
   const float* M = R.mat + kMat * mid;
   rr += tr * M[4];

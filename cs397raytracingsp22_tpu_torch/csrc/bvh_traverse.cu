@@ -26,7 +26,9 @@
 // [t_min, best t]; the nearer is entered and the farther pushed with its
 // entry onto a per-thread stack in shared memory (depth = the tree's, from
 // the host). A pushed node is re-culled when popped (dropped unless best t
-// > its entry: the slab test against the best t of that moment).
+// > its entry: the slab test against the best t of that moment). The step
+// is bvh_walk.cuh::bvh_walk_step, which the mega-bounce kernel (K1) runs
+// too, for a big mesh of a scene it takes.
 //
 // Why it returns the threaded walk's winner (traverse visits nodes in
 // preorder, left child first, and skips a subtree whose box fails):
@@ -88,16 +90,18 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "bvh_walk.cuh"
+
 namespace {
+
+using namespace rt;
 
 constexpr int kThreads = 256;                  // a block of either kernel
 constexpr int kBatch = 32;                     // rays a warp takes from the counter at once
 constexpr int kRefill = 8;                     // idle lanes that send a warp for new rays
 constexpr float kCoherent = 1.0f / 16.0f;      // a packet's spread: directions, origins / box
 constexpr int kPacket = 2;                     // rays inside the root box that make a packet
-constexpr float kMtEps = 1e-4f;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kPop = 0;  // row 0 is never a child: the lane's next node comes off the stack
 
 struct Params {
   const float* o;      // (N, 3) object-space origins
@@ -119,28 +123,7 @@ struct Params {
   float* v;
 };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz, tmin;
-};
-
-// traverse's slab test of one box against [t_min, best]; entry = the
-// interval's start
-__device__ __forceinline__ bool slab(const float4 lo, const float4 hi, const Ray& r, float best,
-                                     float& entry) {
-  const float t0x = (lo.x - r.ox) * r.ix, t1x = (hi.x - r.ox) * r.ix;
-  const float t0y = (lo.y - r.oy) * r.iy, t1y = (hi.y - r.oy) * r.iy;
-  const float t0z = (lo.z - r.oz) * r.iz, t1z = (hi.z - r.oz) * r.iz;
-  const float nx = fmaxf(r.ix < 0.0f ? t1x : t0x, -CUDART_INF_F);
-  const float ny = fmaxf(r.iy < 0.0f ? t1y : t0y, -CUDART_INF_F);
-  const float nz = fmaxf(r.iz < 0.0f ? t1z : t0z, -CUDART_INF_F);
-  const float fx = fminf(r.ix < 0.0f ? t0x : t1x, CUDART_INF_F);
-  const float fy = fminf(r.iy < 0.0f ? t0y : t1y, CUDART_INF_F);
-  const float fz = fminf(r.iz < 0.0f ? t0z : t1z, CUDART_INF_F);
-  entry = fmaxf(fmaxf(fmaxf(nx, ny), nz), r.tmin);
-  return fminf(fminf(fminf(fx, fy), fz), best) > entry;
-}
-
-__device__ __forceinline__ void load_ray(const Params& p, int i, Ray& r) {
+__device__ __forceinline__ void load_ray(const Params& p, int i, BvhRay& r) {
   r.ox = p.o[3 * i], r.oy = p.o[3 * i + 1], r.oz = p.o[3 * i + 2];
   r.dx = p.d[3 * i], r.dy = p.d[3 * i + 1], r.dz = p.d[3 * i + 2];
   r.ix = 1.0f / r.dx, r.iy = 1.0f / r.dy, r.iz = 1.0f / r.dz;
@@ -156,62 +139,6 @@ __device__ __forceinline__ void store_hit(const Params& p, int i, int row, float
   p.v[i] = v;
 }
 
-// One step of a lane's walk: an interior node (both children's boxes; the
-// nearer entered, the farther pushed) or a leaf (its rows in order), then
-// the next pushed node still in reach. ref == kPop after it: the walk is done.
-__device__ __forceinline__ void walk_step(const Params& p, const Ray& r, int2* stack, int& ref,
-                                          int& sp, float& best, int& brow, float& bu, float& bv) {
-  if (ref > 0) {
-    const float4* nd = p.nodes + 4 * ref;
-    const float4 a0 = __ldg(nd), a1 = __ldg(nd + 1), b0 = __ldg(nd + 2), b1 = __ldg(nd + 3);
-    float e0, e1;
-    const bool h0 = slab(a0, a1, r, best, e0), h1 = slab(b0, b1, r, best, e1);
-    const int r0 = __float_as_int(a0.w), r1 = __float_as_int(b0.w);
-    const bool go0 = h0 || r0 < 0, go1 = h1 || r1 < 0;  // leaves are never culled
-    if (go0 && go1) {
-      const bool swap = (h1 ? e1 : CUDART_INF_F) < (h0 ? e0 : CUDART_INF_F);
-      const int far = swap ? r0 : r1;
-      const float far_entry = far < 0 ? -CUDART_INF_F : (swap ? e0 : e1);
-      stack[sp * kThreads] = make_int2(far, __float_as_int(far_entry));
-      ++sp;
-      ref = swap ? r1 : r0;
-    } else {
-      ref = go0 ? r0 : (go1 ? r1 : kPop);
-    }
-  } else {
-    const int code = ~ref;
-    const int first = code >> 4, count = code & 15;
-    for (int k = 0; k < count; ++k) {
-      const int row = first + k;
-      const float4* T = p.tris + 3 * row;
-      const float4 q0 = __ldg(T), q1 = __ldg(T + 1), q2 = __ldg(T + 2);
-      const float ax = q0.x, ay = q0.y, az = q0.z;
-      const float e1x = q0.w, e1y = q1.x, e1z = q1.y;
-      const float e2x = q1.z, e2y = q1.w, e2z = q2.x;
-      const float qx = r.dy * e2z - r.dz * e2y, qy = r.dz * e2x - r.dx * e2z,
-                  qz = r.dx * e2y - r.dy * e2x;
-      const float det = e1x * qx + e1y * qy + e1z * qz;
-      if (!(fabsf(det) >= kMtEps)) continue;
-      const float f = 1.0f / det;
-      const float sx = r.ox - ax, sy = r.oy - ay, sz = r.oz - az;
-      const float uu = f * (sx * qx + sy * qy + sz * qz);
-      const float rx = sy * e1z - sz * e1y, ry = sz * e1x - sx * e1z, rz = sx * e1y - sy * e1x;
-      const float vv = f * (r.dx * rx + r.dy * ry + r.dz * rz);
-      const float tt = f * (e2x * rx + e2y * ry + e2z * rz);
-      if (uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt >= r.tmin &&
-          (tt < best || (tt == best && row > brow))) {
-        best = tt, brow = row, bu = uu, bv = vv;
-      }
-    }
-    ref = kPop;
-  }
-  while (ref == kPop && sp > 0) {  // the next pushed node still in reach
-    --sp;
-    const int2 e = stack[sp * kThreads];
-    if (best > __int_as_float(e.y)) ref = e.x;
-  }
-}
-
 // The screen: a thread tests one ray against the root box (an interior
 // root; a leaf root lets every ray in). A miss is written at once. A warp
 // whose rays inside form a packet (at least kPacket, origins and unit
@@ -225,13 +152,13 @@ __global__ void __launch_bounds__(kThreads) bvh_screen_kernel(const Params p) {
   const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
   const float4 root_lo = __ldg(p.nodes), root_hi = __ldg(p.nodes + 1);
   bool in = false;
-  Ray r{};
+  BvhRay r{};
   float t_max = 0.0f;
   if (i < p.n) {
     load_ray(p, i, r);
     t_max = p.t_max[i];
     float entry;
-    in = __float_as_int(root_lo.w) < 0 || slab(root_lo, root_hi, r, t_max, entry);
+    in = __float_as_int(root_lo.w) < 0 || bvh_slab(root_lo, root_hi, r, t_max, entry);
     if (!in) store_hit(p, i, -1, t_max, 0.0f, 0.0f);
   }
   const unsigned ins = __ballot_sync(kFull, in);
@@ -266,7 +193,7 @@ __global__ void __launch_bounds__(kThreads) bvh_screen_kernel(const Params p) {
   int ref = __float_as_int(root_lo.w), sp = 0, brow = -1;
   float best = t_max, bu = 0.0f, bv = 0.0f;
   do {
-    walk_step(p, r, stack, ref, sp, best, brow, bu, bv);
+    bvh_walk_step<kThreads>(p.nodes, p.tris, r, stack, ref, sp, best, brow, bu, bv);
   } while (ref != kPop);
   store_hit(p, i, brow, best, bu, bv);
 }
@@ -297,7 +224,7 @@ __global__ void __launch_bounds__(kThreads) bvh_traverse_kernel(const Params p) 
   int idx = -1;           // the lane's ray, -1 when idle
   int ref = kPop, sp = 0, brow = -1;
   float best = 0.0f, bu = 0.0f, bv = 0.0f;
-  Ray r{};
+  BvhRay r{};
 
   while (true) {
     // idle lanes take the next rays of the warp's batch
@@ -330,7 +257,7 @@ __global__ void __launch_bounds__(kThreads) bvh_traverse_kernel(const Params p) 
     // until every lane is done)
     while (true) {
       if (idx >= 0) {
-        walk_step(p, r, stack, ref, sp, best, brow, bu, bv);
+        bvh_walk_step<kThreads>(p.nodes, p.tris, r, stack, ref, sp, best, brow, bu, bv);
         if (ref == kPop) {
           store_hit(p, idx, brow, best, bu, bv);
           idx = -1;

@@ -27,9 +27,9 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-namespace rt {
+#include "bvh_walk.cuh"
 
-constexpr float kMtEps = 1e-4f;
+namespace rt {
 
 // Row widths of the packed scene table (models/scene.py::pack_kernel_tables).
 constexpr int kSph = 5;    // cx cy cz r mat
@@ -38,16 +38,22 @@ constexpr int kTri = 10;   // a(3) e1(3) e2(3) mat
 constexpr int kVol = 6;    // cx cy cz r density mat
 constexpr int kMat = 10;   // type albedo(3) emission(3) roughness metallic ior
 constexpr int kMesh = 38;  // inv R(9) inv t(3) normal matrix(9) R(9) t(3) mat start count sl_first sl_count
+// a big mesh's row (kmesh_xfm, K1): normal matrix(9) R(9) t(3) inv R(9) inv t(3) first kmesh_res
+// row, triangles, mat
+constexpr int kXfm = 36;
 
-// Winner classes (the spec's group codes; 4 + k is dense mesh k).
+// Winner classes (the spec's group codes; 4 + k is dense mesh k). K1 marks a
+// big mesh's winner kClsBig.
 constexpr int kClsSphere = 0, kClsPlane = 1, kClsTri = 2, kClsVolume = 3, kClsMesh = 4;
+constexpr int kClsBig = 5;
 
 // The running nearest hit of one ray.
 struct Nearest {
   float t;    // starts at +inf
   int cls;    // -1 until something is hit
-  int idx;    // index in its class; the global kmesh_tri row for meshes
-  int mesh;   // dense mesh k of a mesh winner
+  int idx;    // index in its class; the global kmesh_tri row for dense meshes, the
+              // mesh's own bvh_tri4 row for a big mesh
+  int mesh;   // dense mesh k, or big mesh b, of a mesh winner
   float u, v; // barycentrics of a mesh winner
 };
 
@@ -398,6 +404,41 @@ __device__ __forceinline__ void scan_dense_mesh(const float* X, int m, const flo
       }
     }
   } while (__any_sync(warp, walking));
+}
+
+// A big mesh (its kmesh_xfm row Y, staged), for K1: the ordered walk of the
+// mesh's BVH (bvh_walk.cuh; nodes, tris: its bvh_nodes and bvh_tri4 rows in
+// device memory) in object space, with this thread's stack entries
+// kStride apart from `stack`. The big mesh comes after every other class,
+// so a row must be strictly nearer than the running best h.t; with nothing
+// hit yet, the window's end t_max is in reach, as in the threaded walk
+// (bvh.traverse keeps t <= its best, which starts at t_max). So the walk
+// starts at best = min(h.t, tmax), and its tie rule (a row at t == best
+// from a larger row) is closed where the best came from another class by
+// a first row no row exceeds. An interior root must pass its slab test.
+// Within the mesh the winner is K3's: the threaded walk's, but where the
+// Möller–Trumbore and slab tests round apart (bvh_traverse.cu).
+template <int kStride>
+__device__ __forceinline__ void walk_big_mesh(const float* Y, const float4* nodes,
+                                              const float4* tris, int2* stack, float ox,
+                                              float oy, float oz, float dx, float dy, float dz,
+                                              float tmin, float tmax, Nearest& h) {
+  BvhRay r;
+  to_object(Y + 21, ox, oy, oz, dx, dy, dz, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
+  r.ix = 1.0f / r.dx, r.iy = 1.0f / r.dy, r.iz = 1.0f / r.dz;
+  r.tmin = tmin;
+  float best = fminf(h.t, tmax), bu = 0.0f, bv = 0.0f;
+  int brow = h.cls < 0 ? -1 : 0x7fffffff;
+  const float4 root_lo = __ldg(nodes), root_hi = __ldg(nodes + 1);
+  int ref = __float_as_int(root_lo.w), sp = 0;
+  float entry;
+  if (ref > 0 && !bvh_slab(root_lo, root_hi, r, best, entry)) return;
+  do {
+    bvh_walk_step<kStride>(nodes, tris, r, stack, ref, sp, best, brow, bu, bv);
+  } while (ref != kPop);
+  if (brow >= 0 && brow != 0x7fffffff) {
+    h.t = best; h.cls = kClsBig; h.idx = brow; h.u = bu; h.v = bv;
+  }
 }
 
 // Point, front-facing shading normal and material id of an analytic winner

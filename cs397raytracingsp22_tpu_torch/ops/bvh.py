@@ -9,10 +9,11 @@ scene keeps that order, and the superleaf boxes over 16 consecutive rows
 intersected by the Möller–Trumbore scan (`intersect_tris_scan`), the spec
 of the mega-bounce and scene-intersection kernels; meshes beyond the dense
 budget by the stackless traversal of the threaded BVH (`traverse`), the
-spec that the big-mesh traversal kernel (ops/kernels/tri_scan_big.py) is
-held to. That kernel walks the same tree packed into child-pair rows
-(`pack_bvh`) in ray order, nearer child first, with a stack; its plain
-version is `traverse_packed`.
+spec that the big-mesh traversal kernel (ops/kernels/tri_scan_big.py) and
+the mega-bounce kernel's big-mesh walk are held to. Both walk the same tree
+packed into child-pair rows (`pack_bvh`) in ray order, nearer child first,
+with a stack (csrc/bvh_walk.cuh); their plain version is
+`traverse_packed`.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ MT_EPSILON = 1e-4  # Möller–Trumbore parallel-ray epsilon (geometry.rs:335)
 
 # Meshes at or below this many triangles (and at most this many in total
 # over a scene's meshes) take the dense path. Larger meshes are traversed
-# through their BVH on the staged path.
+# through their BVH: by the mega-bounce kernel (K1), or by K3 on the staged
+# path.
 DENSE_MESH_MAX_TRIS = 8192
 
 

@@ -609,6 +609,38 @@ def dense_scan_counts(scene: SceneData, o, d, t_min, t_max, t_hit, stats: dict) 
         stats[key] = stats.get(key, 0) + x
 
 
+def big_walk_counts(scene: SceneData, o, d, t_min, t_max, t_hit, stats: dict) -> None:
+    """Add to stats (per-ray int64) the tests that K1's walk of the big
+    meshes (csrc/intersect.cuh::walk_big_mesh) needs for rays whose nearest
+    hit is at t_hit (inf on a miss): each big mesh's BVH walked as
+    ops/bvh.py::traverse_packed walks it, step for step as the kernel,
+    within [t_min, min(t_hit, t_max)]:
+    - "big_nodes": the BVH boxes it tests (an interior root's, and both
+      children's of every interior node it opens);
+    - "big_tris": the triangles it tests.
+    K1 walks against a running best that only falls to t_hit, so it tests
+    at least as many. A ray with an empty window (a dead ray) needs none.
+    Both are zero on a scene without a big mesh."""
+    n = o.shape[0]
+    t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,))
+    t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,))
+    far = torch.fmin(t_hit, t_max)
+    live = t_max >= t_min
+    nodes = torch.zeros((n,), dtype=torch.int64, device=o.device)
+    tris = torch.zeros_like(nodes)
+    for mi, mesh in enumerate(scene.meshes):
+        if mi in scene.dense_mesh_ids:
+            continue
+        o_obj, d_obj = object_rays(mesh, o, d)
+        walk: dict = {}
+        bvhlib.traverse_packed(o_obj, d_obj, t_min, far, mesh.bvh_nodes, mesh.bvh_tri4,
+                               mesh.bvh_depth, stats=walk)
+        nodes += walk["boxes"] * live
+        tris += walk["tris"] * live
+    for key, x in (("big_nodes", nodes), ("big_tris", tris)):
+        stats[key] = stats.get(key, 0) + x
+
+
 def select_winner(candidates: list[dict], fields):
     """(winner (N,) int64, {field: the winner's value}): the argmin of t
     across candidates, the earlier candidate on ties."""
@@ -649,7 +681,8 @@ def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
     o, d: (N, 3) world rays (directions may be unnormalized); t_min,
     t_max: scalars or (N,); u_vol: (N, V + G) free-flight uniforms, V the
     padded volume-table length, G the general volumes. stats: when a dict,
-    receives the dense meshes' per-ray test counts (dense_scan_counts).
+    receives the per-ray test counts of the dense meshes' walks
+    (dense_scan_counts) and of the big meshes' (big_walk_counts).
     """
     n = o.shape[0]
     candidates = (analytic_candidates(scene, o, d, t_min, t_max, u_vol)
@@ -664,6 +697,7 @@ def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
     winner, sel = select_winner(candidates, ("t", "point", "normal", "frontface") + MAT_FIELDS)
     if stats is not None:
         dense_scan_counts(scene, o, d, t_min, t_max, sel["t"], stats)
+        big_walk_counts(scene, o, d, t_min, t_max, sel["t"], stats)
     valid = torch.zeros((n,), dtype=torch.bool, device=o.device)
     for g, c in enumerate(candidates):
         valid = valid | ((winner == g) & c["valid"])

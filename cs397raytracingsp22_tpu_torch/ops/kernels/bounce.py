@@ -34,7 +34,9 @@ _ARGTYPES = [
     ctypes.c_uint, ctypes.c_uint, _I, ctypes.c_float, ctypes.c_float,  # k0 k1 depth t_min t_max
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
     _P, _P, _P, _I,  # mesh_tri (kmesh_tri4), mesh_nrm, tree, tree_len
-    _P, _I, _P,  # sph_table (ksph_tree), sph_leaves, stream
+    _P, _I,  # sph_table (ksph_tree), sph_leaves
+    _P, _P, _P, _P,  # big_xfm (kmesh_xfm), big_res (kmesh_res), big_nodes, big_tris
+    _I, _P,  # big_depth (0: no big mesh), stream
 ]
 TABLES = ("kscene", "kmesh_tri4", "kmesh_nrm", "ksl_tree")  # the scene tables K1 and K4 read
 
@@ -44,20 +46,22 @@ def library() -> ctypes.CDLL:
     lib = _build.load_library("bounce")
     lib.rt_bounce_launch.argtypes = _ARGTYPES
     lib.rt_bounce_launch.restype = _I
-    lib.rt_bounce_attrs.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_bounce_attrs.argtypes = [_I, _I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rt_bounce_attrs.restype = _I
-    lib.rt_bounce_occupancy.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I)]
+    lib.rt_bounce_occupancy.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.rt_bounce_occupancy.restype = _I
     return lib
 
 
-def kernel_attrs(dense: bool = True, sph_tree: bool = False) -> tuple[int, int]:
+def kernel_attrs(dense: bool = True, sph_tree: bool = False, big: bool = False) -> tuple[int, int]:
     """(registers per thread, local spill bytes) of the compiled kernel:
     the instantiation for scenes with a dense mesh, or without (dense
-    False), which leaves the superleaf walk out, and with a sphere tree
-    (sph_tree True) or the sphere scan."""
+    False), which leaves the superleaf walk out, with a sphere tree
+    (sph_tree True) or the sphere scan, or with a big mesh (big True:
+    bounce_kernel_big, whose scenes have neither a dense mesh nor a sphere
+    tree)."""
     regs, local = _I(), _I()
-    rc = library().rt_bounce_attrs(int(dense), int(sph_tree), ctypes.byref(regs),
+    rc = library().rt_bounce_attrs(int(dense), int(sph_tree), int(big), ctypes.byref(regs),
                                    ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
@@ -71,11 +75,30 @@ def staged_bytes(scene: SceneData) -> int:
     return 4 * ((scene.kscene.numel() + 3) // 4 * 4 + scene.ksl_tree.numel())
 
 
+def big_meshes(scene: SceneData) -> list:
+    """The scene's big meshes (beyond the dense budget), in kmesh_xfm's
+    order: after the dense meshes, by scene index (models/scene.py::
+    resolve_order)."""
+    return [m for i, m in enumerate(scene.meshes) if i not in scene.dense_mesh_ids]
+
+
+def big_depth(scene: SceneData) -> int:
+    """Stack entries a thread of K1 needs for its big-mesh walk: the
+    deepest of the big meshes' BVHs (MeshBlock.bvh_depth), 0 without a
+    big mesh."""
+    return max((m.bvh_depth for m in big_meshes(scene)), default=0)
+
+
 def k1_staged_bytes(scene: SceneData) -> int:
     """Shared memory a block of K1 stages for `scene`: staged_bytes, or,
     with a sphere tree, the scene table less its sphere rows, the
-    superleaf trees, and the sphere tree's header and nodes after them
+    superleaf trees, and the sphere tree's header and nodes after them,
+    or, with a big mesh, staged_bytes, its kmesh_xfm row and a stack of
+    big_depth entries of 8 bytes for each of the block's 128 threads
     (csrc/bounce.cu::k1_staged_bytes)."""
+    depth = big_depth(scene)
+    if depth:
+        return staged_bytes(scene) + 144 + 8 * 128 * depth
     g = scene.sph_tree_leaves
     if not g:
         return staged_bytes(scene)
@@ -90,7 +113,8 @@ def resident_blocks(scene: SceneData) -> int:
     blocks = _I()
     rc = library().rt_bounce_occupancy(int(scene.kscene.numel()), int(scene.ksl_tree.numel()),
                                        len(scene.dense_mesh_ids), scene.n_spheres,
-                                       scene.sph_tree_leaves, ctypes.byref(blocks))
+                                       scene.sph_tree_leaves, big_depth(scene),
+                                       ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor failed with CUDA error {rc}")
     return blocks.value
@@ -98,14 +122,17 @@ def resident_blocks(scene: SceneData) -> int:
 
 def scene_is_simple(scene: SceneData) -> bool:
     """True when K1 can run the scene (bounce.py:285 in the JAX package):
-    every mesh dense with an explicit material and no normal map, no
+    every mesh with an explicit material and no normal map, no
     general-boundary volume, at most 128 materials, at most 128 planes,
     triangles and volumes together, the spheres among them unless the
     scene has a sphere tree (models/scene.py::sphere_tree), and tables
-    that fit a block's shared memory (k1_staged_bytes, 227 KiB). K1 reads
+    that fit a block's shared memory (k1_staged_bytes, 227 KiB). A mesh
+    beyond the dense budget (a big mesh) is walked through its BVH when it
+    is the scene's only mesh and the scene has no sphere tree. K1 reads
     neither textures nor general volumes: the staged path renders those
-    scenes."""
-    if len(scene.dense_mesh_ids) != len(scene.meshes):
+    scenes, and scenes with more meshes beside a big one."""
+    big = big_meshes(scene)
+    if big and (len(big) > 1 or scene.dense_mesh_ids or scene.sph_tree_leaves):
         return False
     if scene.n_gvols:
         return False
@@ -135,7 +162,10 @@ def path_trace_cuda(
     o, d: (N, 3) float32; uids: (N,) int32; rng_key: int seed or (2,) key
     words. The kernel reads the scene's packed tables (TABLES and
     ksph_tree: models/scene.py::pack_kernel_tables); on a scene with a
-    sphere tree it walks the tree in place of its sphere scan.
+    sphere tree it walks the tree in place of its sphere scan; on a scene
+    with a big mesh it walks the mesh's BVH (MeshBlock.bvh_nodes,
+    bvh_tri4), with its kmesh_xfm row and the corner normals of kmesh_res
+    (bounce_kernel_big).
     Returns (radiance (N, 3) float32, segments int64 scalar tensor).
     stats: when a dict, receives "segs", the (N,) int64 segments of each
     chain (and on the CPU the plain version's other counts).
@@ -157,14 +187,21 @@ def path_trace_cuda(
     check_tensor("o", o, torch.float32, (n, 3), dev)
     check_tensor("d", d, torch.float32, (n, 3), dev)
     check_tensor("uids", uids, torch.int32, (n,), dev)
-    for key in TABLES + ("ksph_tree",):
+    for key in TABLES + ("ksph_tree", "kmesh_xfm", "kmesh_res"):
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
+    big = big_meshes(scene)  # the gate lets through one, the scene's only mesh
+    for m in big:
+        for key in ("bvh_nodes", "bvh_tri4"):
+            t = getattr(m, key)
+            check_tensor(f"the big mesh's {key}", t, torch.float32, tuple(t.shape), dev)
     if n >= 2**31 // 3:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
     if path_depth < 0:
         raise ValueError("path_depth must be >= 0")
     k0, k1 = threefry.key_pair(rng_key)
+    big_nodes, big_tris = (big[0].bvh_nodes.data_ptr(), big[0].bvh_tri4.data_ptr()) if big else (
+        None, None)
     lib = library()
     rad = torch.empty((n, 3), dtype=torch.float32, device=dev)
     segs = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -178,7 +215,8 @@ def path_trace_cuda(
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
             scene.kmesh_tri4.data_ptr(), scene.kmesh_nrm.data_ptr(),
             scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()),
-            scene.ksph_tree.data_ptr(), scene.sph_tree_leaves, stream,
+            scene.ksph_tree.data_ptr(), scene.sph_tree_leaves, scene.kmesh_xfm.data_ptr(),
+            scene.kmesh_res.data_ptr(), big_nodes, big_tris, big_depth(scene), stream,
         )
     if rc != 0:
         raise RuntimeError(f"mega-bounce kernel launch failed with CUDA error {rc}")

@@ -41,7 +41,7 @@ from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene_plain
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
 from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, scene_is_simple
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import TABLES, big_meshes, scene_is_simple
 from cs397raytracingsp22_tpu_torch.render import integrator
 from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import threefry
@@ -421,8 +421,8 @@ def path_trace_wavefront(
     CPU tensors run the plain version (path_trace_wavefront_plain, which
     traces from integrator.PATH_T_MIN). CUDA tensors launch K4 once per
     bounce, compacting inside the launch; a scene beyond K1's gates,
-    anything the kernel does not take (a scene with a sphere tree among
-    them), a failed build or a failed launch raises.
+    anything the kernel does not take (a scene with a sphere tree or a big
+    mesh among them), a failed build or a failed launch raises.
     """
     if o.device.type == "cpu":
         return path_trace_wavefront_plain(scene, o, d, uids, rng_key, path_depth,
@@ -434,6 +434,9 @@ def path_trace_wavefront(
     if scene.sph_tree_leaves:
         raise ValueError("the wavefront kernel scans spheres; a scene with a sphere tree "
                          "(models/scene.py::sphere_tree) takes K1")
+    if big_meshes(scene):
+        raise ValueError("the wavefront kernel walks dense meshes alone; a scene with a mesh "
+                         "past the dense budget takes K1")
     dev = o.device
     n = o.shape[0]
     check_tensor("o", o, torch.float32, (n, 3), dev)

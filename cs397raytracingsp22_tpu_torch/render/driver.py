@@ -18,10 +18,11 @@ device's timeline.
   with nee=True, the next-event estimator (render/nee.py), on any scene:
   the mega-bounce kernel computes the reference estimator only;
 - a scene that passes `scene_is_simple` to the mega-bounce kernel
-  (ops/kernels/bounce.py; its plain version for CPU tensors);
-- any other scene (a mesh beyond the dense budget, a normal map, a
-  material synthesized from textures, a general-boundary volume) to the
-  staged executor.
+  (ops/kernels/bounce.py; its plain version for CPU tensors), among them
+  a scene whose only mesh is past the dense budget, whose BVH it walks;
+- any other scene (a normal map, a material synthesized from textures, a
+  general-boundary volume, a big mesh beside another mesh or a sphere
+  tree) to the staged executor.
 Phong, NEE and the staged executor intersect through
 ops/intersect.py::intersect_scene: the scene-intersection kernel K2 (and
 the big-mesh kernel K3 per big mesh) for CUDA tensors, their plain

@@ -123,9 +123,9 @@ def path_trace(
     count of path segments traced, an int64 scalar tensor (a float32 sum
     loses count past 2^24 segments).
 
-    stats: when a dict, receives per-chain int64 counts of the dense-mesh
-    tests summed over the bounces (intersect_scene_plain's stats) and
-    "segs", the per-chain segment counts.
+    stats: when a dict, receives per-chain int64 counts of the dense- and
+    big-mesh walks' tests summed over the bounces (intersect_scene_plain's
+    stats) and "segs", the per-chain segment counts.
     """
     n = o.shape[0]
     dev = o.device

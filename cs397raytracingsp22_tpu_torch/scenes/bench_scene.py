@@ -5,8 +5,9 @@ bench.py::build_bench_scene).
 The mesh is pinned to the in-repo assets/teapot_6k.obj (6,144 triangles,
 inside the dense budget, so the scene takes the mega-bounce kernel), or to
 a subdivision of it made by `teapot_obj` (scenes/bench_teapot_32k.py: the
-same scene with a 32,832-triangle teapot, which takes the staged path). A
-missing mesh raises instead of rendering a scene without it.
+same scene with a 32,832-triangle teapot, a big mesh, whose BVH the
+mega-bounce kernel walks). A missing mesh raises instead of rendering a
+scene without it.
 """
 
 from __future__ import annotations

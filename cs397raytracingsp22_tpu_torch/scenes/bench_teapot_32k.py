@@ -1,10 +1,13 @@
 """The bench scene with its teapot subdivided to 32,832 triangles.
 
-Four times beyond the dense budget (8,192 triangles), so it renders
-through the staged path: the scene-intersection kernel for the walls,
-spheres and light, and the big-mesh BVH traversal kernel for the teapot.
-The mesh is generated from assets/teapot_6k.obj into build/assets/ at
-first use.
+Four times beyond the dense budget (8,192 triangles), so the teapot is a
+big mesh: the mega-bounce kernel K1 renders the scene, every bounce of a
+path in one launch, and walks the teapot's BVH on every segment
+(bounce_kernel_big, csrc/intersect.cuh::walk_big_mesh); the staged path's
+kernels (K2, K3) take it only with next-event estimation. The CLI renders
+it when given no scene, and the benchmark's cell bench32k.k1 measures it
+(from its own copy of the mesh, benchmark/data/teapot_32k.obj). The mesh
+is generated from assets/teapot_6k.obj into build/assets/ at first use.
 
     python -m cs397raytracingsp22_tpu_torch.cli cs397raytracingsp22_tpu_torch/scenes/bench_teapot_32k.py
 """

@@ -1,29 +1,29 @@
-"""Where the mega-bounce kernel's dense walk (K1) stops beating the staged
-path (K2 for the analytic part, K3 for the mesh) on the card: the bench
-scene (scenes/bench_scene.py) with its teapot subdivided to each size,
-rendered through both routes (mirrors the JAX package's
-tools/bench_teapot_6k.py, which located the TPU's crossover).
+"""Where the mega-bounce kernel's dense walk (K1's superleaf-tree walk)
+stops beating its BVH walk of a big mesh on the card: the bench scene
+(scenes/bench_scene.py) with its teapot subdivided to each size, rendered
+through both routes (mirrors the JAX package's tools/bench_teapot_6k.py,
+which located the TPU's crossover against its staged path).
 
     python -m cs397raytracingsp22_tpu_torch.tools.bench_teapot_6k [SIZE ...] [--dense-max-tris N]
 
 The route follows from `compile_scene(dense_max_tris=...)`, the port's
 argument in place of the JAX package's RT_DENSE_MAX_TRIS: a mesh within
-the threshold is dense and the scene runs on K1, a mesh beyond it is a
-big mesh and the scene takes the staged path. For each size (6,144 is
+the threshold is dense and K1 walks its superleaf tree ("dense"), a mesh
+beyond it is a big mesh and K1 walks its BVH ("bvh"); a scene K1's gates
+refuse takes the staged path ("staged"). For each size (6,144 is
 assets/teapot_6k.obj, larger sizes `bench_scene.teapot_obj(n)`) the tool
 renders 512² × 64 spp, depth 8, through render_to_image: once with the
 threshold at the mesh's triangles (the subdivision reaches about the
 size asked), padded to 16 rows as the budget counts them ("dense"), and
-once at 0 ("staged"), or, with `--dense-max-tris`, once at that
-threshold. It prints a JSON line a size and route (seconds an image,
-least of the timed renders after a warm one, Mrays/s of segments, K1's
-resident blocks an SM with the scene staged) and where K1's gates refuse
-a size: beyond ops/bvh.py's DENSE_MESH_MAX_TRIS
-(8,192) the dense meshes' superleaf trees pass the 1,023 nodes
-(models/scene.py TREE_MAX_NODES) that K1 and K2 stage in shared memory,
-and the compile raises. Then the crossover: the least size at which the
-staged route is faster. On the CPU (`run(device="cpu", ...)`) it
-rehearses the plain versions at a size the caller passes.
+once at 0 ("bvh"), or, with `--dense-max-tris`, once at that threshold.
+It prints a JSON line a size and route (seconds an image, least of the
+timed renders after a warm one, Mrays/s of segments, K1's resident blocks
+an SM with the scene staged) and where K1's gates refuse a size: beyond
+ops/bvh.py's DENSE_MESH_MAX_TRIS (8,192) the dense meshes' superleaf trees
+pass the 1,023 nodes (models/scene.py TREE_MAX_NODES) that K1 and K2 stage
+in shared memory, and the compile raises. Then the crossover: the least
+size at which the BVH route is faster. On the CPU (`run(device="cpu",
+...)`) it rehearses the plain versions at a size the caller passes.
 """
 
 from __future__ import annotations
@@ -44,14 +44,16 @@ def scene_for(n: int, frame: dict):
 
 
 def compile_route(scene, device, dense_max_tris: int | None = None):
-    """(scene data, "dense" or "staged") at the threshold (ops/bvh.py's
-    DENSE_MESH_MAX_TRIS when None)."""
+    """(scene data, "dense", "bvh" or "staged") at the threshold
+    (ops/bvh.py's DENSE_MESH_MAX_TRIS when None)."""
     from cs397raytracingsp22_tpu_torch.ops import bvh
     from cs397raytracingsp22_tpu_torch.ops.kernels import bounce
 
     limit = bvh.DENSE_MESH_MAX_TRIS if dense_max_tris is None else dense_max_tris
     data = scene.compile(device=device, dense_max_tris=limit)
-    return data, ("dense" if bounce.scene_is_simple(data) else "staged")
+    if not bounce.scene_is_simple(data):
+        return data, "staged"
+    return data, ("bvh" if bounce.big_meshes(data) else "dense")
 
 
 def measure(scene, data, device, reps: int) -> dict:
@@ -93,7 +95,7 @@ def run(device="cuda", sizes=SIZES, dense_max_tris: int | None = None, frame: di
                 row = dict(tris=n, route="dense", threshold=limit, refused=str(e))
             else:
                 row = dict(tris=n, route=route, threshold=limit)
-                if route == "dense" and torch.device(device).type == "cuda":
+                if route != "staged" and torch.device(device).type == "cuda":
                     row["k1_blocks_per_sm"] = bounce.resident_blocks(data)
                 row.update(measure(scene, data, device, reps))
             rows.append(row)
@@ -105,14 +107,14 @@ def run(device="cuda", sizes=SIZES, dense_max_tris: int | None = None, frame: di
 
 
 def crossover(rows: list):
-    """The least size at which the staged route renders faster than the
+    """The least size at which the BVH route renders faster than the
     dense one, or None where it never does (or no size has both)."""
     by = {}
     for r in rows:
         if "least_s" in r:
             by.setdefault(r["tris"], {})[r["route"]] = r["least_s"]
-    wins = [n for n, t in sorted(by.items()) if "dense" in t and "staged" in t
-            and t["staged"] < t["dense"]]
+    wins = [n for n, t in sorted(by.items()) if "dense" in t and "bvh" in t
+            and t["bvh"] < t["dense"]]
     return wins[0] if wins else None
 
 

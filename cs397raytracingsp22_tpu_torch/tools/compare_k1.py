@@ -12,7 +12,9 @@ where this checkout's takes the superleaf tree (ksl_tree and its length)
 is launched with that older argument list, one without the sphere tree
 (no `sph_leaves` in bounce.cu) without its two arguments, and one that
 counts the sphere tree's node tests (`sph_tests` in bounce.cu) with a
-counter of its own; the lists are told apart by the source. Every build uses this checkout's
+counter of its own, and one without the big-mesh walk (no `big_nodes` in
+bounce.cu) without its five arguments; the lists are told apart by the
+source. Every build uses this checkout's
 nvcc flags (ops/kernels/_build.py). The
 bench frame (scenes/bench_scene.py, 512² × 64 spp, depth 8: one launch of
 16,777,216 rays) runs through each build. Printed: each build's
@@ -40,6 +42,11 @@ from cs397raytracingsp22_tpu_torch.scenes import bench_scene
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
 
+# rt_bounce_launch's arguments up to sph_leaves, which every list since the
+# sphere tree shares; the stream comes last in each
+_TO_SPH_LEAVES = bounce._ARGTYPES[:25]
+
+
 @contextlib.contextmanager
 def _using(lib: ctypes.CDLL):
     """bounce.path_trace_cuda launches `lib`'s kernel inside the block."""
@@ -55,7 +62,7 @@ def _launch_flat(lib: ctypes.CDLL, data, o, d, uids, depth: int, max_dist: float
     """bounce.path_trace_cuda for a K1 of the flat superleaf scan, whose
     rt_bounce_launch ends (..., mesh_tri, mesh_nrm, sl, stream) with sl the
     (NSL, 6) ksl_bounds rows. Returns the radiance."""
-    lib.rt_bounce_launch.argtypes = bounce._ARGTYPES[:-4] + [ctypes.c_void_p]
+    lib.rt_bounce_launch.argtypes = _TO_SPH_LEAVES[:-3] + [ctypes.c_void_p]
     lib.rt_bounce_launch.restype = ctypes.c_int
     n = o.shape[0]
     k0, k1 = threefry.key_pair(0)
@@ -76,7 +83,7 @@ def _launch_pre_sphere_tree(lib: ctypes.CDLL, data, o, d, uids, depth: int, max_
     """bounce.path_trace_cuda for a K1 from before the sphere tree, whose
     rt_bounce_launch ends (..., tree, tree_len, stream). Returns the
     radiance."""
-    lib.rt_bounce_launch.argtypes = bounce._ARGTYPES[:-3] + [ctypes.c_void_p]
+    lib.rt_bounce_launch.argtypes = _TO_SPH_LEAVES[:-2] + [ctypes.c_void_p]
     lib.rt_bounce_launch.restype = ctypes.c_int
     n = o.shape[0]
     k0, k1 = threefry.key_pair(0)
@@ -98,7 +105,7 @@ def _launch_counted(lib: ctypes.CDLL, data, o, d, uids, depth: int, max_dist: fl
     """bounce.path_trace_cuda for a K1 that counts its sphere-tree node
     tests, whose rt_bounce_launch ends (..., sph_table, sph_leaves,
     sph_tests, stream). Returns the radiance."""
-    lib.rt_bounce_launch.argtypes = bounce._ARGTYPES[:-1] + [ctypes.c_void_p] * 2
+    lib.rt_bounce_launch.argtypes = _TO_SPH_LEAVES + [ctypes.c_void_p] * 2
     lib.rt_bounce_launch.restype = ctypes.c_int
     n = o.shape[0]
     k0, k1 = threefry.key_pair(0)
@@ -114,6 +121,28 @@ def _launch_counted(lib: ctypes.CDLL, data, o, d, uids, depth: int, max_dist: fl
         data.sph_tree_leaves, tests.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"the counting K1 failed to launch with CUDA error {rc}")
+    return rad
+
+
+def _launch_pre_big(lib: ctypes.CDLL, data, o, d, uids, depth: int, max_dist: float):
+    """bounce.path_trace_cuda for a K1 from before the big-mesh walk, whose
+    rt_bounce_launch ends (..., sph_table, sph_leaves, stream). Returns the
+    radiance."""
+    lib.rt_bounce_launch.argtypes = _TO_SPH_LEAVES + [ctypes.c_void_p]
+    lib.rt_bounce_launch.restype = ctypes.c_int
+    n = o.shape[0]
+    k0, k1 = threefry.key_pair(0)
+    rad = torch.empty((n, 3), dtype=torch.float32, device=o.device)
+    segs = torch.empty((n,), dtype=torch.int32, device=o.device)
+    rc = lib.rt_bounce_launch(
+        o.data_ptr(), d.data_ptr(), uids.data_ptr(), n, rad.data_ptr(), segs.data_ptr(), k0, k1,
+        depth, integrator.PATH_T_MIN, max_dist, data.kscene.data_ptr(), int(data.kscene.numel()),
+        data.n_spheres, data.n_planes, data.n_tris, data.n_volumes, int(data.mat_type.shape[0]),
+        len(data.dense_mesh_ids), data.kmesh_tri4.data_ptr(), data.kmesh_nrm.data_ptr(),
+        data.ksl_tree.data_ptr(), int(data.ksl_tree.numel()), data.ksph_tree.data_ptr(),
+        data.sph_tree_leaves, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the K1 without the big-mesh walk failed to launch with CUDA error {rc}")
     return rad
 
 
@@ -140,12 +169,14 @@ def main() -> int:
     flat = {"this checkout": False}
     pre_tree = {"this checkout": False}
     counted = {"this checkout": False}
+    pre_big = {"this checkout": False}
     for csrc, path, proc in jobs:
         with open(os.path.join(csrc, "bounce.cu")) as f:
             src = f.read()
         flat[csrc] = "tree_len" not in src
         pre_tree[csrc] = not flat[csrc] and "sph_leaves" not in src
         counted[csrc] = "sph_tests" in src
+        pre_big[csrc] = not (flat[csrc] or pre_tree[csrc] or counted[csrc]) and "big_nodes" not in src
         logs[csrc] = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {csrc}/bounce.cu:\n{logs[csrc]}")
@@ -167,6 +198,8 @@ def main() -> int:
             return _launch_pre_sphere_tree(libs[name], data, o, d, uids, 8, 100.0)
         if counted[name]:
             return _launch_counted(libs[name], data, o, d, uids, 8, 100.0)
+        if pre_big[name]:
+            return _launch_pre_big(libs[name], data, o, d, uids, 8, 100.0)
         with _using(libs[name]):
             return bounce.path_trace_cuda(data, o, d, uids, 0, 8, 100.0)[0]
 

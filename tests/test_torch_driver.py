@@ -240,7 +240,7 @@ def test_cli_renders_a_phong_scene(tmp_path):
 
 def test_cli_renders_the_32k_bench_scene_by_default(tmp_path):
     """Without a scene script the CLI renders scenes/bench_teapot_32k.py
-    (through the staged path: its teapot is a big mesh)."""
+    (on K1, which walks its big mesh's BVH)."""
     import json
 
     from cs397raytracingsp22_tpu_torch import cli

@@ -181,11 +181,16 @@ SCENES = {
 }
 
 
+# scenes the gate takes since K1 walks a big mesh's BVH (tests/test_torch_bench32k.py):
+# an untextured mesh past the dense budget
+BIG_MESH_ON_K1 = {"bench_teapot_32k"}
+
+
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_gate_unchanged_for_the_other_scenes(name):
     sd = SCENES[name]().compile(device="cpu")
     assert sd.sph_tree_leaves == 0 and sd.ksph_tree.shape == (1, 4)
-    assert bounce.scene_is_simple(sd) == _parent_gate(sd)
+    assert bounce.scene_is_simple(sd) == (_parent_gate(sd) or name in BIG_MESH_ON_K1)
 
 
 def test_gate_takes_the_final_scene_and_refuses_what_does_not_fit():

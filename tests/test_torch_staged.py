@@ -247,7 +247,8 @@ def test_mt_epsilon_hides_small_triangles_of_the_32k_teapot():
     with triangle area: the 32,832-triangle teapot (area per triangle
     1/5.3 of the 6,144-triangle one's) loses a large share of its camera
     hits to it, the 6k teapot almost none. The port keeps the reference's
-    test, so the 32k cell renders the teapot with those dropouts."""
+    test, so the benchmark's cell bench32k.k1 (K1 walking the teapot's
+    BVH) renders the teapot with those dropouts."""
     full6k, kept6k = _camera_mesh_hits(None, 0.0), _camera_mesh_hits(None, 1e-4)
     full32k, kept32k = _camera_mesh_hits(32768, 0.0), _camera_mesh_hits(32768, 1e-4)
     assert full6k == full32k > 0  # the same surface

@@ -152,15 +152,15 @@ def test_bench_teapot_6k_threshold(capsys):
     frame = dict(width=4, height=4, spp=1, path_depth=2)
     scene = bench_teapot_6k.scene_for(6144, frame)
     assert bench_teapot_6k.compile_route(scene, "cpu")[1] == "dense"
-    assert bench_teapot_6k.compile_route(scene, "cpu", 512)[1] == "staged"
+    assert bench_teapot_6k.compile_route(scene, "cpu", 512)[1] == "bvh"
     rows = bench_teapot_6k.run("cpu", sizes=(6144,), dense_max_tris=512, frame=frame, reps=1)
-    assert [(r["tris"], r["route"], r["threshold"]) for r in rows] == [(6144, "staged", 512)]
+    assert [(r["tris"], r["route"], r["threshold"]) for r in rows] == [(6144, "bvh", 512)]
     assert rows[0]["segments"] > 0 and rows[0]["mrays"] > 0
     line = capsys.readouterr().out.strip().splitlines()
     assert json.loads(line[-1]) == {"crossover_tris": None}
     assert bench_teapot_6k.crossover([
-        dict(tris=9000, route="dense", least_s=1.0), dict(tris=9000, route="staged", least_s=0.5),
-        dict(tris=6144, route="dense", least_s=0.5), dict(tris=6144, route="staged", least_s=1.0),
+        dict(tris=9000, route="dense", least_s=1.0), dict(tris=9000, route="bvh", least_s=0.5),
+        dict(tris=6144, route="dense", least_s=0.5), dict(tris=6144, route="bvh", least_s=1.0),
     ]) == 9000
 
 
@@ -171,7 +171,7 @@ def test_bench_teapot_6k_refuses_beyond_the_tree_cap():
     scene = bench_teapot_6k.scene_for(9000, frame)
     with pytest.raises(ValueError, match="superleaf tree nodes"):
         bench_teapot_6k.compile_route(scene, "cpu", 9008)  # 9,000 rows padded to 16
-    assert bench_teapot_6k.compile_route(scene, "cpu")[1] == "staged"
+    assert bench_teapot_6k.compile_route(scene, "cpu")[1] == "bvh"
 
 
 def test_bench_config4_e2e_on_cpu():
