@@ -271,6 +271,15 @@ port's tools:
      it has NaN), S1's ms (CUDA events) beside its bound (bytes: what each
      ray needs read once, the outputs written once) and the plain version's
      ms. Phase 2 prints S1's registers and fails on spills.
+ 39. nee (run right after phase 38): N1, NEE's light-sample kernel
+     (csrc/nee.cu), on the first NEE bounce of the bench teapot's NEE chunk 0
+     (1,048,576 rays): N1a's outputs (the NEE flags, the shadow rays, the
+     pending contribution) and, after the shadow rays' intersection, N1b's
+     contribution bit-identical to render/nee.py::nee_sample_plain and
+     nee_contrib_plain on the same card (NaN where they have NaN), each
+     entry's ms (CUDA events) beside its bound (bytes: what each ray needs
+     read once, the outputs written once) and the plain versions' ms.
+     Phase 2 prints N1's registers and fails on spills.
  36. rtnw (run right after phase 35): K1's sphere tree on the final scene of
      The Next Week (scenes/rtnw_final.py, 800² × 64 spp, depth 40, 1,006
      spheres): on chunk 0's camera rays and the rays entering bounce 3 of
@@ -310,8 +319,8 @@ of phase 7 (camera rays), the timed renders of phase 10 (camera rays,
 bounce draws) and the timed NEE renders of phase 25 (all three); R1's
 (one per intersect_scene call on a scene with meshes) of the windows of
 K2's in this process: phases 10, 25-29, 31, 33 and 34 (phase 32's ranks
-do not report it); S1's (one a bounce of the staged and NEE executors) of
-the same windows. Each
+do not report it); S1's (one a bounce of the staged and NEE executors) and
+N1's (both entries, one each a NEE bounce) of the same windows. Each
 counter is reset just before its path
 runs and read just after; the launches that compare a kernel with its
 plain version fall outside.
@@ -397,6 +406,8 @@ R1_MAIN = [0]
 # S1's launches on the same windows (one a bounce of the staged and NEE
 # executors)
 S1_MAIN = [0]
+# N1's launches on the same windows, both entries (one each a NEE bounce)
+N1_MAIN = [0]
 OPS = dict(sphere=32, plane=24, triangle=53, volume=42, mesh_setup=21, box=24, mt=53,
            mt_verts=59)
 # multiplies in one Möller–Trumbore test of csrc/tri_scan.cu (q 6, det 3,
@@ -604,18 +615,20 @@ def draws_read() -> None:
 
 
 def r1_reset() -> None:
-    """Zero R1's and S1's counters just before a main path runs."""
-    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve, shade
+    """Zero R1's, S1's and N1's counters just before a main path runs."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import nee, resolve, shade
     resolve.LAUNCHES["resolve"] = 0
     shade.LAUNCHES["shade"] = 0
+    nee.LAUNCHES.update(dict.fromkeys(nee.LAUNCHES, 0))
 
 
 def r1_read() -> None:
-    """Add R1's and S1's counters, read just after a main path ran, to
-    R1_MAIN and S1_MAIN."""
-    from cs397raytracingsp22_tpu_torch.ops.kernels import resolve, shade
+    """Add R1's, S1's and N1's counters, read just after a main path ran, to
+    R1_MAIN, S1_MAIN and N1_MAIN."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import nee, resolve, shade
     R1_MAIN[0] += resolve.LAUNCHES["resolve"]
     S1_MAIN[0] += shade.LAUNCHES["shade"]
+    N1_MAIN[0] += sum(nee.LAUNCHES.values())
 
 
 def rtnw_phase(dev) -> None:
@@ -944,6 +957,110 @@ def shade_phase(dev) -> dict:
                    "launches": 0, "max_abs_err": 0.0, "ms": k_ms, "plain_ms": p_ms,
                    "bound_ms": b_ms, "bound_by": by, "library_ms": None}
     return row
+
+
+def nee_bytes(sd, hit, live, out) -> tuple[int, int]:
+    """The bytes N1a and N1b need on these inputs, each once. N1a: every
+    ray's live flag (1 B) and its outputs (did, shoot, the shadow ray's
+    origin, direction and window end, pending: 42 B); a live ray's valid
+    flag (1 B); a live hit's normal and type (16 B); a Parameterized one's
+    incoming direction, branch uniform, roughness and metallic (24 B); a
+    sampling vertex's four draws and point (28 B); a shooting one's albedo
+    (12 B); the light rows once. N1b: every ray's valid flag in and
+    contribution out (13 B); pending where the flag is false (12 B)."""
+    from cs397raytracingsp22_tpu_torch.models import materials as mat
+
+    did, shoot, sh_valid = out
+    live_hit = live & hit.valid
+    par = live_hit & (hit.mtype == mat.PARAMETERIZED) & ((hit.normal * hit.normal).sum(1) > 0)
+    n = live.numel()
+    sample = (43 * n + int(live.sum()) + 16 * int(live_hit.sum()) + 24 * int(par.sum())
+              + 28 * int(did.sum()) + 12 * int(shoot.sum())
+              + 52 * sd.n_lt_tri + 28 * sd.n_lt_sph)
+    contrib = 13 * n + 12 * int((~sh_valid).sum())
+    return sample, contrib
+
+
+def nee_phase(dev) -> dict:
+    """Phase 39: N1 against its plain versions on the first NEE bounce of
+    the NEE bench chunk 0; returns the kernels line's row."""
+    import dataclasses
+
+    from cs397raytracingsp22_tpu_torch.ops.intersect import intersect_scene
+    from cs397raytracingsp22_tpu_torch.ops.kernels import nee as n1
+    from cs397raytracingsp22_tpu_torch.render import integrator, nee
+    from cs397raytracingsp22_tpu_torch.scenes import bench_scene
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    key = threefry.key_words(2**33 + 39)
+    sc = bench_scene.build(**RESOLVE_NEE_FRAME)
+    sc = dataclasses.replace(sc, camera=dataclasses.replace(sc.camera, nee=True))
+    sd, cam = sc.compile(device=dev), sc.camera
+    _, (o, d, uids) = chunk0(sd, cam, key)
+    real, got = n1.nee_sample, {}
+
+    def recorder(*args):
+        got["args"] = args
+        raise _Captured
+
+    n1.nee_sample = recorder
+    try:
+        integrator.path_trace_shrink(sd, o, d, uids, key, cam.path_depth, cam.max_trace_dist,
+                                     nee=True)
+    except _Captured:
+        pass
+    finally:
+        n1.nee_sample = real
+    del o, d, uids
+    args = got["args"]
+    _, hit, d_in, u_choice, live, u, max_dist = args
+
+    def check(name, a, b):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"N1 {name} is {a.dtype} {tuple(a.shape)}, the plain "
+                                 f"version's {b.dtype} {tuple(b.shape)}")
+        if a.dtype == torch.float32:
+            same = (a.view(torch.int32) == b.view(torch.int32)) | (a.isnan() & b.isnan())
+        else:
+            same = a == b
+        if not bool(same.all()):
+            bad = int((~same).reshape(a.shape[0], -1).any(dim=1).sum())
+            raise AssertionError(f"N1 {name} differs from the plain version on {bad} of "
+                                 f"{a.shape[0]} rays")
+
+    before = dict(n1.LAUNCHES)
+    out = n1.nee_sample(*args)
+    want = nee.nee_sample_plain(*args)
+    for name, a, b in zip(("did", "shoot", "sh_o", "sh_dir", "t_max", "pending"), out, want):
+        check(name, a, b)
+    did, shoot, sh_o, sh_dir, t_max, pending = out
+    sh = intersect_scene(sd, sh_o, sh_dir, integrator.PATH_T_MIN, t_max, u[:, 4:].contiguous())
+    contrib = n1.nee_contrib(sh.valid, pending)
+    check("contrib", contrib, nee.nee_contrib_plain(sh.valid, pending))
+    torch.cuda.synchronize()
+    if n1.LAUNCHES != {k: v + 1 for k, v in before.items()}:
+        raise AssertionError(f"N1: the calls launched {n1.LAUNCHES}, from {before}")
+    n = live.numel()
+    rays = dict(d_in=d_in, u_choice=u_choice, live=live)
+    bufs = dict(zip(("did", "shoot", "sh_o", "sh_dir", "t_max", "pending"), out))
+    a_ms = cuda_ms(lambda: n1.launch_sample(sd, hit, rays, u, max_dist, bufs), 20)
+    b_ms = cuda_ms(lambda: n1.launch_contrib(sh.valid, pending, contrib), 20)
+    pa_ms = cuda_ms(lambda: nee.nee_sample_plain(*args), 3)
+    pb_ms = cuda_ms(lambda: nee.nee_contrib_plain(sh.valid, pending), 3)
+    by_a, by_b = nee_bytes(sd, hit, live, (did, shoot, sh.valid))
+    ba_ms, _ = bound(by_a, 0)
+    bb_ms, _ = bound(by_b, 0)
+    (ra, sa), (rb, sb) = n1.kernel_attrs("nee_sample"), n1.kernel_attrs("nee_contrib")
+    log("nee", f"N1 bench NEE bounce 0 ({n} rays, {int(did.sum())} samples, {int(shoot.sum())} "
+        f"shadow rays, {int((contrib.amax(dim=1) > 0).sum())} lit): every output bit-identical "
+        f"to the plain versions; N1a ({ra} registers, {sa} B local) {a_ms:.4f} ms (bound "
+        f"{ba_ms:.4f} ms, bytes: {ba_ms / a_ms:.1%}), plain torch {pa_ms:.3f} ms "
+        f"({pa_ms / a_ms:.0f}x); N1b ({rb} registers, {sb} B local) {b_ms:.4f} ms (bound "
+        f"{bb_ms:.4f} ms, bytes: {bb_ms / b_ms:.1%}), plain torch {pb_ms:.3f} ms")
+    return {"name": "nee", "route": "cuda", "source": "cs397raytracingsp22_tpu_torch/csrc/nee.cu",
+            "replaces": None, "launches": 0, "max_abs_err": 0.0, "ms": a_ms + b_ms,
+            "plain_ms": pa_ms + pb_ms, "bound_ms": ba_ms + bb_ms, "bound_by": "bytes",
+            "library_ms": None}
 
 
 def draws_phase(dev) -> list:
@@ -3560,7 +3677,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from PIL import Image
 
-    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, resolve, shade
+    from cs397raytracingsp22_tpu_torch.ops.kernels import _build, bounce, draws, nee, resolve, shade
     from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect, tri_scan, tri_scan_big
     from cs397raytracingsp22_tpu_torch.ops.kernels import wavefront
     from cs397raytracingsp22_tpu_torch.render import driver, integrator
@@ -3591,7 +3708,9 @@ def main() -> int:
                                ("R1", "resolve", resolve, {}),
                                ("R1 bare", "resolve", resolve, {"which": 0}),
                                ("S1", "shade", shade, {}),
-                               ("S1 NEE", "shade", shade, {"nee": True})):
+                               ("S1 NEE", "shade", shade, {"nee": True}),
+                               ("N1 sample", "nee", nee, {"entry": "nee_sample"}),
+                               ("N1 contrib", "nee", nee, {"entry": "nee_contrib"})):
         regs, spill = mod.kernel_attrs(**kw)
         ptxas = [ln.strip() for ln in _build.BUILD_INFO[name]["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -3601,7 +3720,7 @@ def main() -> int:
         if kid == "K1" and (regs > K1_MAX_REGS or spill):
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
-        if (kid.startswith(("K4", "D1", "R1", "S1"))
+        if (kid.startswith(("K4", "D1", "R1", "S1", "N1"))
                 or kid in ("K1 no mesh", "K1 sphere tree", "K3", "K5")) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
@@ -3626,6 +3745,8 @@ def main() -> int:
     resolve_row = resolve_phase(dev)
     # ---- 38. the shading kernel against its plain version ----
     shade_row = shade_phase(dev)
+    # ---- 39. NEE's light-sample kernel against its plain versions ----
+    nee_row = nee_phase(dev)
 
     # ---- 3. K1 vs plain on the card ----
     depth = 8
@@ -3818,7 +3939,8 @@ def main() -> int:
         "library_ms": None,
     }] + staged + k45 + probes + [dict(row, launches=D1_MAIN[row["name"][6:]])
                                   for row in draw_rows]
-        + [dict(resolve_row, launches=R1_MAIN[0]), dict(shade_row, launches=S1_MAIN[0])]}))
+        + [dict(resolve_row, launches=R1_MAIN[0]), dict(shade_row, launches=S1_MAIN[0]),
+           dict(nee_row, launches=N1_MAIN[0])]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -41,12 +41,12 @@ NVCC_FLAGS = (
 EXTRA_FLAGS = {"scene_intersect": ("-fmad=false",), "bvh_traverse": ("-fmad=false",),
                "tri_scan": ("-fmad=false",), "draws": ("-fmad=false",),
                "resolve": ("-fmad=false",), "shade": ("-fmad=false",),
-               "vpu_peak": ("-fmad=true",)}
+               "nee": ("-fmad=false",), "vpu_peak": ("-fmad=true",)}
 # every kernel of the package, for build_all: the render kernels K1-K5, the
-# draws D1, the merged resolve R1, the shading S1 and the roofline probes
-# P1-P3 (vpu_peak), P4 (dtype_rate) and P5 (bw_scan)
+# draws D1, the merged resolve R1, the shading S1, NEE's sample N1 and the
+# roofline probes P1-P3 (vpu_peak), P4 (dtype_rate) and P5 (bw_scan)
 KERNELS = ("bounce", "wavefront", "scene_intersect", "bvh_traverse", "tri_scan", "draws",
-           "resolve", "shade", "vpu_peak", "dtype_rate", "bw_scan")
+           "resolve", "shade", "nee", "vpu_peak", "dtype_rate", "bw_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -19,10 +19,11 @@ after every bounce. `bounce_update` is the one bounce body all of them
 share, with or without NEE (render/nee.py): the draws, the intersection,
 and the shading after it, one launch of the shading kernel S1
 (ops/kernels/shade.py) for CUDA tensors and its plain version
-ops/bsdf.py::shade_plain for CPU tensors. `phong_trace` is the
-reference's Phong shading with hard shadows. The executors take
-`intersect=`: `intersect_scene` (K2, and K3 per big mesh, for CUDA
-tensors; the plain version for CPU tensors) by default,
+ops/bsdf.py::shade_plain for CPU tensors; NEE's sample around its shadow
+rays is two launches of N1 (ops/kernels/nee.py) for CUDA tensors.
+`phong_trace` is the reference's Phong shading with hard shadows. The
+executors take `intersect=`: `intersect_scene` (K2, and K3 per big mesh,
+for CUDA tensors; the plain version for CPU tensors) by default,
 `intersect_scene_plain` for their plain versions on the card.
 """
 
@@ -75,6 +76,13 @@ def bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, depth, max_trace_
     sites of the plain estimator, so it changes the estimator, not the
     sampled paths.
 
+    Launches on CUDA tensors: the bounce's draws (D1), the intersection,
+    with do_nee NEE's draws (D1), its sample and shadow-ray set-up (N1a),
+    the shadow rays' intersection and its contribution (N1b), then the
+    shading (S1). On CPU tensors the same calls run the plain versions
+    (render/nee.py::nee_sample_plain and nee_contrib_plain for N1,
+    ops/bsdf.py::shade_plain for S1).
+
     Returns (o, d, thr, rad, live_hit, prev_nee, segments this bounce: the
     live rays, and the shadow rays shot); prev_nee is None unless do_nee."""
     ball, u_choice, u_vol = _bounce_draws(scene, rng_key, uids, rnglib.SITE_BOUNCE0 + depth)
@@ -94,7 +102,7 @@ def bounce_update(scene, o, d, thr, rad, alive, uids, rng_key, depth, max_trace_
         sample = None
         if do_nee:
             contrib, did, shadow = nee.direct_light(
-                scene, hit, d, u_choice, alive & hit.valid, uids, rng_key, depth, PATH_T_MIN,
+                scene, hit, d, u_choice, alive, uids, rng_key, depth, PATH_T_MIN,
                 max_trace_dist, intersect=intersect,
             )
             sample = (contrib, did)

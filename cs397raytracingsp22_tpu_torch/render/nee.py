@@ -30,6 +30,13 @@ The integrator applies NEE at every vertex but the last bounce's: a
 depth-k path's NEE term equals emission at a (k+1)-th vertex, so skipping
 the last keeps the expectation of the depth-limited plain path trace.
 
+On CUDA tensors `direct_light` is three launches and the shadow rays:
+NEE's draws (D1, `nee_draws`), the sample and the shadow ray's set-up
+(N1a, ops/kernels/nee.py::nee_sample), and after the shadow rays the
+contribution (N1b, `nee_contrib`). On CPU tensors the same calls run the
+plain versions, threefry.counter_uniforms, `nee_sample_plain` and
+`nee_contrib_plain`, which N1 is held to on the card bit for bit.
+
 The shadow rays go through the `intersect` the caller passes: the
 scene-intersection kernel K2 (and K3 per big mesh) for CUDA tensors
 through ops/intersect.py::intersect_scene, the plain version otherwise.
@@ -43,6 +50,7 @@ from cs397raytracingsp22_tpu_torch.models import materials as mat
 from cs397raytracingsp22_tpu_torch.models.scene import SceneData
 from cs397raytracingsp22_tpu_torch.ops.intersect import HitRecord, intersect_scene
 from cs397raytracingsp22_tpu_torch.ops.kernels import draws
+from cs397raytracingsp22_tpu_torch.ops.kernels import nee as n1
 from cs397raytracingsp22_tpu_torch.utils import profiling
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 from cs397raytracingsp22_tpu_torch.utils.rng import SITE_NEE0
@@ -148,7 +156,8 @@ def nee_draws(scene: SceneData, rng_key, uids: torch.Tensor, depth: int) -> torc
 def direct_light(scene: SceneData, hit: HitRecord, d_in: torch.Tensor, u_choice: torch.Tensor,
                  live: torch.Tensor, uids: torch.Tensor, rng_key, depth: int, t_min: float,
                  max_trace_dist: float, intersect=intersect_scene):
-    """One NEE sample at each live diffuse-like vertex.
+    """One NEE sample at each live diffuse-like vertex: live (N,) bool, the
+    rays that may sample (alive; a vertex samples only where hit.valid too).
 
     Returns (contribution (N, 3), not yet times the throughput; did (N,)
     bool, the NEE attempt, for the caller's suppression of the next
@@ -167,21 +176,39 @@ def direct_light(scene: SceneData, hit: HitRecord, d_in: torch.Tensor, u_choice:
     `did` stays True when the sample is occluded or out of reach: both are
     part of the estimator whose expectation covers the emission, and
     suppressing only on success would count the plain emission again on
-    every failed sample. Profiler traces show the call as the span
-    "render.nee"."""
+    every failed sample.
+
+    For CUDA tensors the sample and the shadow ray's set-up are one launch
+    of N1a and the contribution one launch of N1b (ops/kernels/nee.py,
+    csrc/nee.cu), around the shadow rays' `intersect`; for CPU tensors
+    nee_sample_plain and nee_contrib_plain run. Profiler traces show the
+    call as the span "render.nee"."""
     with profiling.span("render.nee"):
-        return _direct_light(scene, hit, d_in, u_choice, live, uids, rng_key, depth, t_min,
-                             max_trace_dist, intersect)
+        u = nee_draws(scene, rng_key, uids, depth)
+        did, shoot, sh_o, sh_dir, t_max, pending = n1.nee_sample(
+            scene, hit, d_in, u_choice, live, u, max_trace_dist)
+        # the volume draws are a strided view; the kernels take them packed
+        sh = intersect(scene, sh_o, sh_dir, t_min, t_max, u[:, 4:].contiguous())
+        return n1.nee_contrib(sh.valid, pending), did, shoot.sum()
 
 
-def _direct_light(scene, hit, d_in, u_choice, live, uids, rng_key, depth, t_min,
-                  max_trace_dist, intersect):
-    u = nee_draws(scene, rng_key, uids, depth)
+def nee_sample_plain(scene: SceneData, hit: HitRecord, d_in, u_choice, live, u,
+                     max_trace_dist: float):
+    """NEE's sample before the shadow ray, the plain version of N1a: the
+    light point (sample_light_point on the draws u[:, 0:3]), the diffuse
+    mask, the shadow ray and the geometry term (direct_light's docstring).
+
+    Returns (did, shoot, sh_o, sh_dir, t_max, pending): did (N,) the NEE
+    attempt (live, a hit, and diffuse-like); shoot (N,) did and the light
+    within reach; the shadow ray's origin, direction and window end, the
+    empty ray (0, 1, 0) where it does not shoot; pending (N, 3) the
+    contribution before the visibility test, f · E · geo where it shoots,
+    0 elsewhere."""
     x, n_l, emission, inv_pdf = sample_light_point(scene, u[:, 0], u[:, 1], u[:, 2])
 
     has_normal = vm.magnitude2(hit.normal) > 0.0
     applies, f, ball_weighted = _diffuse_mask(hit, d_in, u_choice, has_normal)
-    did = live & applies
+    did = live & hit.valid & applies
 
     to_l = x - hit.point
     dist2 = vm.dot(to_l, to_l)
@@ -198,14 +225,20 @@ def _direct_light(scene, hit, d_in, u_choice, live, uids, rng_key, depth, t_min,
     r_len = torch.clamp(u[:, 3] ** (1.0 / 3.0), min=1e-6)
     t_light = dist / r_len
     shoot = did & (t_light <= max_trace_dist)
-    sh_o = torch.where(shoot[:, None], hit.point, 0.0)
-    sh_dir = torch.where(shoot[:, None], wl * r_len[:, None], 1.0)
+    shoot3 = shoot[:, None]
+    sh_o = torch.where(shoot3, hit.point, 0.0)
+    sh_dir = torch.where(shoot3, wl * r_len[:, None], 1.0)
     t_max = torch.where(shoot, SHADOW_T_MAX * t_light, 0.0)
-    # the volume draws are a strided view; the kernels take them packed
-    sh = intersect(scene, sh_o, sh_dir, t_min, t_max, u[:, 4:].contiguous())
 
     geo = cos_x * cos_y / torch.clamp(dist2, min=1e-12) * inv_pdf
-    geo = geo * torch.where(ball_weighted, r_len, torch.ones_like(r_len))
-    ok = shoot & ~sh.valid
-    contrib = torch.where(ok[:, None], f * emission * geo[:, None], 0.0)
-    return contrib, did, shoot.sum()
+    geo = torch.where(ball_weighted, geo * r_len, geo)
+    pending = torch.where(shoot3, f * emission * geo[:, None], 0.0)
+    return did, shoot, sh_o, sh_dir, t_max, pending
+
+
+def nee_contrib_plain(sh_valid, pending):
+    """NEE's contribution after the shadow ray, the plain version of N1b:
+    pending where the shadow ray hit nothing, else 0. pending is 0 where
+    the ray did not shoot (nee_sample_plain), so the contribution is
+    pending where the ray shot and the light is visible."""
+    return torch.where(sh_valid[:, None], 0.0, pending)

@@ -24,7 +24,7 @@ The spans of the render path, outermost first:
 | `render.bounce` | integrator.path_trace_shrink | one bounce, its compaction included |
 | `render.intersect` | ops/intersect.py::intersect_scene | K2, K3, the general volumes, the merged resolve |
 | `render.shade` | integrator.bounce_update | after the intersection: NEE's sample, then the miss and emission terms, the BSDF and the path's update (the shading kernel S1's launch on the card) |
-| `render.nee` | render/nee.py::direct_light | the shadow rays |
+| `render.nee` | render/nee.py::direct_light | NEE's draws, its sample (N1a on the card), the shadow rays, the contribution (N1b) |
 | `render.live_count` | integrator._compact | the host's read of the live count (it waits for the card) |
 | `render.finish` | the driver, after the last chunk | the image's end-of-render reads, tonemap and pull |
 | `render.checkpoint` | the driver | the checkpoint's pull and write |

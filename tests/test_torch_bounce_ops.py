@@ -11,7 +11,8 @@ Each mode's count may not rise above the bound written here; NEE off
 launches nothing of NEE's.
 
 On the card (marked `gpu`) the shading after the intersection is one launch
-of S1 (ops/kernels/shade.py) and the draws one of D1, so the same body is
+of S1 (ops/kernels/shade.py), NEE's sample two of N1 (ops/kernels/nee.py)
+and the draws one of D1, so the same body is
 counted there by its kernel launches, as the benchmark's
 launches_per_bounce counts them: the host's cudaLaunch* / cuLaunch* calls
 under torch.profiler. Run them there:
@@ -37,10 +38,10 @@ KEY, DEPTH, MAX_DIST = 3, 1, 100.0
 # inputs before they were merged.
 MAX_OPS = {"nee_off": 687, "nee": 1451, "nee_last": 690}
 # The bounds on the card: the launches of one body as measured on an H100
-# 80GB HBM3 with S1: 7 without a NEE sample (the draws, the window, the
-# segment count, S1); 175 with one (NEE's own glue, its draws and its
-# shadow window added).
-MAX_LAUNCHES = {"nee_off": 7, "nee": 175, "nee_last": 7}
+# 80GB HBM3 with S1 and N1: 7 without a NEE sample (the draws, the window,
+# the segment count, S1); 14 with one (NEE's draws, N1's two launches, the
+# shadow-ray count and their share of the glue added; 175 before N1).
+MAX_LAUNCHES = {"nee_off": 7, "nee": 14, "nee_last": 7}
 
 
 class _CountOps(TorchDispatchMode):
