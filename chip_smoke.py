@@ -280,6 +280,23 @@ port's tools:
      entry's ms (CUDA events) beside its bound (bytes: what each ray needs
      read once, the outputs written once) and the plain versions' ms.
      Phase 2 prints N1's registers and fails on spills.
+ 40. rtnw-nee (run right after phase 36): K2's sphere tree on the final scene
+     of The Next Week under NEE (800² × 64 spp, depth 40, 1,006 spheres): on
+     the NEE executor's bounce 0 of chunk 0 (262,144 rays, the benchmark's
+     chunk) and its shadow rays, K2's rows on the tree route bit-identical to
+     its rows on the flat route (the tree turned off inside the phase), every
+     SAMPLE_STRIDE-th ray traced alone bit for bit and held to the plain
+     version (the same winner on >= HIT_MIN_SAME, t, u, v within HIT_RTOL /
+     HIT_ATOL); both routes timed by CUDA events beside the bound of the
+     plain walk's counts (k2_tree_bound), each route's share of it, both
+     routes' registers and spills (fails if the tree route spills); the
+     same scene without its ground mesh (1,048,576 rays a chunk), whose
+     scenes take the tree route's instantiation without the dense-mesh walk:
+     its rows held to the flat route's bit for bit, its spills; then
+     render_to_image under NEE on a 128² × 64-spp cut (4 chunks of 262,144
+     rays), whose K2 launches (depth to 2 · depth − 1 a chunk, all counted
+     on the tree route by `scene_intersect.TREE_LAUNCHES`) are the kernels
+     line's row `scene_intersect_tree`.
  36. rtnw (run right after phase 35): K1's sphere tree on the final scene of
      The Next Week (scenes/rtnw_final.py, 800² × 64 spp, depth 40, 1,006
      spheres): on chunk 0's camera rays and the rays entering bounce 3 of
@@ -713,6 +730,212 @@ def rtnw_phase(dev) -> None:
     log("rtnw", f"K1 sphere tree: {regs} registers, {spill} B local, {staged} B "
         f"staged, {blocks} resident blocks an SM (the scan's {scan_blocks}); camera rays "
         f"{tree_ms:.3f} ms with the tree, {scan_ms:.3f} ms with the scan")
+
+
+def k2_tree_bound(sd, ins, idx) -> tuple[float, str, dict]:
+    """(bound ms, bound_by, work) of one K2 launch on the tree route on ins
+    = (o, d, t_min, t_max, u_vol): operations = the sphere tree's nodes and
+    spheres and the dense meshes' nodes and triangles that the plain walk
+    counts on the rays idx (scene_intersect_plain's stats), scaled to the
+    launch, and the planes, triangles and volumes of every ray with a
+    window; bytes = o, d, t_min, t_max and a u_vol column a volume in, 37 B
+    out, the tables once (the sphere tree's nodes, slots and indices, the
+    scene table, the dense-mesh rows and superleaf trees). The work holds
+    the counts a sampled ray with a window."""
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect
+
+    n = ins[0].shape[0]
+    st = {}
+    sub = [x[idx] for x in ins]
+    scene_intersect.scene_intersect_plain(sd, *sub, stats=st)
+    win = sub[3] >= sub[2]
+    scale = n / idx.numel()
+    counted = {k: int((st[k] * win).sum()) for k in ("sph_nodes", "sph_spheres", "nodes", "tris")}
+    tested = scale * int(win.sum())
+    ops = (tested * (sd.n_planes * OPS["plane"] + sd.n_tris * OPS["triangle"]
+                     + sd.n_volumes * OPS["volume"] + len(sd.dense_mesh_ids) * OPS["mesh_setup"])
+           + scale * ((counted["sph_nodes"] + counted["nodes"]) * OPS["box"]
+                      + counted["sph_spheres"] * OPS["sphere"] + counted["tris"] * OPS["mt"]))
+    n_bytes = (n * (12 + 12 + 4 + 4 + 4 * sd.n_volumes + 37)
+               + nbytes(sd.kscene, sd.ksph_tree, sd.kmesh_tri, sd.ksl_tree))
+    ms, by = bound(n_bytes, ops)
+    per = max(int(win.sum()), 1)
+    return ms, by, dict(ops=ops, bytes=n_bytes, windows=tested,
+                        **{f"{k}_per_ray": v / per for k, v in counted.items()})
+
+
+def nee_bounce0_calls(scene, dev, t_max: float) -> tuple:
+    """(scene's tables on `dev`, the K2 inputs of the NEE executor's bounce
+    0 of chunk 0 and of its shadow rays, each (o, d, t_min, t_max, u_vol))
+    at the chunk render_to_image gives `scene`."""
+    from cs397raytracingsp22_tpu_torch.ops import intersect as isect
+    from cs397raytracingsp22_tpu_torch.render import driver, integrator
+    from cs397raytracingsp22_tpu_torch.utils import threefry
+
+    sd = scene.compile(device=dev)
+    cam = scene.camera
+    key = threefry.key_words(0)
+    px = driver.chunk_pixels(sd, cam, cam.aa_sample_count)
+    n_chunks = -(-cam.screen_width * cam.screen_height // px)
+    ids = torch.arange(px, dtype=torch.int32, device=dev) * n_chunks
+    o, d, uids = driver._gen_chunk_rays(cam, ids, key, 0, cam.aa_sample_count, 1)
+    calls = []
+
+    def recording(scene_, o_, d_, t_min, t_max_, u_vol):
+        n = o_.shape[0]
+        calls.append((o_.contiguous(), d_.contiguous(),
+                      torch.full((n,), t_min, dtype=torch.float32, device=dev),
+                      t_max_.contiguous(), u_vol[:, :sd.vol_center.shape[0]].contiguous()))
+        return isect.intersect_scene(scene_, o_, d_, t_min, t_max_, u_vol)
+
+    alive = torch.ones((o.shape[0],), dtype=torch.bool, device=dev)
+    integrator.bounce_update(sd, o, d, torch.ones_like(o), torch.zeros_like(o), alive, uids, key,
+                             0, t_max, intersect=recording, do_nee=True)
+    return sd, calls
+
+
+def k2_routes_differ(names, tree: dict, flat: dict) -> None:
+    """Raise where a K2 row on the tree route differs from the flat
+    route's."""
+    for name in names:
+        for key_, a, b in zip(("t", "code", "idx", "mat", "u", "v", "normal", "ff"), tree[name],
+                              flat[name]):
+            same = (a == b) if a.ndim == 1 else (a == b).all(dim=1)
+            if not bool(same.all()):
+                raise AssertionError(f"rtnw-nee {name}: {int((~same).sum())} of {same.numel()} "
+                                     f"K2 rows ({key_}) on the tree route differ from the flat "
+                                     "route's")
+
+
+def rtnw_nee_phase(dev) -> dict:
+    """Phase 40: K2's sphere tree on the final scene of The Next Week under
+    NEE. On the NEE executor's bounce 0 of chunk 0 and its shadow rays: the
+    tree route's rows bit-identical to the flat route's, every
+    SAMPLE_STRIDE-th ray traced alone bit for bit and held to the plain
+    version; both routes timed (CUDA events) beside the plain walk's bound;
+    then the same without the ground's mesh (the tree route's instantiation
+    without the dense-mesh walk) held to the flat route; then
+    render_to_image under NEE on a 128² × 64-spp cut of the scene (chunks
+    of the benchmark's 262,144 rays), its K2 launches counted on each
+    route. Returns the kernels line's row of K2's tree route."""
+    import dataclasses
+
+    from cs397raytracingsp22_tpu_torch import StaticMesh
+    from cs397raytracingsp22_tpu_torch.models import scene as scene_mod
+    from cs397raytracingsp22_tpu_torch.ops.kernels import scene_intersect
+    from cs397raytracingsp22_tpu_torch.render import driver
+    from cs397raytracingsp22_tpu_torch.scenes import rtnw_final
+
+    depth, t_max = 40, 20000.0
+    scene = rtnw_final.build(800, 800, 64, depth)
+    sd, calls = nee_bounce0_calls(scene, dev, t_max)
+    if not sd.sph_tree_leaves or not sd.dense_mesh_ids:
+        raise AssertionError("the final scene lacks its sphere tree or its ground mesh")
+    names = ("bounce 0", "shadow rays")
+    tree = {name: scene_intersect.scene_intersect_cuda(sd, *ins) for name, ins in zip(names, calls)}
+    tree_ms = {name: k2_ms(sd, ins) for name, ins in zip(names, calls)}
+    regs, spill = scene_intersect.kernel_attrs(dense=True, sph_tree=True)
+    staged = scene_intersect.staged_bytes(sd)
+    blocks = scene_intersect.occupancy(sd)[0]
+    saved = scene_mod.SPHERE_TREE_MIN
+    scene_mod.SPHERE_TREE_MIN = 1 << 20
+    try:
+        flat = {name: scene_intersect.scene_intersect_cuda(sd, *ins)
+                for name, ins in zip(names, calls)}
+        flat_ms = {name: k2_ms(sd, ins) for name, ins in zip(names, calls)}
+        flat_blocks = scene_intersect.occupancy(sd)[0]
+    finally:
+        scene_mod.SPHERE_TREE_MIN = saved
+    f_regs, f_spill = scene_intersect.kernel_attrs(dense=True)
+    k2_routes_differ(names, tree, flat)
+    err, plain_ms, bound_ms, bound_by = 0.0, 0.0, 0.0, set()
+    for name, ins in zip(names, calls):
+        idx = torch.arange(0, ins[0].shape[0], SAMPLE_STRIDE, device=dev)
+        sub, alone = sample_alone("K2 sphere tree",
+                                  lambda *x: scene_intersect.scene_intersect_cuda(sd, *x),
+                                  tree[name], ins, idx)
+        ref = scene_intersect.scene_intersect_plain(sd, *sub)
+        n_r, n_same, n_exact, e = compare_hits(
+            f"rtnw-nee {name}", (alone[1], alone[2]), (ref[1], ref[2]),
+            dict(t=alone[0], u=alone[4], v=alone[5]), dict(t=ref[0], u=ref[4], v=ref[5]))
+        err = max(err, e)
+        p_ms = cuda_ms(lambda: scene_intersect.scene_intersect_plain(sd, *sub), 1)
+        b_ms, b_by, w = k2_tree_bound(sd, ins, idx)
+        plain_ms, bound_ms = plain_ms + p_ms, bound_ms + b_ms
+        bound_by.add(b_by)
+        log("rtnw-nee", f"{name} ({ins[0].shape[0]} rays, {w['windows']:.0f} with a window): K2's "
+            f"tree rows bit-identical to its flat rows; every {SAMPLE_STRIDE}th ray ({n_r}) "
+            f"traced alone bit for bit, {n_same}/{n_r} the plain version's winner, {n_exact} "
+            f"bit-identical; tree {tree_ms[name]:.4f} ms, flat {flat_ms[name]:.4f} ms "
+            f"({flat_ms[name] / tree_ms[name]:.1f}x); bound {b_ms:.4f} ms ({b_by}; "
+            f"{w['sph_nodes_per_ray']:.2f} sphere-tree nodes, {w['sph_spheres_per_ray']:.2f} "
+            f"spheres, {w['nodes_per_ray']:.2f} superleaf nodes, {w['tris_per_ray']:.2f} "
+            f"triangles a ray): tree at {b_ms / tree_ms[name]:.2%} of it, flat at "
+            f"{b_ms / flat_ms[name]:.2%}; the plain version {p_ms:.2f} ms on the sample")
+    log("rtnw-nee", f"K2 tree route {regs} registers, {spill} B local, {staged} B staged, {blocks} "
+        f"blocks an SM; flat route {f_regs} registers, {f_spill} B local, {flat_blocks} blocks "
+        "an SM")
+    if spill:
+        raise AssertionError(f"K2's tree route spills {spill} B")
+
+    # without the ground's mesh: scene_intersect_tree_kernel<false>
+    bare = dataclasses.replace(scene, objects=[ob for ob in scene.objects
+                                               if not isinstance(ob, StaticMesh)])
+    bsd, bcalls = nee_bounce0_calls(bare, dev, t_max)
+    if bsd.dense_mesh_ids or not bsd.sph_tree_leaves:
+        raise AssertionError("the final scene without its ground has a dense mesh or no tree")
+    before = scene_intersect.TREE_LAUNCHES
+    b_tree = {name: scene_intersect.scene_intersect_cuda(bsd, *ins)
+              for name, ins in zip(names, bcalls)}
+    if scene_intersect.TREE_LAUNCHES != before + len(bcalls):
+        raise AssertionError("K2 did not take the tree route on the scene without its ground")
+    scene_mod.SPHERE_TREE_MIN = 1 << 20
+    try:
+        b_flat = {name: scene_intersect.scene_intersect_cuda(bsd, *ins)
+                  for name, ins in zip(names, bcalls)}
+    finally:
+        scene_mod.SPHERE_TREE_MIN = saved
+    if scene_intersect.TREE_LAUNCHES != before + len(bcalls):
+        raise AssertionError("K2 counted a flat launch on the tree route")
+    k2_routes_differ(names, b_tree, b_flat)
+    b_regs, b_spill = scene_intersect.kernel_attrs(dense=False, sph_tree=True)
+    log("rtnw-nee", f"without the ground's mesh ({bcalls[0][0].shape[0]} rays a chunk): K2's "
+        f"tree rows bit-identical to its flat rows on bounce 0 and its "
+        f"{bcalls[1][0].shape[0]} shadow rays; tree route without the mesh walk {b_regs} "
+        f"registers, {b_spill} B local, {scene_intersect.staged_bytes(bsd)} B staged, "
+        f"{scene_intersect.occupancy(bsd)[0]} blocks an SM")
+    if b_spill:
+        raise AssertionError(f"K2's tree route without the mesh walk spills {b_spill} B")
+
+    # the main path: render_to_image under NEE, chunks of the benchmark's shape
+    cut = rtnw_final.build(128, 128, 64, depth)
+    cut = dataclasses.replace(cut, camera=dataclasses.replace(cut.camera, nee=True))
+    px = driver.chunk_pixels(cut.compile(device=dev), cut.camera, cut.camera.aa_sample_count)
+    chunks = -(-128 * 128 // px)
+    scene_intersect.LAUNCHES = scene_intersect.TREE_LAUNCHES = 0  # the NEE render's counts
+    t0 = time.perf_counter()
+    img, _ = driver.render_to_image(cut, device=dev, seed=23, verbose=False)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches, on_tree = scene_intersect.LAUNCHES, scene_intersect.TREE_LAUNCHES  # read just after
+    most = chunks * (2 * depth - 1)
+    if on_tree != launches or not chunks * depth <= launches <= most or not img.max() > 0:
+        raise AssertionError(f"the NEE render launched K2 {launches} times ({on_tree} on the tree "
+                             f"route), not {chunks * depth} to {most} all on the tree, or its "
+                             "image is black")
+    log("rtnw-nee", f"render_to_image under NEE, 128² × 64 spp ({chunks} chunks of "
+        f"{px * 64} rays): {render_s:.3f} s, {launches} K2 launches ({most} at most), {on_tree} "
+        "of them on the tree route")
+    return {"name": "scene_intersect_tree", "route": "cuda",
+            "source": "cs397raytracingsp22_tpu_torch/csrc/scene_intersect.cu",
+            "replaces": "cs397raytracingsp22_tpu/ops/pallas/scene_intersect.py:464",
+            "launches": launches, "max_abs_err": err, "ms": sum(tree_ms.values()),
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": " and ".join(sorted(bound_by)),
+            "library_ms": None, "flat_ms": sum(flat_ms.values()),
+            "share": bound_ms / sum(tree_ms.values()),
+            "flat_share": bound_ms / sum(flat_ms.values()), "registers": regs,
+            "spill_bytes": spill, "flat_registers": f_regs, "flat_spill_bytes": f_spill,
+            "bare_registers": b_regs, "bare_spill_bytes": b_spill}
 
 
 # phase 37's NEE frame: the bench.nee cell's
@@ -3699,6 +3922,10 @@ def main() -> int:
                                ("K2", "scene_intersect", scene_intersect, {}),
                                ("K2 no mesh", "scene_intersect", scene_intersect,
                                 {"dense": False}),
+                               ("K2 sphere tree", "scene_intersect", scene_intersect,
+                                {"sph_tree": True}),
+                               ("K2 sphere tree no mesh", "scene_intersect", scene_intersect,
+                                {"dense": False, "sph_tree": True}),
                                ("K3", "bvh_traverse", tri_scan_big, {}),
                                ("K5", "tri_scan", tri_scan, {}),
                                ("D1 camera rays", "draws", draws, {"entry": "camera_rays"}),
@@ -3721,7 +3948,9 @@ def main() -> int:
             raise AssertionError(f"K1 has {regs} registers and {spill} B of spills; {K1_BLOCKS} "
                                  f"blocks an SM need at most {K1_MAX_REGS} and none")
         if (kid.startswith(("K4", "D1", "R1", "S1", "N1"))
-                or kid in ("K1 no mesh", "K1 sphere tree", "K3", "K5")) and spill:
+                or kid in ("K1 no mesh", "K1 sphere tree", "K2 sphere tree",
+                           "K2 sphere tree no mesh", "K3", "K5")
+                ) and spill:
             raise AssertionError(f"{kid} spills {spill} B")
     for what, sc_ in (("the bench scene", bench_scene.build(64, 64, spp=4, path_depth=8)),
                       ("the Cornell box (no dense mesh)", cornell.build(64, 64, spp=4))):
@@ -3741,6 +3970,8 @@ def main() -> int:
     draw_rows = draws_phase(dev)
     # ---- 36. K1's sphere tree on the final scene of The Next Week ----
     rtnw_phase(dev)
+    # ---- 40. K2's sphere tree on the same scene under NEE ----
+    tree_row = rtnw_nee_phase(dev)
     # ---- 37. the merged-resolve kernel against its plain version ----
     resolve_row = resolve_phase(dev)
     # ---- 38. the shading kernel against its plain version ----
@@ -3940,7 +4171,7 @@ def main() -> int:
     }] + staged + k45 + probes + [dict(row, launches=D1_MAIN[row["name"][6:]])
                                   for row in draw_rows]
         + [dict(resolve_row, launches=R1_MAIN[0]), dict(shade_row, launches=S1_MAIN[0]),
-           dict(nee_row, launches=N1_MAIN[0])]}))
+           dict(nee_row, launches=N1_MAIN[0]), tree_row]}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

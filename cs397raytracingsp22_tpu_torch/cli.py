@@ -9,7 +9,10 @@ mega-bounce kernel, which walks the teapot's BVH (with `--nee`, on the
 staged path). Renders on
 the GPU by default; `--device cpu` runs the plain torch version. A scene
 shades as its camera says (path tracing, or Phong shading with hard
-shadows); `--nee` turns on next-event estimation (render/nee.py);
+shadows); `--nee` turns on next-event estimation (render/nee.py), whose
+bounce and shadow rays K2 intersects, walking a scene's sphere tree from
+64 spheres on (The Next Week's final scene: 1,006), so sphere-heavy
+scenes keep their NEE cost to a few dozen tests a ray;
 `--checkpoint PATH` keeps the HDR accumulator in PATH after every spp
 chunk (`--spp-chunk`) and resumes from it. `--profile-dir DIR` writes a
 torch.profiler Chrome trace of the render into DIR (utils/profiling.py).

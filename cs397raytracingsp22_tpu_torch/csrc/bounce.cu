@@ -214,7 +214,7 @@ size_t k1_staged_bytes(int scene_len, int tree_len, int n_sph, int sph_leaves, i
     return staged_bytes(scene_len, tree_len) + 144 + sizeof(int2) * kThreads * (size_t)big_depth;
   }
   if (sph_leaves == 0) return staged_bytes(scene_len, tree_len);
-  return staged_bytes(scene_len - kSph * n_sph, tree_len) + 64 * (size_t)sph_leaves;
+  return sph_tree_staged_bytes(scene_len, tree_len, kSph * n_sph, sph_leaves);
 }
 
 template <class Kernel>

@@ -490,6 +490,15 @@ __host__ __device__ constexpr size_t staged_bytes(int len, int tree_len) {
   return sizeof(float) * (size_t)(tree_offset(len) + tree_len);
 }
 
+// Bytes a block stages on a sphere-tree route (K1, K2's tree route): the
+// scene table from float `skip` on (past the sphere rows: K1 skips them
+// exactly, K2 from its last 16-byte word before their end), the superleaf
+// trees, and the sphere tree's header and nodes (4 float4 a leaf).
+__host__ __device__ constexpr size_t sph_tree_staged_bytes(int len, int tree_len, int skip,
+                                                           int sph_leaves) {
+  return staged_bytes(len - skip, tree_len) + 64 * (size_t)sph_leaves;
+}
+
 // Stage the scene table (`len` floats), the superleaf trees (`tree_len`
 // floats, 16-byte aligned in device memory) and `extra_rows` float4 of
 // `extra` after them into shared memory `sm` (16-byte aligned). All threads

@@ -57,6 +57,14 @@
 // The ray-sphere quadratic cancels when a ray starts on a sphere, and a
 // contracted FMA there moved hit points by 2e-4 against the plain version.
 //
+// A scene of SPHERE_TREE_MIN spheres or more (The Next Week's final scene:
+// 1,006) launches a second kernel, scene_intersect_tree_kernel, which walks
+// the scene's sphere tree with K1's device function (intersect.cuh::
+// walk_spheres) in place of the sphere scan: the same rows, bit for bit
+// (ties to the lowest index), for tests a ray that grow with the tree's
+// depth and not with the spheres. Both kernels run one body
+// (intersect_tiles); the scan's instantiations compile as before.
+//
 // What bounds it on the H100, and what the design does about it (PERF.md):
 // - With no dense mesh (the 32k-triangle bench scene, whose teapot is a big
 //   mesh), each ray does a few dozen FP32 tests and moves ~70 B of rays,
@@ -69,6 +77,8 @@
 //   leaf scans are the time, so K2 scans two leaves at once, 16 lanes each.
 //   The earlier design also copied the trees (24-32 KB) into every 128-ray
 //   block, 7-10% of a launch; here they are copied once a resident block.
+
+#include <type_traits>
 
 #include "intersect.cuh"
 
@@ -209,37 +219,69 @@ __device__ __forceinline__ void scan_dense_mesh_k2(const float* X, int m, const 
   } while (__any_sync(kAll, walking));
 }
 
-// Warps take the tiles of a launch: the first n_static by a fixed rule (warp
-// w of the grid's W takes tiles w, w + W, w + 2W, ... below n_static), the
-// rest from the ticket, each drawn while the warp's current tile runs. With
-// a dense mesh the walk's length varies from tile to tile, and the ticket
-// gives the end of the launch to whichever warp is free; without one every
-// ray costs about the same, and n_static covers every tile: one atomic a
-// tile on one word costs more than it balances (PERF.md).
-template <bool kWalk>
-__global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params p) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ __align__(8) unsigned long long staged;  // the mbarrier of the staging copy
+// A scene of SPHERE_TREE_MIN spheres or more (models/scene.py::sphere_tree)
+// launches scene_intersect_tree_kernel: these fields beside Params'.
+struct TreeParams : Params {
+  const float4* sph_table;  // ksph_tree: header, nodes, slots, indices
+  int sph_leaves;           // its leaves G
+};
+
+// The body of both kernels. Warps take the tiles of a launch: the first
+// n_static by a fixed rule (warp w of the grid's W takes tiles w, w + W,
+// w + 2W, ... below n_static), the rest from the ticket, each drawn while
+// the warp's current tile runs. With a dense mesh the walk's length varies
+// from tile to tile, and the ticket gives the end of the launch to
+// whichever warp is free; without one every ray costs about the same, and
+// n_static covers every tile: one atomic a tile on one word costs more
+// than it balances (PERF.md).
+//
+// kSphTree (scene_intersect_tree_kernel): the scene's sphere tree in place
+// of its sphere scan, as K1 walks it (intersect.cuh::walk_spheres, the
+// scan's (t, index) on every ray, ties to the lowest index). The block
+// stages the table from its first 16-byte word past the sphere rows, then
+// the superleaf trees, then the tree's header and nodes (64 B a leaf), each
+// by bulk copy; the walk reads the leaves' slots and indices, and the
+// resolve a sphere winner's row, from device memory. rtnw's 1,006 spheres
+// take 256 leaves: 16 KiB of nodes where the rows were 20 KiB.
+template <bool kWalk, bool kSphTree, class P>
+__device__ __forceinline__ void intersect_tiles(const P& p, float* sm, unsigned long long* staged) {
   const int lane = threadIdx.x & 31;
-  const uint32_t bar = shared_addr(&staged);
-  float4* tree = reinterpret_cast<float4*>(sm + tree_offset(p.scene_len));
+  const uint32_t bar = shared_addr(staged);
+  // the staged table starts at float `base` of the scene table, 16-byte
+  // aligned: the sphere rows' end rounded down on the tree route
+  int base = 0;
+  if constexpr (kSphTree) base = (kSph * p.n_sph) & ~3;
+  const int len = p.scene_len - base;
+  float4* tree = reinterpret_cast<float4*>(sm + tree_offset(len));
   // The table's whole 16-byte words and the trees go by one bulk copy each;
   // the table's last 0-3 floats by plain loads.
-  const int head = p.scene_len & ~3;
+  const int head = len & ~3;
   if (threadIdx.x == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    const uint32_t bytes = 4u * (uint32_t)(head + p.tree_len);
+    uint32_t bytes = 4u * (uint32_t)(head + p.tree_len);
+    if constexpr (kSphTree) bytes += 64u * (uint32_t)p.sph_leaves;
     asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                  : "memory");
-    if (head > 0) bulk_copy(sm, p.scene, 4u * head, bar);
+    if (head > 0) bulk_copy(sm, p.scene + base, 4u * head, bar);
     if (p.tree_len > 0) bulk_copy(tree, p.tree, 4u * p.tree_len, bar);
+    if constexpr (kSphTree) {
+      bulk_copy(tree + p.tree_len / 4, p.sph_table, 64u * (uint32_t)p.sph_leaves, bar);
+    }
   }
-  if (threadIdx.x < p.scene_len - head) sm[head + threadIdx.x] = p.scene[head + threadIdx.x];
+  if (threadIdx.x < len - head) sm[head + threadIdx.x] = p.scene[base + head + threadIdx.x];
   __syncthreads();  // the barrier is initialised and the table's tail stored
 
-  const SceneRows R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
+  SceneRows R;
+  if constexpr (kSphTree) {
+    // the rows after the spheres, staged; the sphere rows in device memory
+    R = scene_rows(sm + (kSph * p.n_sph - base), 0, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
+    R.sph = p.scene;
+    R.sph_tree = tree + p.tree_len / 4;
+  } else {
+    R = scene_rows(sm, p.n_sph, p.n_pln, p.n_tri, p.n_vol, p.n_mat, tree);
+  }
   const bool ticketed = p.n_static < p.n_tiles;  // uniform over the launch
   int tile = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (tile >= p.n_static && ticketed) {
@@ -267,7 +309,14 @@ __global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params 
 
     Nearest h = nearest_none();
     const float a2 = dx * dx + dy * dy + dz * dz;
-    scan_spheres(R.sph, p.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
+    if constexpr (kSphTree) {
+      const float4* slots = p.sph_table + 4 * p.sph_leaves;  // after the header and nodes
+      walk_spheres(R.sph_tree, p.sph_leaves, slots,
+                   reinterpret_cast<const float*>(slots + kSphLeaf * p.sph_leaves), ox, oy, oz,
+                   dx, dy, dz, a2, tmin, tmax, h);
+    } else {
+      scan_spheres(R.sph, p.n_sph, ox, oy, oz, dx, dy, dz, a2, tmin, tmax, h);
+    }
     scan_planes(R.pln, p.n_pln, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
     scan_triangles(R.tri, p.n_tri, ox, oy, oz, dx, dy, dz, tmin, tmax, h);
     const float* uq = p.u_vol + (size_t)i * p.u_ld;
@@ -322,18 +371,44 @@ __global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params 
 }
 
 template <bool kWalk>
-cudaError_t prepare(size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(scene_intersect_kernel<kWalk>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(kThreads) scene_intersect_kernel(const Params p) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ __align__(8) unsigned long long staged;  // the mbarrier of the staging copy
+  intersect_tiles<kWalk, false>(p, sm, &staged);
 }
 
 template <bool kWalk>
-cudaError_t occupancy(size_t smem, int* blocks) {
-  const cudaError_t e = prepare<kWalk>(smem);
-  if (e != cudaSuccess) return e;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, scene_intersect_kernel<kWalk>,
-                                                       kThreads, smem);
+__global__ void __launch_bounds__(kThreads) scene_intersect_tree_kernel(const TreeParams p) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ __align__(8) unsigned long long staged;  // the mbarrier of the staging copy
+  intersect_tiles<kWalk, true>(p, sm, &staged);
+}
+
+// Bytes of shared memory a block stages: staged_bytes, or on the tree route
+// (sph_leaves > 0) the table from its first 16-byte word past the n_sph
+// sphere rows, the superleaf trees and the sphere tree's header and nodes.
+size_t k2_staged_bytes(int scene_len, int tree_len, int n_sph, int sph_leaves) {
+  if (sph_leaves == 0) return staged_bytes(scene_len, tree_len);
+  return sph_tree_staged_bytes(scene_len, tree_len, (kSph * n_sph) & ~3, sph_leaves);
+}
+
+// Run fn on the kernel a scene launches: with (dense) or without the
+// dense-mesh walk, with (sph_tree) or without the sphere tree; its dynamic
+// shared memory raised to smem first where that passes 48 KiB.
+template <class Fn>
+cudaError_t with_kernel(bool dense, bool sph_tree, size_t smem, Fn fn) {
+  auto run = [&](auto kernel) -> cudaError_t {
+    if (smem > 48 * 1024) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    return fn(kernel);
+  };
+  if (sph_tree) {
+    return dense ? run(scene_intersect_tree_kernel<true>) : run(scene_intersect_tree_kernel<false>);
+  }
+  return dense ? run(scene_intersect_kernel<true>) : run(scene_intersect_kernel<false>);
 }
 
 }  // namespace
@@ -344,49 +419,58 @@ extern "C" {
 // resident blocks of the card, at least 1), the first n_static of its
 // ceil(n / 32) tiles by the fixed rule and the rest from the ticket (two
 // int32 on the device, zero before the launch; the kernel leaves them
-// zero). Returns
-// cudaGetLastError() after the launch (0 on success); the caller raises on
-// anything else.
+// zero); with sph_leaves > 0 the sphere tree sph_table (ksph_tree, 16-byte
+// aligned) in place of the sphere scan. Returns cudaGetLastError() after
+// the launch (0 on success); the caller raises on anything else.
 int rt_scene_intersect_launch(const float* o, const float* d, const float* t_min,
                               const float* t_max, const float* u_vol, int u_ld, int n, int grid,
                               int n_static, int* ticket, const float* scene, int scene_len,
                               int n_sph, int n_pln, int n_tri, int n_vol, int n_mat, int n_mesh,
-                              const float* mesh_tri, const float* tree, int tree_len, float* t,
-                              int* code, int* idx, int* mat, float* u, float* v, float* normal,
+                              const float* mesh_tri, const float* tree, int tree_len,
+                              const float* sph_table, int sph_leaves, float* t, int* code,
+                              int* idx, int* mat, float* u, float* v, float* normal,
                               unsigned char* ff, void* stream) {
   if (n <= 0) return 0;
   if (grid <= 0) return (int)cudaErrorInvalidConfiguration;
-  Params p{o, d, t_min, t_max, u_vol, u_ld, n, (n + 31) / 32, n_static, grid * kWarps, ticket,
-           scene, scene_len, n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh,
-           reinterpret_cast<const float4*>(mesh_tri), tree, tree_len, t, code, idx, mat, u, v,
-           normal, ff};
-  const size_t smem = staged_bytes(scene_len, tree_len);
-  const cudaError_t e = n_mesh > 0 ? prepare<true>(smem) : prepare<false>(smem);
+  TreeParams p{{o, d, t_min, t_max, u_vol, u_ld, n, (n + 31) / 32, n_static, grid * kWarps, ticket,
+                scene, scene_len, n_sph, n_pln, n_tri, n_vol, n_mat, n_mesh,
+                reinterpret_cast<const float4*>(mesh_tri), tree, tree_len, t, code, idx, mat, u,
+                v, normal, ff},
+               reinterpret_cast<const float4*>(sph_table), sph_leaves};
+  const size_t smem = k2_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
+  const cudaError_t e = with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {
+    if constexpr (std::is_same_v<decltype(kernel), void (*)(TreeParams)>) {
+      kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
+    } else {
+      kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(static_cast<const Params&>(p));
+    }
+    return cudaSuccess;
+  });
   if (e != cudaSuccess) return (int)e;
-  if (n_mesh > 0) {
-    scene_intersect_kernel<true><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
-  } else {
-    scene_intersect_kernel<false><<<grid, kThreads, smem, (cudaStream_t)stream>>>(p);
-  }
   return (int)cudaGetLastError();
 }
 
 // Threads a block, and blocks resident on one SM of the instantiation a
-// scene with `n_mesh` dense meshes launches, when each block stages a scene
+// scene with `n_mesh` dense meshes and a sphere tree of `sph_leaves`
+// leaves (0: none; n_sph spheres) launches, when each block stages a scene
 // table of `scene_len` floats and superleaf trees of `tree_len` floats.
-int rt_scene_intersect_occupancy(int scene_len, int tree_len, int n_mesh, int* blocks,
-                                 int* threads) {
-  const size_t smem = staged_bytes(scene_len, tree_len);
+int rt_scene_intersect_occupancy(int scene_len, int tree_len, int n_mesh, int n_sph,
+                                 int sph_leaves, int* blocks, int* threads) {
+  const size_t smem = k2_staged_bytes(scene_len, tree_len, n_sph, sph_leaves);
   *threads = kThreads;
-  return (int)(n_mesh > 0 ? occupancy<true>(smem, blocks) : occupancy<false>(smem, blocks));
+  return (int)with_kernel(n_mesh > 0, sph_leaves > 0, smem, [&](auto kernel) {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, smem);
+  });
 }
 
 // Registers per thread and local (spill) bytes of the compiled kernel for a
-// scene with (dense != 0) or without dense meshes.
-int rt_scene_intersect_attrs(int dense, int* num_regs, int* local_bytes) {
+// scene with (dense != 0) or without dense meshes, with (sph_tree != 0) or
+// without a sphere tree.
+int rt_scene_intersect_attrs(int dense, int sph_tree, int* num_regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t e = dense ? cudaFuncGetAttributes(&a, scene_intersect_kernel<true>)
-                              : cudaFuncGetAttributes(&a, scene_intersect_kernel<false>);
+  const cudaError_t e = with_kernel(dense != 0, sph_tree != 0, 0, [&](auto kernel) {
+    return cudaFuncGetAttributes(&a, kernel);
+  });
   if (e != cudaSuccess) return (int)e;
   *num_regs = a.numRegs;
   *local_bytes = (int)a.localSizeBytes;

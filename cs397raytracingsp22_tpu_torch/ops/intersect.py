@@ -339,15 +339,29 @@ def intersect_mesh(mesh: MeshBlock, scene: SceneData, o, d, t_min, t_max) -> dic
     return _mesh_candidate(mesh, scene, o_obj, d_obj, hit, t, tri, u, v)
 
 
-def analytic_candidates(scene: SceneData, o, d, t_min, t_max, u_vol) -> list[dict]:
+def analytic_candidates(scene: SceneData, o, d, t_min, t_max, u_vol,
+                        stats: dict | None = None) -> list[dict]:
     """The nearest hit of each analytic class (spheres, planes, triangles,
     volumes), each a dict of valid, t (inf when invalid), idx, point,
-    normal (front-facing; zero for volumes), frontface and mat (id)."""
+    normal (front-facing; zero for volumes), frontface and mat (id). The
+    spheres of a scene with a sphere tree by its walk (walk_spheres, the
+    scan's bits), of any other by the scan. stats: when a dict, receives
+    the walk's per-ray tests, "sph_nodes" and "sph_spheres" (zero on a
+    scene without a tree)."""
     n = o.shape[0]
     dev = o.device
     out = []
 
-    t_s, i_s, v_s = intersect_spheres(scene, o, d, t_min, t_max)
+    if scene.sph_tree_leaves:
+        walk = walk_spheres(scene, o, d, t_min, t_max)
+        t_s, i_s, v_s = walk.t, walk.idx, walk.hit
+        counts = (walk.nodes, walk.spheres)
+    else:
+        t_s, i_s, v_s = intersect_spheres(scene, o, d, t_min, t_max)
+        counts = (0, 0)
+    if stats is not None:
+        for key, x in zip(("sph_nodes", "sph_spheres"), counts):
+            stats[key] = stats.get(key, 0) + x
     center = scene.sph_center[i_s.long()]
     p = o + t_s[:, None] * d
     n_out = vm.normalize(p - center, eps=1e-30)
@@ -511,14 +525,19 @@ def walk_spheres(scene: SceneData, o, d, t_min, t_max) -> SphereWalk:
     within [t_min, min(best, t_max)], and at each leaf reached its spheres
     by intersect_spheres' arithmetic, a hit kept when (t, index) is below
     the best so far. It gives intersect_spheres' (t, index) on every ray,
-    ties to the lowest index included; the tests hold it to that. No card
-    path calls it."""
+    ties to the lowest index included; the tests hold it to that. The rays
+    walk together, node by node: a node no ray reaches is passed over with
+    its subtree, and a leaf's spheres are tested at once, its least (t,
+    index) kept, which is what testing them one after another keeps. On a
+    scene with a sphere tree the plain intersection (analytic_candidates)
+    takes this walk, as K1 and K2 do on the card."""
     g = scene.sph_tree_leaves
     if not g:
         raise ValueError("the scene has no sphere tree")
     n, dev = o.shape[0], o.device
     tbl = scene.ksph_tree
     leaf = 4 * g  # the slots' first row
+    slots = tbl[leaf:leaf + leaf]
     ids = tbl[leaf + leaf:].reshape(-1).to(torch.int64)
     t_min = torch.broadcast_to(vm.as_f32(t_min, o), (n,))
     t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,))
@@ -530,32 +549,43 @@ def walk_spheres(scene: SceneData, o, d, t_min, t_max) -> SphereWalk:
     nodes = torch.zeros((n,), dtype=torch.int64, device=dev)
     spheres = torch.zeros_like(nodes)
     entered = torch.zeros((n, 2 * g), dtype=torch.bool, device=dev)  # by heap index
-    for j in tree_preorder(g):
-        tested = torch.ones((n,), dtype=torch.bool, device=dev) if j == 1 else entered[:, j // 2]
-        nodes += tested
-        t0, t1 = (tbl[2 * j, :3] - lo_o) * inv, (tbl[2 * j + 1, :3] - hi_o) * inv
-        near, fa = torch.fmin(t0, t1), torch.fmax(t0, t1)
-        lo_t = torch.fmax(torch.fmax(near[:, 0], near[:, 1]), torch.fmax(near[:, 2], t_min))
-        hi_t = torch.fmin(torch.fmin(fa[:, 0], fa[:, 1]),
-                          torch.fmin(fa[:, 2], torch.fmin(best, t_max)))
-        entered[:, j] = tested & (hi_t >= lo_t)
-        if j < g:
+    j = 1
+    while True:
+        sel = (torch.arange(n, device=dev) if j == 1 else entered[:, j // 2].nonzero()[:, 0])
+        reached = sel.numel() > 0
+        if reached:
+            nodes[sel] += 1
+            t0 = (tbl[2 * j, :3] - lo_o[sel]) * inv[sel]
+            t1 = (tbl[2 * j + 1, :3] - hi_o[sel]) * inv[sel]
+            near, fa = torch.fmin(t0, t1), torch.fmax(t0, t1)
+            lo_t = torch.fmax(torch.fmax(near[:, 0], near[:, 1]),
+                              torch.fmax(near[:, 2], t_min[sel]))
+            hi_t = torch.fmin(torch.fmin(fa[:, 0], fa[:, 1]),
+                              torch.fmin(fa[:, 2], torch.fmin(best[sel], t_max[sel])))
+            sel = sel[hi_t >= lo_t]
+            entered[sel, j] = True
+            reached = sel.numel() > 0
+        if reached and j < g:
+            j *= 2  # an inner node some ray entered: its first child
             continue
-        sel = entered[:, j].nonzero()[:, 0]
-        for slot in range(4 * (j - g), 4 * (j - g + 1)):
-            sph = int(ids[slot])
-            if sph < 0:
-                break
-            spheres[sel] += 1
-            row = tbl[leaf + slot]
-            ok, r1, r2 = _sphere_roots(o[sel][:, None, :], d[sel][:, None, :], row[None, :3],
-                                       row[None, 3])
-            t = torch.where(r1 >= t_min[sel, None], r1, r2)[:, 0]
+        if reached:  # a leaf: its spheres, the slots before the first empty one
+            first = 4 * (j - g)
+            own = ids[first:first + 4]
+            k = int((own >= 0).sum())
+            spheres[sel] += k
+            ok, r1, r2 = _sphere_roots(o[sel][:, None, :], d[sel][:, None, :],
+                                       slots[first:first + k, :3], slots[first:first + k, 3])
+            t = torch.where(r1 >= t_min[sel, None], r1, r2)
+            valid = ok & (t >= t_min[sel, None]) & (t <= t_max[sel, None])
+            t_l, c, v_l = _pick(t, valid)  # the leaf's least t, its lowest slot on ties
+            s_l = own[c.long()]
             b, i = best[sel], idx[sel]
-            keep = (ok[:, 0] & (t >= t_min[sel]) & (t <= t_max[sel])
-                    & ((t < b) | ((t == b) & (sph < i))))
-            best[sel] = torch.where(keep, t, b)
-            idx[sel] = torch.where(keep, sph, i)
+            keep = v_l & ((t_l < b) | ((t_l == b) & (s_l < i)))
+            best[sel] = torch.where(keep, t_l, b)
+            idx[sel] = torch.where(keep, s_l, i)
+        j = (j >> (((~j) & (j + 1)).bit_length() - 1)) + 1  # past j's subtree
+        if j == 1:
+            break
     hit = best < _BIG
     return SphereWalk(hit, best, torch.where(hit, idx, 0).to(torch.int32), nodes, spheres)
 
@@ -681,11 +711,12 @@ def intersect_scene_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
     o, d: (N, 3) world rays (directions may be unnormalized); t_min,
     t_max: scalars or (N,); u_vol: (N, V + G) free-flight uniforms, V the
     padded volume-table length, G the general volumes. stats: when a dict,
-    receives the per-ray test counts of the dense meshes' walks
-    (dense_scan_counts) and of the big meshes' (big_walk_counts).
+    receives the per-ray test counts of the sphere tree's walk
+    (analytic_candidates), of the dense meshes' walks (dense_scan_counts)
+    and of the big meshes' (big_walk_counts).
     """
     n = o.shape[0]
-    candidates = (analytic_candidates(scene, o, d, t_min, t_max, u_vol)
+    candidates = (analytic_candidates(scene, o, d, t_min, t_max, u_vol, stats=stats)
                   + gvol_candidates(scene, o, d, t_min, t_max, u_vol))
     for c in candidates:
         c.update(_gather_material(scene, c["mat"]))
@@ -908,7 +939,9 @@ def resolve_mesh_winners(scene: SceneData, obj_rays: dict, code, t, idx, u, v,
 
 def intersect_scene(scene: SceneData, o, d, t_min, t_max, u_vol) -> HitRecord:
     """The fused path (K2 + K3) for CUDA tensors, the plain spec for CPU
-    tensors. Profiler traces show the call as the span "render.intersect"."""
+    tensors. A scene with a sphere tree (64 spheres or more) takes K2's
+    tree route on the card and the tree's plain walk on the CPU. Profiler
+    traces show the call as the span "render.intersect"."""
     with profiling.span("render.intersect"):
         if o.device.type == "cuda":
             return intersect_scene_fused(scene, o, d, t_min, t_max, u_vol)

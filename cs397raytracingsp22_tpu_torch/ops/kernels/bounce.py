@@ -69,8 +69,8 @@ def kernel_attrs(dense: bool = True, sph_tree: bool = False, big: bool = False) 
 
 
 def staged_bytes(scene: SceneData) -> int:
-    """Shared memory a block of K1 (without a sphere tree), K2 or K4
-    stages for `scene`: the scene table, padded to 16 bytes, then the
+    """Shared memory a block of K1 or K2 (each without a sphere tree) or
+    K4 stages for `scene`: the scene table, padded to 16 bytes, then the
     superleaf trees (csrc/intersect.cuh::staged_bytes)."""
     return 4 * ((scene.kscene.numel() + 3) // 4 * 4 + scene.ksl_tree.numel())
 
@@ -99,11 +99,20 @@ def k1_staged_bytes(scene: SceneData) -> int:
     depth = big_depth(scene)
     if depth:
         return staged_bytes(scene) + 144 + 8 * 128 * depth
-    g = scene.sph_tree_leaves
-    if not g:
+    if not scene.sph_tree_leaves:
         return staged_bytes(scene)
-    table = int(scene.kscene.numel()) - 5 * scene.n_spheres
-    return 4 * ((table + 3) // 4 * 4 + int(scene.ksl_tree.numel())) + 64 * g
+    return sph_tree_staged_bytes(scene, 5 * scene.n_spheres)
+
+
+def sph_tree_staged_bytes(scene: SceneData, skip: int) -> int:
+    """Shared memory a block stages for `scene` on a sphere-tree route (K1,
+    and K2's tree route): the scene table from float `skip` on (past the
+    sphere rows: K1 skips them exactly, K2 from its last 16-byte word
+    before their end), padded to 16 bytes, the superleaf trees, and the
+    sphere tree's header and nodes, 64 B a leaf
+    (csrc/intersect.cuh::sph_tree_staged_bytes)."""
+    table = int(scene.kscene.numel()) - skip
+    return 4 * ((table + 3) // 4 * 4 + int(scene.ksl_tree.numel())) + 64 * scene.sph_tree_leaves
 
 
 def resident_blocks(scene: SceneData) -> int:

@@ -11,9 +11,17 @@ The launch is a persistent grid (`launch_config`: the blocks that stay
 resident on the card, no more than the rays' 32-ray tiles give each warp
 one) whose blocks stage the scene tables once. Its W warps take 32-ray
 tiles: warp w takes w, w + W, ... below `static_tiles` (every tile without
-a dense mesh, up to half with one), and the rest come from a ticket: two
-int32 on the device a stream (`ticket`), zero before a launch and put back
-to zero by its last warp.
+a dense mesh or a sphere tree, up to half with one), and the rest come
+from a ticket: two int32 on the device a stream (`ticket`), zero before a
+launch and put back to zero by its last warp.
+
+A scene with a sphere tree (models/scene.py::sphere_tree: 64 spheres or
+more) takes the tree route (`route`): a second kernel whose blocks
+stage the tree's nodes where the scan's stage the sphere rows, and whose
+rays walk it with K1's walk (csrc/intersect.cuh::walk_spheres), giving
+the scan's rows bit for bit; past 8,192 spheres, whose nodes do not fit a
+block, the scan. The plain version walks the tree (ops/intersect.py::
+walk_spheres).
 
 Output, per ray: t (float32; t_max on a miss; object-space t for a mesh
 winner), code (int32: -1 miss, 0 sphere, 1 plane, 2 triangle, 3 volume,
@@ -25,7 +33,8 @@ from its textures: the caller resolves mesh winners), u, v (barycentrics of a me
 volumes and meshes, whose winners the caller resolves) and frontface
 (bool; false for volumes and meshes).
 
-`LAUNCHES` counts the kernel's launches (and nothing else).
+`LAUNCHES` counts the kernel's launches (and nothing else), on both routes;
+`TREE_LAUNCHES` those on the tree route alone.
 """
 
 from __future__ import annotations
@@ -39,13 +48,16 @@ from cs397raytracingsp22_tpu_torch.ops import bvh as bvhlib
 from cs397raytracingsp22_tpu_torch.ops import intersect as isect
 from cs397raytracingsp22_tpu_torch.ops.kernels import _build
 from cs397raytracingsp22_tpu_torch.ops.kernels._build import check_tensor
-from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import staged_bytes
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import sph_tree_staged_bytes
+from cs397raytracingsp22_tpu_torch.ops.kernels.bounce import staged_bytes as bounce_staged_bytes
 from cs397raytracingsp22_tpu_torch.utils import vecmath as vm
 
 LAUNCHES = 0
+TREE_LAUNCHES = 0
 SMEM_LIMIT = 227 * 1024  # shared memory a block can use on the H100
 TILE = 32  # rays a warp takes at a time
 _OCCUPANCY: dict = {}  # (library, device, table sizes, dense meshes) -> (blocks an SM, threads)
+_ROUTES: dict = {}  # (table sizes, spheres, tree leaves) -> route
 _SMS: dict = {}  # device -> SMs
 _TICKETS: dict = {}  # (device, stream) -> the tile ticket
 _TYPED: set = set()  # libraries whose functions carry their C types
@@ -57,6 +69,7 @@ _ARGTYPES = [
     _I, _I, _P,  # grid, n_static, ticket
     _P, _I, _I, _I, _I, _I, _I, _I,  # scene, len, n_sph n_pln n_tri n_vol n_mat n_mesh
     _P, _P, _I,  # mesh_tri (kmesh_tri4), tree, tree_len
+    _P, _I,  # sph_table (ksph_tree), sph_leaves (0: the sphere scan)
     _P, _P, _P, _P, _P, _P, _P, _P,  # t, code, idx, mat, u, v, normal, ff
     _P,  # stream
 ]
@@ -71,20 +84,22 @@ def library() -> ctypes.CDLL:
     _TYPED.add(id(lib))
     lib.rt_scene_intersect_launch.argtypes = _ARGTYPES
     lib.rt_scene_intersect_launch.restype = _I
-    lib.rt_scene_intersect_attrs.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    lib.rt_scene_intersect_attrs.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
     lib.rt_scene_intersect_attrs.restype = _I
-    lib.rt_scene_intersect_occupancy.argtypes = [_I, _I, _I, ctypes.POINTER(_I),
+    lib.rt_scene_intersect_occupancy.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_I),
                                                  ctypes.POINTER(_I)]
     lib.rt_scene_intersect_occupancy.restype = _I
     return lib
 
 
-def kernel_attrs(dense: bool = True) -> tuple[int, int]:
+def kernel_attrs(dense: bool = True, sph_tree: bool = False) -> tuple[int, int]:
     """(registers per thread, local spill bytes) of the compiled kernel: the
     instantiation with the dense-mesh walk and the ticket, or (dense False)
-    the one for scenes without a dense mesh."""
+    the one for scenes without a dense mesh; with the sphere scan, or
+    (sph_tree True) the tree route's."""
     regs, local = _I(), _I()
-    rc = library().rt_scene_intersect_attrs(int(dense), ctypes.byref(regs), ctypes.byref(local))
+    rc = library().rt_scene_intersect_attrs(int(dense), int(sph_tree), ctypes.byref(regs),
+                                            ctypes.byref(local))
     if rc != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed with CUDA error {rc}")
     return regs.value, local.value
@@ -103,26 +118,53 @@ def grid_blocks(n: int, per_sm: int, sms: int, threads: int) -> int:
 
 def static_tiles(n_tiles: int, n_warps: int, dense: bool) -> int:
     """The tiles of a launch that its warps take by the fixed rule (warp w
-    of n_warps takes w, w + n_warps, ...): all of them without a dense mesh
+    of n_warps takes w, w + n_warps, ...): all of them without a walk
     (rays of about the same cost, where one atomic a tile would cost more
-    than it balances); with one, whole rounds of the warps up to half the
-    tiles (at least one round), the rest drawn from the ticket (PERF.md)."""
+    than it balances); with one (dense: a dense mesh or a sphere tree),
+    whole rounds of the warps up to half the tiles (at least one round),
+    the rest drawn from the ticket (PERF.md)."""
     if not dense:
         return n_tiles
     return max(1, n_tiles // 2 // n_warps) * n_warps
 
 
-def occupancy(scene: SceneData, lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+def route(scene: SceneData) -> tuple[int, int]:
+    """(leaves, staged bytes) of K2's launches on `scene`, decided once per
+    table sizes. leaves: those of the sphere tree K2 walks, 0 for the
+    sphere scan; the scene's tree (64 spheres or more) while its nodes fit
+    a block's shared memory with the rest of the table (up to 8,192
+    spheres), past that the scan, whose rows take 20 B a sphere. staged
+    bytes: what a block stages, on the tree route the table from its first
+    16-byte word past the sphere rows, the superleaf trees and the tree's
+    nodes (bounce.sph_tree_staged_bytes), else the scene table and the
+    superleaf trees (bounce.staged_bytes)."""
+    g = scene.sph_tree_leaves
+    key = (int(scene.kscene.numel()), int(scene.ksl_tree.numel()), scene.n_spheres, g)
+    if key not in _ROUTES:
+        tree = sph_tree_staged_bytes(scene, 5 * scene.n_spheres // 4 * 4) if g else 0
+        _ROUTES[key] = ((g, tree) if g and tree <= SMEM_LIMIT
+                        else (0, bounce_staged_bytes(scene)))
+    return _ROUTES[key]
+
+
+def staged_bytes(scene: SceneData) -> int:
+    """Shared memory a block of K2 stages for `scene` (route)."""
+    return route(scene)[1]
+
+
+def occupancy(scene: SceneData, lib: ctypes.CDLL | None = None,
+              rt: tuple[int, int] | None = None) -> tuple[int, int]:
     """(blocks resident on one SM, threads a block) of the instantiation that
-    `scene` launches when each block stages its scene table and superleaf
-    trees (cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached per
-    library, device, table sizes and instantiation)."""
+    `scene` launches when each block stages its tables (rt: its route, as
+    route gives it; cudaOccupancyMaxActiveBlocksPerMultiprocessor; cached
+    per library, device, table sizes and instantiation)."""
     lib = lib or library()
+    leaves = (rt or route(scene))[0]
     key = (id(lib), torch.cuda.current_device(), int(scene.kscene.numel()),
-           int(scene.ksl_tree.numel()), len(scene.dense_mesh_ids))
+           int(scene.ksl_tree.numel()), len(scene.dense_mesh_ids), scene.n_spheres, leaves)
     if key not in _OCCUPANCY:
         blocks, threads = _I(), _I()
-        rc = lib.rt_scene_intersect_occupancy(key[2], key[3], key[4], ctypes.byref(blocks),
+        rc = lib.rt_scene_intersect_occupancy(*key[2:], ctypes.byref(blocks),
                                               ctypes.byref(threads))
         if rc != 0:
             raise RuntimeError(
@@ -131,12 +173,15 @@ def occupancy(scene: SceneData, lib: ctypes.CDLL | None = None) -> tuple[int, in
     return _OCCUPANCY[key]
 
 
-def launch_config(scene: SceneData, n: int, lib: ctypes.CDLL | None = None) -> dict:
+def launch_config(scene: SceneData, n: int, lib: ctypes.CDLL | None = None,
+                  rt: tuple[int, int] | None = None) -> dict:
     """The launch's shape over n rays of `scene` on the current device:
     threads a block, rays a tile, resident blocks an SM, SMs, the grid,
     the tiles and those taken by the fixed rule (the rest come from the
-    ticket), and the shared memory a block stages."""
-    per_sm, threads = occupancy(scene, lib)
+    ticket), the shared memory a block stages, and the sphere tree's
+    leaves (0: the scan). rt: the scene's route, as route gives it."""
+    leaves, smem = rt = rt or route(scene)
+    per_sm, threads = occupancy(scene, lib, rt)
     dev = torch.cuda.current_device()
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -144,9 +189,9 @@ def launch_config(scene: SceneData, n: int, lib: ctypes.CDLL | None = None) -> d
     grid = grid_blocks(max(n, 1), per_sm, sms, threads)
     tiles = -(-n // TILE)
     return dict(threads=threads, tile=TILE, blocks_per_sm=per_sm, sms=sms, grid=grid,
-                tiles=tiles, static_tiles=static_tiles(tiles, grid * threads // TILE,
-                                                       bool(scene.dense_mesh_ids)),
-                smem_bytes=staged_bytes(scene))
+                tiles=tiles, static_tiles=static_tiles(
+                    tiles, grid * threads // TILE, bool(scene.dense_mesh_ids) or bool(leaves)),
+                smem_bytes=smem, leaves=leaves)
 
 
 def ticket(dev: torch.device, stream: int) -> torch.Tensor:
@@ -160,13 +205,15 @@ def ticket(dev: torch.device, stream: int) -> torch.Tensor:
 
 def scene_intersect_plain(scene: SceneData, o, d, t_min, t_max, u_vol,
                           stats: dict | None = None):
-    """The plain version: intersect_scene_plain's per-class tests and each
-    dense mesh's object-space scan, reduced to K2's outputs. stats: when a
-    dict, receives the dense meshes' per-ray test counts
-    (ops/intersect.py::dense_scan_counts)."""
+    """The plain version: intersect_scene_plain's per-class tests (the
+    sphere tree's walk on a scene with one) and each dense mesh's
+    object-space scan, reduced to K2's outputs. stats: when a dict,
+    receives the per-ray test counts of the sphere tree's walk
+    (analytic_candidates: "sph_nodes", "sph_spheres") and of the dense
+    meshes' (ops/intersect.py::dense_scan_counts)."""
     n = o.shape[0]
     t_max = torch.broadcast_to(vm.as_f32(t_max, o), (n,))
-    cands = isect.analytic_candidates(scene, o, d, t_min, t_max, u_vol)
+    cands = isect.analytic_candidates(scene, o, d, t_min, t_max, u_vol, stats=stats)
     zero = torch.zeros((n,), dtype=torch.float32, device=o.device)
     for c in cands:
         c["u"] = c["v"] = zero
@@ -202,7 +249,7 @@ def scene_intersect_cuda(scene: SceneData, o, d, t_min, t_max, u_vol):
     the current stream; anything the kernel does not take, a failed build
     or a failed launch raises.
     """
-    global LAUNCHES
+    global LAUNCHES, TREE_LAUNCHES
     if o.device.type == "cpu":
         return scene_intersect_plain(scene, o, d, t_min, t_max, u_vol)
     if o.device.type != "cuda":
@@ -216,21 +263,23 @@ def scene_intersect_cuda(scene: SceneData, o, d, t_min, t_max, u_vol):
     if u_vol.ndim != 2 or u_vol.shape[1] < scene.n_volumes:
         raise ValueError(f"u_vol needs shape (N, >= {scene.n_volumes}), got {tuple(u_vol.shape)}")
     check_tensor("u_vol", u_vol, torch.float32, (n, u_vol.shape[1]), dev)
-    for key in ("kscene", "kmesh_tri4", "ksl_tree"):
+    for key in ("kscene", "kmesh_tri4", "ksl_tree", "ksph_tree"):
         t = getattr(scene, key)
         check_tensor(f"scene.{key}", t, torch.float32, tuple(t.shape), dev)
         if t.data_ptr() % 16:
             raise ValueError(f"scene.{key} must start on a 16-byte boundary (bulk copy)")
-    staged = staged_bytes(scene)
-    if staged > SMEM_LIMIT:
-        raise ValueError(f"the scene table and superleaf trees ({staged} B) exceed shared memory")
+    rt = route(scene)
+    if rt[1] > SMEM_LIMIT:
+        what = "and sphere tree" if rt[0] else "and superleaf trees"
+        raise ValueError(f"the scene table {what} ({rt[1]} B) exceed shared memory")
     if n * max(3, u_vol.shape[1]) >= 2**31:
         raise ValueError(f"{n} rays exceed the kernel's int32 indexing")
     out = empty_outputs(n, dev)
     if n == 0:  # nothing to launch
         return out
-    launch(scene, (o, d, t_min, t_max, u_vol), out)
+    launch(scene, (o, d, t_min, t_max, u_vol), out, rt)
     LAUNCHES += 1
+    TREE_LAUNCHES += bool(rt[0])
     return out
 
 
@@ -243,10 +292,11 @@ def empty_outputs(n: int, dev) -> tuple:
             torch.empty((n, 3), **f32), torch.empty((n,), dtype=torch.bool, device=dev))
 
 
-def launch(scene: SceneData, ins: tuple, out: tuple) -> None:
+def launch(scene: SceneData, ins: tuple, out: tuple, rt: tuple[int, int] | None = None) -> None:
     """One launch of the kernel on the current stream of the inputs' device:
     ins = (o, d, t_min, t_max, u_vol), n > 0 rays, as scene_intersect_cuda
-    checks them; out from empty_outputs. Counts nothing: the wrapper counts
+    checks them; out from empty_outputs; rt the scene's route, as route
+    gives it. Counts nothing: the wrapper counts
     its launches, and a timing that leaves the wrapper's checks and
     allocations out of its bracket calls this (chip_smoke.py)."""
     o, d, t_min, t_max, u_vol = ins
@@ -254,7 +304,7 @@ def launch(scene: SceneData, ins: tuple, out: tuple) -> None:
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        cfg = launch_config(scene, o.shape[0], lib)
+        cfg = launch_config(scene, o.shape[0], lib, rt)
         rc = lib.rt_scene_intersect_launch(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(), u_vol.data_ptr(),
             int(u_vol.shape[1]), o.shape[0], cfg["grid"], cfg["static_tiles"],
@@ -263,6 +313,7 @@ def launch(scene: SceneData, ins: tuple, out: tuple) -> None:
             scene.n_spheres, scene.n_planes, scene.n_tris, scene.n_volumes,
             int(scene.mat_type.shape[0]), len(scene.dense_mesh_ids),
             scene.kmesh_tri4.data_ptr(), scene.ksl_tree.data_ptr(), int(scene.ksl_tree.numel()),
+            scene.ksph_tree.data_ptr(), cfg["leaves"],
             *(x.data_ptr() for x in out), stream,
         )
     if rc != 0:

@@ -19,6 +19,18 @@ teapot.
 
     python -m cs397raytracingsp22_tpu_torch.tools.walk_counts [pixels] [--mesh 6k|32k] [--device cpu]
 
+With `--scene rtnw-nee` it counts instead the sphere-tree walk that K2
+takes under next-event estimation on The Next Week's final scene
+(scenes/rtnw_final.py, 800² × 64 spp, depth 40, 1,006 spheres): the rays
+of `pixels` neighbouring pixels go through the NEE executor
+(render/integrator.py::path_trace_shrink) with the plain intersection,
+whose stats count the walk's nodes and spheres a ray (ops/intersect.py::
+walk_spheres); printed a bounce, for its bounce rays and its shadow rays
+apart: the rays, those with a window (a shadow ray that does not shoot
+has none), and the nodes and spheres a ray tests, with a warp's maximum.
+
+    python -m cs397raytracingsp22_tpu_torch.tools.walk_counts [pixels] --scene rtnw-nee [--device cpu]
+
 Counts, not times: the plain path runs on any device (the card unless
 --device cpu is given).
 """
@@ -33,7 +45,7 @@ from cs397raytracingsp22_tpu_torch.models.scene import resolve_device
 from cs397raytracingsp22_tpu_torch.ops import bvh
 from cs397raytracingsp22_tpu_torch.ops import intersect as isect
 from cs397raytracingsp22_tpu_torch.render import driver, integrator
-from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k
+from cs397raytracingsp22_tpu_torch.scenes import bench_scene, bench_teapot_32k, rtnw_final
 from cs397raytracingsp22_tpu_torch.utils import rng as rnglib
 from cs397raytracingsp22_tpu_torch.utils import threefry
 
@@ -94,12 +106,62 @@ def walk_counts(pixels: int = 256, device="cuda", mesh: str = "6k") -> list[dict
     return out
 
 
+def rtnw_nee_counts(pixels: int = 64, device="cuda", side: int = 800, spp: int = 64,
+                    depth: int = 40) -> list[dict]:
+    """Per intersection call of the NEE executor on `pixels` neighbouring
+    pixels from the middle of The Next Week's final scene at side² × spp,
+    in call order: {"kind" ("bounce" or "shadow"), "bounce" (its index), "rays",
+    "windows" (rays with t_max >= t_min), "nodes", "spheres" (means over
+    those), "warp_nodes_max", "warp_spheres_max"}: the sphere tree's walk
+    as K2 takes it (its plain version's counts)."""
+    dev = resolve_device(device)
+    sc = rtnw_final.build(side, side, spp, depth)
+    sd = sc.compile(device=dev)
+    first = (side * side - pixels) // 2 + side // 2
+    ids = torch.arange(first, first + pixels, dtype=torch.int32, device=dev)
+    key = threefry.key_words(0)
+    o, d, uid = driver._gen_chunk_rays(sc.camera, ids, key, 0, spp, 1)
+    out = []
+
+    def counted(scene, o, d, t_min, t_max, u_vol):
+        st: dict = {}
+        hit = isect.intersect_scene_plain(scene, o, d, t_min, t_max, u_vol, stats=st)
+        # a bounce's rays, then its shadow rays (none after the last bounce)
+        shadow = len(out) % 2 == 1
+        n = o.shape[0]
+        win = t_max >= t_min
+        nodes, spheres = st["sph_nodes"] * win, st["sph_spheres"] * win
+        pad = -n % WARP  # whole warps, as the executor's launches tile them
+        warp = [torch.nn.functional.pad(x, (0, pad)).view(-1, WARP).amax(dim=1).float().mean()
+                for x in (nodes, spheres)]
+        per = max(int(win.sum()), 1)
+        out.append(dict(kind="shadow" if shadow else "bounce", bounce=len(out) // 2,
+                        rays=n, windows=int(win.sum()), nodes=float(nodes.sum()) / per,
+                        spheres=float(spheres.sum()) / per, warp_nodes_max=float(warp[0]),
+                        warp_spheres_max=float(warp[1])))
+        return hit
+
+    integrator.path_trace_shrink(sd, o, d, uid, key, depth, sc.camera.max_trace_dist, nee=True,
+                                 intersect=counted)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("pixels", nargs="?", type=int, default=256)
     ap.add_argument("--mesh", choices=("6k", "32k"), default="6k")
+    ap.add_argument("--scene", choices=("bench", "rtnw-nee"), default="bench")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    if args.scene == "rtnw-nee":
+        print(f"rtnw final scene 800²x64spp depth 40 under NEE: {args.pixels} pixels "
+              f"({args.pixels * 64} rays, warps of {WARP}), K2's sphere-tree walk a call")
+        for r in rtnw_nee_counts(args.pixels, args.device):
+            print(f"bounce {r['bounce']} {r['kind']} rays: {r['rays']}, {r['windows']} with a "
+                  f"window; sphere-tree nodes a ray {r['nodes']:.2f} (a warp max "
+                  f"{r['warp_nodes_max']:.2f}), spheres a ray {r['spheres']:.2f} (a warp max "
+                  f"{r['warp_spheres_max']:.2f})")
+        return 0
     leaf, node = ("superleaves", "nodes") if args.mesh == "6k" else ("triangles", "BVH boxes")
     print(f"bench teapot_{args.mesh} {SIDE}²x{SPP}spp depth {DEPTH}: {args.pixels} pixels "
           f"({args.pixels * SPP} rays, warps of {WARP}), walk against the analytic best")

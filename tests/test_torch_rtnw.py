@@ -200,7 +200,8 @@ def test_gate_takes_the_final_scene_and_refuses_what_does_not_fit():
     # the table less its sphere rows, the superleaf tree, the header and nodes
     assert bounce.k1_staged_bytes(sd) == (4 * ((sd.kscene.numel() - 5 * 1006 + 3) // 4 * 4
                                                + sd.ksl_tree.numel()) + 64 * 256)
-    # K2 and K4 stage the whole table
+    # K4 stages the whole table (K2 the tree in place of the sphere rows:
+    # tests/test_torch_rtnw_nee.py)
     assert bounce.staged_bytes(sd) == 4 * ((sd.kscene.numel() + 3) // 4 * 4 + sd.ksl_tree.numel())
     white = Lambertian(albedo=(0.73, 0.73, 0.73))
     big = Scene(camera=rtnw_final.build(4, 4, 1, 1).camera, objects=[
